@@ -3,14 +3,18 @@
 
 Builds the hand-written CUDA kernels from ``psac_tpu_torch/csrc``, checks
 each against its plain PyTorch version on the card, then drives the main
-path (SA+LCP of 2^26 random DNA, SA+LCP of 2^24 repetitive DNA, and the
-suffix tree of the 2^26 text) through the user entry points, holds every
-result against the native SA-IS + Kasai oracle or the plain path, and
-prints the kernel table, the card's name and power limit, and a last JSON
-line.  Any mismatch raises; the exit code is then non-zero.
+paths through the user entry points: SA+LCP of 2^26 random DNA, SA+LCP of
+2^24 repetitive DNA and the suffix tree of the 2^26 text; the public ANSV
+of 2^24 values for five match-type pairs; the DESA of the 2^26 text with
+both top-level indexes, answering batches of 65,536 patterns of lengths 8,
+20 and 64.  Every result is held against the native SA-IS + Kasai oracle,
+the sequential ANSV oracle or the plain path; the script prints the kernel
+table, the card's name and power limit, and a last JSON line.  Any
+mismatch raises; the exit code is then non-zero.
 
 Run from the repository root:  python3 chip_smoke.py
-(``--log2n``/``--rep-log2n`` shrink the corpora for a quick rehearsal.)
+(``--log2n``/``--rep-log2n``/``--ansv-log2n``/``--batch`` shrink the work
+for a quick rehearsal.)
 """
 
 from __future__ import annotations
@@ -89,12 +93,279 @@ def tansv_cases():
     return {k: v.astype(np.int32) for k, v in cases.items()}
 
 
+def counter(fns):
+    """(reset, read) over the launch counts of kernel wrappers."""
+    def reset():
+        for fn in fns:
+            fn.launches = 0
+
+    def read():
+        return {fn.__name__: fn.launches for fn in fns}
+
+    return reset, read
+
+
+def check_k3_k5(dev, lcp_adj, log2n: int, ansv_log2n: int, kern: dict):
+    """K3 (one run-stack chain) and K5 (the block engine's previous-smaller
+    pass) against their plain versions: the random values of the public
+    ANSV phase and the 2^26 LCP, every match type, int32 and int64."""
+    import torch
+
+    from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_EQ, NEAREST_SM
+    from psac_tpu_torch.ops.bansv import block_psv, block_psv_plain
+    from psac_tpu_torch.ops.nsv_scan import nsv_scan_left, nsv_scan_left_plain
+
+    rnd = torch.from_numpy(ansv_values(ansv_log2n)).to(dev)
+    errs = []
+    for x in (rnd, lcp_adj):
+        for typ in (NEAREST_SM, NEAREST_EQ, FURTHEST_EQ):
+            errs.append(max_abs_err(nsv_scan_left(x, typ),
+                                    nsv_scan_left_plain(x, typ)))
+    kern["nsv_scan_left"] = dict(
+        route="cuda", source="psac_tpu_torch/csrc/nsv_scan.cu",
+        replaces="psac_tpu/ops/nsv_scan.py:392", max_abs_err=max(errs),
+        ms=cuda_ms(lambda: nsv_scan_left(rnd, FURTHEST_EQ), 1),
+        plain_ms=cuda_ms(lambda: nsv_scan_left_plain(rnd, FURTHEST_EQ), 1))
+    log(f"[kernel] K3 nsv_scan_left == plain for NSM, NEQ, FEQ on "
+        f"2^{ansv_log2n} random int32 and the 2^{log2n} LCP")
+
+    wide = torch.from_numpy(
+        ansv_values(ansv_log2n - 2).astype(np.int64) << 33).to(dev)
+    errs = [max_abs_err((block_psv(x, strict),), (block_psv_plain(x, strict),))
+            for x in (rnd, lcp_adj, wide) for strict in (True, False)]
+    kern["block_psv"] = dict(
+        route="cuda", source="psac_tpu_torch/csrc/bansv.cu",
+        replaces="psac_tpu/ops/bansv.py:76", max_abs_err=max(errs),
+        ms=cuda_ms(lambda: block_psv(lcp_adj, True), 3),
+        plain_ms=cuda_ms(lambda: block_psv_plain(lcp_adj, True), 1))
+    log(f"[kernel] K5 block_psv == plain, strict and not, on 2^{ansv_log2n} "
+        f"random int32, the 2^{log2n} LCP and 2^{ansv_log2n - 2} int64")
+
+
+def ansv_values(log2n: int, seed: int = 24) -> np.ndarray:
+    """Seeded random int32 values with ties (a 2^16-value range)."""
+    rng = np.random.RandomState(seed + log2n)
+    return rng.randint(0, 1 << 16, 1 << log2n).astype(np.int32)
+
+
+def public_ansv_phase(dev, log2n: int, kern: dict, card: str) -> dict:
+    """The public ``ansv`` on the card for five match-type pairs, each call
+    counted on its own and held against the plain path on the card; the
+    same pairs at 2^16 against ``ansv_seq``; wide int64 values at 2^20."""
+    import torch
+
+    from psac_tpu_torch import ansv
+    from psac_tpu_torch.ops.ansv import (FURTHEST_EQ, NEAREST_EQ, NEAREST_SM,
+                                         ansv_seq)
+    from psac_tpu_torch.ops.bansv import block_psv
+    from psac_tpu_torch.ops.nsv_scan import (nsv_scan_dual, nsv_scan_left,
+                                             nsv_scan_spine)
+    from psac_tpu_torch.ops.tansv import tile_side
+    from psac_tpu_torch.parallel.ansv import PLAIN
+
+    reset, read = counter((tile_side, nsv_scan_spine, nsv_scan_dual,
+                           nsv_scan_left, block_psv))
+    NSM, NEQ, FEQ = NEAREST_SM, NEAREST_EQ, FURTHEST_EQ
+    expect = {(NSM, NSM): {"block_psv": 2},
+              (NEQ, FEQ): {"block_psv": 1, "nsv_scan_left": 1},
+              (FEQ, NEQ): {"block_psv": 1, "nsv_scan_left": 1},
+              (FEQ, FEQ): {"nsv_scan_dual": 1},
+              (FEQ, NSM): {"tile_side": 2, "nsv_scan_spine": 1}}
+    names = {NSM: "NSM", NEQ: "NEQ", FEQ: "FEQ"}
+    vals = ansv_values(log2n)
+    total = dict.fromkeys(read(), 0)
+    times = {}
+
+    def run(lt, rt, **kw):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ansv(vals, lt, rt, device=dev, **kw)
+        dt = time.perf_counter() - t0
+        counts = read()
+        for k, v in counts.items():
+            total[k] += v
+        want = ansv(vals, lt, rt, device=dev, kernels=PLAIN, **kw)
+        for g, w in zip(got, want):
+            for a, b in (zip(g, w) if kw else ((g, w),)):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"ansv {names[lt]},{names[rt]} {kw} "
+                                         "differs from the plain path")
+        return dt, counts
+
+    for (lt, rt), want in expect.items():
+        dt, counts = run(lt, rt)
+        ran = {k: v for k, v in counts.items() if v}
+        if ran != want:
+            raise AssertionError(f"ansv {names[lt]},{names[rt]} launched "
+                                 f"{ran}, expected {want}")
+        times[f"{names[lt]},{names[rt]}"] = dt
+        log(f"[ansv] 2^{log2n} {names[lt]},{names[rt]}: {dt:.3f} s, "
+            f"launches {ran}, == plain path")
+    dt, counts = run(FEQ, NSM, indexing="local")
+    log(f"[ansv] 2^{log2n} FEQ,NSM indexing=local: {dt:.3f} s == plain path")
+
+    small = vals[:1 << 16]
+    for lt, rt in expect:
+        got = ansv(small, lt, rt, device=dev)
+        for g, w in zip(got, ansv_seq(small, lt, rt, nonsv=len(small))):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"ansv {names[lt]},{names[rt]} at 2^16 "
+                                     "differs from ansv_seq")
+    log("[ansv] the five pairs at 2^16 == ansv_seq")
+
+    wide = ansv_values(20).astype(np.int64) << 33
+    for lt, rt in ((NSM, NSM), (FEQ, NEQ), (FEQ, FEQ)):
+        reset()
+        got = ansv(wide, lt, rt, device=dev)
+        counts = read()
+        if counts["block_psv"] != 2 or sum(counts.values()) != 2:
+            raise AssertionError(f"wide ansv launched {counts}")
+        for k, v in counts.items():
+            total[k] += v
+        want = ansv(wide, lt, rt, device=dev, kernels=PLAIN)
+        for g, w in zip(got, want):
+            if not np.array_equal(g, w):
+                raise AssertionError("wide ansv differs from the plain path")
+    log("[ansv] 2^20 int64 values (NSM,NSM), (FEQ,NEQ), (FEQ,FEQ): K5 only, "
+        "== plain path")
+    for k in ("nsv_scan_left", "block_psv"):
+        kern[k]["launches"] = total[k]
+        if total[k] == 0:
+            raise AssertionError(f"{k} was not launched by the public ansv")
+    log(f"[ansv] launches over the public ANSV calls: {total} on {card}")
+    return times
+
+
+def sa_bounds(tpad: np.ndarray, sa: np.ndarray, pats: np.ndarray,
+              upper: bool) -> np.ndarray:
+    """Vectorized binary search of the native SA: per pattern row, the
+    first SA row whose suffix is >= (upper: >) the pattern, comparing the
+    pattern's length; ``tpad`` is the text with zero bytes past its end."""
+    n = len(sa)
+    B, L = pats.shape
+    lo = np.zeros(B, np.int64)
+    hi = np.full(B, n, np.int64)
+    rows = np.arange(B)
+    cols = np.arange(L)
+    while (lo < hi).any():
+        active = lo < hi
+        mid = (lo + hi) // 2
+        win = tpad[sa[np.minimum(mid, n - 1)][:, None] + cols]
+        diff = win != pats
+        first = diff.argmax(axis=1)
+        less = diff.any(axis=1) & (win[rows, first] < pats[rows, first])
+        right = less | (upper & ~diff.any(axis=1))
+        lo = np.where(active & right, mid + 1, lo)
+        hi = np.where(active & ~right, mid, hi)
+    return lo
+
+
+def desa_phase(dev, text: bytes, sa_ref: np.ndarray, batch: int, kern: dict,
+               card: str) -> dict:
+    """DESA of the text on the card with the TLLT and the TLDT; batches of
+    ``batch`` patterns (half text substrings, half random DNA) of lengths
+    8, 20 and 64; every range checked against the native SA."""
+    import torch
+
+    from psac_tpu_torch import build_desa
+    from psac_tpu_torch.models.desa import _sample_mask_local
+    from psac_tpu_torch.models.suffix_array import (construct_device,
+                                                    encode_and_shard)
+    from psac_tpu_torch.ops.bansv import block_psv
+    from psac_tpu_torch.ops.nsv_scan import nsv_scan_left
+    from psac_tpu_torch.parallel.ansv import PLAIN
+    from psac_tpu_torch.seq import SAIndex
+
+    n = len(text)
+    reset, read = counter((block_psv, nsv_scan_left))
+    out = {}
+    idx = {}
+    for tli in ("tllt", "tldt"):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx[tli] = build_desa(text, dev, tli=tli)
+        torch.cuda.synchronize()
+        out[f"build_{tli}_s"] = time.perf_counter() - t0
+        counts = read()
+        log(f"[desa] build 2^{n.bit_length() - 1} {tli}: "
+            f"{out[f'build_{tli}_s']:.3f} s, launches {counts}")
+        if tli == "tldt":
+            if counts["block_psv"] == 0:
+                raise AssertionError("K5 was not launched by the TLDT build")
+            kern["block_psv"]["launches"] += counts["block_psv"]
+    samp = idx["tldt"].samp
+    log(f"[desa] tldt samples {samp['m']} rows (maxsize {n // 128}); "
+        f"tllt k {idx['tllt'].k}, table {idx['tllt'].table.shape[0]}")
+
+    xs, alpha, n_, N = encode_and_shard(text, dev)
+    dsa = construct_device(xs, alpha, n_, N)
+    mask = _sample_mask_local(dsa.lcp, n=n, maxsize=n // 128)
+    plain = _sample_mask_local(dsa.lcp, n=n, maxsize=n // 128, kernels=PLAIN)
+    if not torch.equal(mask, plain):
+        raise AssertionError("TLDT sampling mask differs from the plain path")
+    log(f"[desa] TLDT sampling mask == plain path ({int(mask.sum())} rows)")
+    del xs, dsa, mask, plain
+
+    rng = np.random.RandomState(2026)
+    tarr = np.frombuffer(text, np.uint8)
+    dna = np.frombuffer(b"ACGT", np.uint8)
+    oracle = SAIndex(text, sa_ref)
+    for L in (8, 20, 64):
+        half = batch // 2
+        starts = rng.randint(0, n - L, half)
+        sub = tarr[starts[:, None] + np.arange(L)]
+        rnd = dna[rng.randint(0, 4, (batch - half, L))]
+        mat = np.concatenate([sub, rnd])
+        pats = [row.tobytes() for row in mat]
+        res = {}
+        for tli, d in idx.items():
+            d.bulk_locate(pats)  # warm-up at this shape
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[tli] = d.bulk_locate(pats)
+            dt = time.perf_counter() - t0
+            out[f"qps_{tli}_L{L}"] = batch / dt
+            log(f"[desa] {tli} bulk_locate {batch} x len {L}: {dt:.3f} s, "
+                f"{batch / dt:,.0f} patterns/s, blind-search steps "
+                f"{d.last_stats['steps']}, readbacks "
+                f"{d.last_stats['readbacks']}")
+        if not np.array_equal(res["tllt"], res["tldt"]):
+            raise AssertionError(f"tllt and tldt ranges differ at len {L}")
+        tpad = np.concatenate([tarr, np.zeros(L, np.uint8)])
+        lo = sa_bounds(tpad, sa_ref, mat, False)
+        hi = sa_bounds(tpad, sa_ref, mat, True)
+        got = res["tllt"]
+        found = hi > lo
+        if not (np.array_equal(got[found, 0], lo[found])
+                and np.array_equal(got[found, 1], hi[found])
+                and np.all(got[~found, 0] == got[~found, 1])):
+            raise AssertionError(f"bulk_locate ranges at len {L} differ from "
+                                 "the native SA")
+        for i in rng.choice(batch, min(batch, 1024), replace=False):
+            want = oracle.locate(pats[i])
+            if not (tuple(got[i]) == want
+                    or (got[i, 0] == got[i, 1] and want[0] == want[1])):
+                raise AssertionError(f"pattern {i} of len {L}: {got[i]} vs "
+                                     f"SAIndex {want}")
+        log(f"[desa] len {L}: {int(found.sum())} of {batch} patterns occur "
+            f"({int((hi - lo).sum())} rows); every range == the native SA, "
+            f"{min(batch, 1024)} == SAIndex")
+    log(f"[desa] on {card}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log2n", type=int, default=26,
                     help="random DNA corpus size (log2 chars)")
     ap.add_argument("--rep-log2n", type=int, default=24,
                     help="repetitive DNA corpus size (log2 chars)")
+    ap.add_argument("--ansv-log2n", type=int, default=24,
+                    help="public ANSV input size (log2 values)")
+    ap.add_argument("--batch", type=int, default=65536,
+                    help="DESA patterns per bulk_locate batch")
     args = ap.parse_args()
 
     # ---- 1. device ------------------------------------------------------
@@ -217,20 +488,15 @@ def main() -> int:
             lcp_adj, xr, FURTHEST_EQ, NEAREST_SM), 1))
     log("[kernel] K2 nsv_scan_dual == plain for (FEQ, NSM) at full length, "
         "(NEQ, NEQ) and (NSM, FEQ) at 2^20, and an increasing 2^17 array")
+    check_k3_k5(dev, lcp_adj, args.log2n, args.ansv_log2n, kern)
     del lcp_adj, xr, small, inc, spine_f, spine_n, kf, vf, kn, vn
     for k, v in kern.items():
         log(f"[kernel] {k}: kernel {v['ms']:.3f} ms, plain "
             f"{v['plain_ms']:.3f} ms")
 
     # ---- 4. main path (counted) ------------------------------------------
-    counted = (tile_side, nsv_scan_spine, nsv_scan_dual)
-
-    def reset_counts():
-        for fn in counted:
-            fn.launches = 0
-
-    def read_counts():
-        return {fn.__name__: fn.launches for fn in counted}
+    reset_counts, read_counts = counter((tile_side, nsv_scan_spine,
+                                         nsv_scan_dual))
 
     # SA+LCP and suffix tree of the 2^26 text: K4 and K1 must run here
     reset_counts()
@@ -345,11 +611,22 @@ def main() -> int:
     log("[small] ST == suffix_tree_oracle for mississippi, rand_dna(4177), "
         "abc*300")
 
-    # ---- 7. results -------------------------------------------------------
+    # ---- 7. public ANSV (counted per call) --------------------------------
+    ansv_times = public_ansv_phase(dev, args.ansv_log2n, kern, card)
+
+    # ---- 8. DESA of the 2^26 text: both top-level indexes, bulk_locate ---
+    desa = desa_phase(dev, text, sa_ref, args.batch, kern, card)
+
+    # ---- 9. results -------------------------------------------------------
     log(f"[result] SA+LCP 2^{args.log2n} DNA {t_sa:.3f} s "
         f"({n / t_sa / 1e6:.1f} MB/s; warm {t_sa_warm:.3f} s), rep_dna "
         f"2^{args.rep_log2n} {t_rep:.3f} s, ST {t_st:.3f} s (warm "
         f"{t_st_warm:.3f} s) on {card}")
+    log(f"[result] public ANSV 2^{args.ansv_log2n} s: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ansv_times.items()))
+    log("[result] DESA: " + ", ".join(
+        f"{k} {v:.3f}" if k.startswith("build") else f"{k} {v:,.0f}"
+        for k, v in desa.items()))
     table = [dict(name=k, **v) for k, v in kern.items()]
     print(json.dumps({"kernels": table}))
     print(card)

@@ -57,8 +57,6 @@ class SAConfig:
         if not self.fused:
             raise NotImplementedError(
                 "fused=False (the multi-shard host-driven loop) is not ported")
-        if self.construct_lc:
-            raise NotImplementedError("construct_lc (DESA's Lc array) is not ported")
 
 
 DEFAULT = SAConfig()

@@ -5,7 +5,9 @@
 //     explicit-index stream (xf, gf) that also emits each element's run
 //     first after merge/push (fh), and a NEAREST_SM chain over (xn, gn);
 //   * K2 nsv_scan_dual (_dual_kernel): left matches of x (typ_l) and of the
-//     reversed array xr (typ_r), any of the three match types.
+//     reversed array xr (typ_r), any of the three match types;
+//   * K3 nsv_scan_left (_scan_kernel): left matches of x, one chain of any
+//     of the three match types.
 //
 // Semantics are those of psac_tpu/ops/ansv.py::_left_scan: a monotone stack
 // of runs (value, endpoint) where the endpoint is the run's FIRST index for
@@ -15,7 +17,7 @@
 //
 // The TPU grid ran its 2048-element chunks in order and carried the stack
 // across them in SMEM (8192 runs, with an overflow flag).  Here each chain
-// is one warp on its own block (the two chains of a launch run on two SMs):
+// is one warp on its own block (the two chains of K1/K2 run on two SMs):
 // the warp stages a chunk of B inputs into shared memory with coalesced
 // loads, lane 0 runs the scan over it, and the warp writes the chunk's
 // answers back.  The top run lives in lane 0's registers; the cells below
@@ -206,6 +208,15 @@ dual_kernel(const int32_t* x, const int32_t* xr, int32_t* il, int32_t* vl,
   }
 }
 
+// One chain: left matches of x for match type typ (K3).
+__global__ void __launch_bounds__(32)
+left_kernel(const int32_t* x, int32_t* idx, int32_t* val, int32_t* flag,
+            int32_t* scratch, long long s, int typ) {
+  extern __shared__ int32_t smem[];
+  if (threadIdx.x == 0) flag[0] = 0;
+  run_chain_typ(typ, x, idx, val, scratch, scratch + s, s, smem);
+}
+
 }  // namespace
 
 extern "C" {
@@ -232,6 +243,17 @@ int psac_nsv_dual(const int32_t* x, const int32_t* xr, int32_t* il,
   if (err != cudaSuccess) return static_cast<int>(err);
   dual_kernel<<<2, 32, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       x, xr, il, vl, ir, vr, flag, scratch, s, typ_l, typ_r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scratch: 2*s int32.  Returns the first CUDA error of the launch, 0 if none.
+int psac_nsv_left(const int32_t* x, int32_t* idx, int32_t* val, int32_t* flag,
+                  int32_t* scratch, long long s, int typ, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      left_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  left_kernel<<<1, 32, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      x, idx, val, flag, scratch, s, typ);
   return static_cast<int>(cudaGetLastError());
 }
 

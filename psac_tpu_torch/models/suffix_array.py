@@ -30,9 +30,10 @@ from psac_tpu_torch.ops.rmq import (bulk_rmq_local, build_local_rmq,
                                     edge_mins, query_local_rmq)
 from psac_tpu_torch.parallel.collectives import (global_cummax,
                                                  global_shift_left_dyn,
+                                                 halo_from_left,
                                                  halo_from_right, prev_of)
 from psac_tpu_torch.parallel.mesh import padded_size
-from psac_tpu_torch.parallel.route import route_scatter
+from psac_tpu_torch.parallel.route import route_apply, route_scatter
 from psac_tpu_torch.parallel.sort import (dist_sort_local, lex_perm,
                                           scatter_by_index_local)
 
@@ -50,7 +51,9 @@ class SuffixArray:
 @dataclasses.dataclass
 class DeviceSuffixArray:
     """Device-resident result.  ``sa``/``lcp``/``isa`` are (N,) padded: the
-    first N - n SA rows are the all-sentinel padding suffixes."""
+    first N - n SA rows are the all-sentinel padding suffixes.  ``lc`` is
+    the (N,) int32 left-branching-character array when
+    ``SAConfig.construct_lc`` was set."""
 
     sa: torch.Tensor
     lcp: torch.Tensor | None
@@ -58,6 +61,7 @@ class DeviceSuffixArray:
     alphabet: object
     n: int
     N: int
+    lc: torch.Tensor | None = None
 
     @classmethod
     def from_numpy(cls, sa, lcp, isa, alphabet, n: int, N: int,
@@ -466,8 +470,39 @@ def construct_device(xs, alpha, n: int, N: int,
     if not tail_ran and ue != 0:
         raise RuntimeError(f"dense loop stopped with {ue} unfinished "
                            f"elements ({ub} buckets)")
-    return DeviceSuffixArray(sa=sa, lcp=lcp, isa=isa, alphabet=alpha, n=n,
-                             N=N)
+    dsa = DeviceSuffixArray(sa=sa, lcp=lcp, isa=isa, alphabet=alpha, n=n, N=N)
+    if config.construct_lc:
+        if not config.construct_lcp:
+            raise ValueError("construct_lc requires construct_lcp")
+        dsa = dataclasses.replace(dsa, lc=compute_lc_device(dsa, xs))
+    return dsa
+
+
+def _lc_local(lcp, sa, xs, n: int) -> torch.Tensor:
+    """Lc[g] = text[SA[g-1] + LCP[g]] (0 past the end / at the first row)."""
+    N = lcp.shape[0]
+    off = N - n
+    g = torch.arange(N, device=lcp.device)
+    prev = torch.cat([halo_from_left(sa, 1, fill=0), sa[:-1]])
+    idx = prev + lcp
+    real = (g > off) & (idx < n)
+    safe = torch.where(real, idx, 0).clamp(0, N - 1)
+
+    def gather(recv, recv_valid):
+        (q,) = recv
+        return (xs[q],)
+
+    (ch,) = route_apply((safe,), gather, skip=~real)
+    return torch.where(real, ch, 0)
+
+
+def compute_lc_device(dsa: DeviceSuffixArray, xs) -> torch.Tensor:
+    """Left-branching-character array (reference ``_CONSTRUCT_LC``:
+    Lc[i] = S[SA[i-1] + LCP[i]]), one gather after the construction.
+    Returns the (N,) int32 padded array (codes, 0 = none/$)."""
+    if dsa.lcp is None:
+        raise ValueError("Lc requires the LCP array")
+    return _lc_local(dsa.lcp, dsa.sa, xs, dsa.n)
 
 
 def build_suffix_array(text, device,

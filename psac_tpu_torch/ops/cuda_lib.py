@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``psac_tpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, loaded with
+``sm_90a`` (one ``nvcc`` per source, all started together) and the objects
+are linked into one shared library with a plain C interface, loaded with
 ``ctypes``.  The build runs at first use into ``psac_tpu_torch/_build/``
 (ignored by git) and is redone when a source is newer than the library.
 Nothing here runs at import time, so the package imports on machines
@@ -31,7 +32,10 @@ _I32 = ctypes.c_int
 _SIGNATURES = {
     "psac_nsv_spine": [_P] * 11 + [_I64, _P],
     "psac_nsv_dual": [_P] * 8 + [_I64, _I32, _I32, _P],
+    "psac_nsv_left": [_P] * 5 + [_I64, _I32, _P],
     "psac_tansv_tile": [_P] * 8 + [_I64, _I32, _P],
+    "psac_block_psv_i32": [_P] * 3 + [_I64, _I32, _P],
+    "psac_block_psv_i64": [_P] * 3 + [_I64, _I32, _P],
 }
 
 _lib = None
@@ -62,16 +66,33 @@ def build() -> float:
             os.path.getmtime(p) for p in srcs):
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp] + srcs
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(p) + f".{tag}.o")
+            for p in srcs]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+         "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-c", "-o", obj, src],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in zip(srcs, objs)]
+    logs = []
+    for src, proc in zip(srcs, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
+                               f"({proc.returncode}):\n{err}")
+        logs.append(err)
+    tmp = f"{_SO}.{tag}"
+    res = subprocess.run([nvcc, "-shared", "-o", tmp] + objs,
+                         capture_output=True, text=True)
+    for obj in objs:
+        os.remove(obj)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
     os.replace(tmp, _SO)
-    BUILD_LOG = res.stderr
+    BUILD_LOG = "".join(logs)
     return time.perf_counter() - t0
 
 
@@ -98,16 +119,21 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def check_cuda_int32(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous int32 CUDA tensor of the
-    first one's shape, on one device."""
+def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous 1-D CUDA tensor of
+    ``dtype`` and of the first one's shape, on one device."""
     t0 = tensors[0]
     for t in tensors:
         if t.device.type != "cuda" or t.device != t0.device:
             raise ValueError(f"{name}: expected CUDA tensors on one device")
-        if t.dtype != torch.int32:
-            raise ValueError(f"{name}: expected int32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
         if t.shape != t0.shape or t.dim() != 1:
             raise ValueError(f"{name}: expected equal 1-D shapes")
+
+
+def check_cuda_int32(name: str, *tensors: torch.Tensor) -> None:
+    """``check_cuda`` for int32 tensors."""
+    check_cuda(name, torch.int32, *tensors)

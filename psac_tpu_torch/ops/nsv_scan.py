@@ -1,5 +1,5 @@
-"""Run-stack ANSV scans: K1 (spine) and K2 (dual) of the JAX package's
-``psac_tpu/ops/nsv_scan.py``, as hand-written CUDA kernels
+"""Run-stack ANSV scans: K1 (spine), K2 (dual) and K3 (left) of the JAX
+package's ``psac_tpu/ops/nsv_scan.py``, as hand-written CUDA kernels
 (``psac_tpu_torch/csrc/nsv_scan.cu``) with plain PyTorch versions beside
 them.
 
@@ -117,6 +117,14 @@ def nsv_scan_spine_plain(xf, gf, xn, gn):
             nval.to(torch.int32), _zero_flag(xf))
 
 
+def nsv_scan_left_plain(x, typ: int):
+    """Plain version of K3: left matches of ``x`` for match type ``typ``.
+
+    Returns (idx, val, overflow)."""
+    idx, val = left_matches_plain(x, typ)
+    return idx.to(torch.int32), val.to(torch.int32), _zero_flag(x)
+
+
 def nsv_scan_dual_plain(x, xr, typ_l: int, typ_r: int):
     """Plain version of K2: left matches of ``x`` (typ_l) and of ``xr``
     (typ_r), each in its own coordinates.
@@ -170,3 +178,24 @@ def nsv_scan_dual(x, xr, typ_l: int, typ_r: int):
 
 
 nsv_scan_dual.launches = 0
+
+
+def nsv_scan_left(x, typ: int):
+    """K3 (replaces ``psac_tpu/ops/nsv_scan.py::nsv_scan_left``): see
+    ``nsv_scan_left_plain`` for the contract."""
+    if x.device.type == "cpu":
+        return nsv_scan_left_plain(x, typ)
+    cuda_lib.check_cuda_int32("nsv_scan_left", x)
+    if typ not in (NEAREST_SM, NEAREST_EQ, FURTHEST_EQ):
+        raise ValueError(f"unknown match type {typ}")
+    s = x.shape[0]
+    idx, val = torch.empty_like(x), torch.empty_like(x)
+    flag = torch.empty(1, dtype=torch.int32, device=x.device)
+    scratch = torch.empty(2 * s, dtype=torch.int32, device=x.device)
+    cuda_lib.launch("psac_nsv_left", *(t.data_ptr() for t in (
+        x, idx, val, flag, scratch)), s, typ)
+    nsv_scan_left.launches += 1
+    return idx, val, flag[0]
+
+
+nsv_scan_left.launches = 0

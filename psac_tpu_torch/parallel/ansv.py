@@ -1,18 +1,25 @@
 """Single-device All-Nearest-Smaller-Values (port of
-``psac_tpu/parallel/ansv.py::ansv_local`` at p = 1).
+``psac_tpu/parallel/ansv.py`` at p = 1): ``ansv_local`` and the public
+``ansv``.
 
-The (FURTHEST_EQ, NEAREST_SM) pass of the suffix tree always runs on the
-tile-spine engine (``ops/tansv.py``: kernels K4 and K1), falling back to
-the dual run-stack scan (K2) when the spine overflows its capacity; other
-match-type pairs run on the dual scan directly.  The JAX package instead
-dispatches by backend and shape (K3 and the block engine when the length is
-not a multiple of 2048); here the input is padded at the END with
-INT32_MAX up to a multiple of 2048, which changes no answer of a real
-element (padding is never strictly smaller, and a right match that lands
-in it means none).
+The engine is chosen by the match-type pair and the dtype, as the JAX
+package's ``hybrid`` engine chooses it, never by the device:
 
-The kernels are int32; int64 inputs (``force_int64`` builds) are narrowed
-while they fit and the results widened back.
+- (FURTHEST_EQ, NEAREST_SM) on int32, the suffix tree's pass: the
+  tile-spine engine (``ops/tansv.py``: kernels K4 and K1), falling back to
+  the dual run-stack scan (K2) when the spine overflows its capacity;
+- (FURTHEST_EQ, FURTHEST_EQ) on int32: the dual scan (K2);
+- any other pair, each side on its own: a furthest_eq side on int32 runs
+  the one-chain scan (K3); a nearest_sm or nearest_eq side runs the block
+  engine (``ops/bansv.py::nsv_left`` on K5);
+- int64 values (the public ``ansv`` keeps values that do not fit int32 in
+  int64): every side runs the block engine, furthest_eq through its
+  run-head table.  The JAX package sends those to its walk engine; ANSV
+  answers are unique, so both give the same result.
+
+int32 input is padded at the END with INT32_MAX up to a multiple of 2048
+for the scans, which changes no answer of a real element (padding is never
+strictly smaller, and a right match that lands in it means none).
 """
 
 from __future__ import annotations
@@ -20,31 +27,40 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_SM
+from psac_tpu_torch.ops.bansv import block_psv, block_psv_plain, nsv_left
 from psac_tpu_torch.ops.nsv_scan import (CHUNK, nsv_scan_dual,
-                                         nsv_scan_dual_plain, nsv_scan_spine,
+                                         nsv_scan_dual_plain, nsv_scan_left,
+                                         nsv_scan_left_plain, nsv_scan_spine,
                                          nsv_scan_spine_plain)
 from psac_tpu_torch.ops.tansv import (I32_INF, tansv_feq_nsm, tile_side,
                                       tile_side_plain)
+from psac_tpu_torch.parallel.mesh import padded_size
 
 
 @dataclasses.dataclass(frozen=True)
 class AnsvKernels:
-    """The functions ANSV runs: the tile phase (K4), the spine scan (K1)
-    and the dual scan (K2)."""
+    """The functions ANSV runs: the tile phase (K4), the spine scan (K1),
+    the dual scan (K2), the one-chain scan (K3) and the block engine's
+    previous-smaller pass (K5)."""
 
     tile_side: Callable
     spine_scan: Callable
     dual_scan: Callable
+    left_scan: Callable
+    block_psv: Callable
 
 
-KERNELS = AnsvKernels(tile_side, nsv_scan_spine, nsv_scan_dual)
+KERNELS = AnsvKernels(tile_side, nsv_scan_spine, nsv_scan_dual,
+                      nsv_scan_left, block_psv)
 # the kernels' plain versions, called explicitly: the reference the kernels
 # are held against on the card
 PLAIN = AnsvKernels(tile_side_plain, nsv_scan_spine_plain,
-                    nsv_scan_dual_plain)
+                    nsv_scan_dual_plain, nsv_scan_left_plain,
+                    block_psv_plain)
 
 
 def nonsv_for(dt: torch.dtype) -> int:
@@ -52,29 +68,43 @@ def nonsv_for(dt: torch.dtype) -> int:
     return torch.iinfo(dt).max
 
 
-def ansv_local(x: torch.Tensor, left_type: int, right_type: int,
-               kernels: AnsvKernels = KERNELS):
-    """Left and right matches of every element of (s,) ``x``.
+def _left_side(x: torch.Tensor, typ: int, kernels: AnsvKernels):
+    """Left matches of one side: (idx, val), idx -1 when none."""
+    if typ == FURTHEST_EQ and x.dtype == torch.int32:
+        return kernels.left_scan(x, typ)[:2]
+    return nsv_left(x, typ, kernels.block_psv)
 
-    Returns (lidx, lval, ridx, rval) in ``x``'s dtype: match indices
-    (``nonsv_for(x.dtype)`` when none) and the values there (0 when none).
-    """
-    idt = x.dtype
+
+def _matches(x: torch.Tensor, left_type: int, right_type: int,
+             kernels: AnsvKernels):
+    """(lidx, lval, ridx_r, rval_r) of (s,) ``x``, the right side in
+    reversed coordinates; idx -1 when none."""
+    pair = (left_type, right_type)
+    if x.dtype == torch.int32:
+        if pair == (FURTHEST_EQ, NEAREST_SM):
+            *res, ovf = tansv_feq_nsm(x, kernels.tile_side,
+                                      kernels.spine_scan)
+            if not ovf:
+                return res
+        if pair in ((FURTHEST_EQ, NEAREST_SM), (FURTHEST_EQ, FURTHEST_EQ)):
+            return kernels.dual_scan(x, x.flip(0), left_type, right_type)[:4]
+    return (*_left_side(x, left_type, kernels),
+            *_left_side(x.flip(0), right_type, kernels))
+
+
+def _ansv(x: torch.Tensor, left_type: int, right_type: int,
+          kernels: AnsvKernels, idt: torch.dtype):
+    """Matches of int32 or int64 ``x``, in ``idt`` with ``nonsv_for(idt)``
+    where there is none."""
     s = x.shape[0]
-    if idt == torch.int64 and s >= (1 << 31):
-        raise NotImplementedError("ANSV kernels are int32: length >= 2^31")
-    sp = max(CHUNK, -(-s // CHUNK) * CHUNK)
-    xp = torch.cat([x.to(torch.int32),
-                    x.new_full((sp - s,), I32_INF, dtype=torch.int32)])
-
-    res = None
-    if (left_type, right_type) == (FURTHEST_EQ, NEAREST_SM):
-        *res, ovf = tansv_feq_nsm(xp, kernels.tile_side, kernels.spine_scan)
-        if ovf:
-            res = None
-    if res is None:
-        res = kernels.dual_scan(xp, xp.flip(0), left_type, right_type)[:4]
-    li, lv, ri_r, rv_r = res
+    if s >= (1 << 31):
+        raise NotImplementedError("ANSV indices are int32: length >= 2^31")
+    xp = x
+    if x.dtype == torch.int32:
+        sp = max(CHUNK, -(-s // CHUNK) * CHUNK)
+        xp = torch.cat([x, x.new_full((sp - s,), I32_INF)])
+    sp = xp.shape[0]
+    li, lv, ri_r, rv_r = _matches(xp, left_type, right_type, kernels)
 
     ri = ri_r.flip(0)
     rv = rv_r.flip(0)
@@ -87,3 +117,69 @@ def ansv_local(x: torch.Tensor, left_type: int, right_type: int,
             torch.where(lmiss, 0, lv.to(idt)),
             torch.where(rmiss, inf, ri.to(idt)),
             torch.where(rmiss, 0, rv.to(idt)))
+
+
+def ansv_local(x: torch.Tensor, left_type: int, right_type: int,
+               kernels: AnsvKernels = KERNELS):
+    """Left and right matches of every element of an (s,) LCP array ``x``.
+
+    Returns (lidx, lval, ridx, rval) in ``x``'s dtype: match indices
+    (``nonsv_for(x.dtype)`` when none) and the values there (0 when none).
+    LCP values fit int32, so int64 input (``force_int64`` builds) is
+    narrowed for the int32 engines and the results are widened back.
+    """
+    return _ansv(x.to(torch.int32), left_type, right_type, kernels, x.dtype)
+
+
+def ansv(arr, left_type: int = NEAREST_SM, right_type: int = NEAREST_SM,
+         device="cpu", nonsv: int | None = None, indexing: str = "global",
+         kernels: AnsvKernels = KERNELS):
+    """ANSV of a host array on ``device`` (port of the JAX package's public
+    ``ansv`` at p = 1).
+
+    Values that do not fit int32 run at int64 (the reference's ``T``
+    template) and are never narrowed.  ``nonsv`` defaults to n (one past
+    the end).  ``kernels=PLAIN`` runs the kernels' plain versions.
+
+    - ``indexing="global"``: returns (left, right) np.int64 indices.
+    - ``indexing="local"``: returns (left, right) where each side is a
+      (rank, local_idx, value) triple of np.int64 arrays; with one shard
+      rank is 0 (-1 when unmatched, local_idx then ``nonsv`` and value 0).
+    """
+    if indexing not in ("global", "local"):
+        raise ValueError(f"indexing must be 'global' or 'local': {indexing}")
+    vals = np.asarray(arr)
+    i32 = np.iinfo(np.int32)
+    wide = bool(vals.size) and (int(vals.min()) < i32.min
+                                or int(vals.max()) >= i32.max)
+    dt = np.int64 if wide else np.int32
+    infd = np.iinfo(dt).max  # doubles as the +inf padding sentinel
+    n = len(vals)
+    N = padded_size(max(n, 1), 1)
+    xp = np.full(N, infd, dt)
+    xp[:n] = vals.astype(dt)
+    x = torch.from_numpy(xp).to(device)
+    lidx, lval, ridx, rval = (t.cpu().numpy() for t in _ansv(
+        x, left_type, right_type, kernels, x.dtype))
+
+    sent = n if nonsv is None else nonsv
+    left = lidx[:n].astype(np.int64)
+    right = ridx[:n].astype(np.int64)
+    lmiss = left == infd
+    # a right match pointing into the +inf padding means "no match"
+    rmiss = (right == infd) | (right >= n)
+    left[lmiss] = sent
+    right[rmiss] = sent
+    if indexing == "global":
+        return left, right
+    lv = lval[:n].astype(np.int64)
+    rv = rval[:n].astype(np.int64)
+    lv[lmiss] = 0
+    rv[rmiss] = 0
+
+    def to_local(g, miss):
+        return np.where(miss, -1, g // N), np.where(miss, sent, g % N)
+
+    lrank, lloc = to_local(left, lmiss)
+    rrank, rloc = to_local(right, rmiss)
+    return (lrank, lloc, lv), (rrank, rloc, rv)

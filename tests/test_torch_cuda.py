@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from psac_tpu_torch.ops import nsv_scan, tansv
+from psac_tpu_torch.ops import bansv, nsv_scan, tansv
 from psac_tpu_torch.ops.ansv import (FURTHEST_EQ, NEAREST_EQ, NEAREST_SM,
                                      ansv_seq)
 
@@ -75,6 +75,63 @@ def test_spine_kernel_vs_plain(cuda):
     assert nsv_scan.nsv_scan_spine.launches == before + 1
 
 
+@pytest.mark.parametrize("kind", sorted(_arrays(0)))
+def test_left_kernel_vs_plain(cuda, kind):
+    x = torch.from_numpy(_arrays(4)[kind].astype(np.int32)).to(cuda)
+    before = nsv_scan.nsv_scan_left.launches
+    for typ in (NEAREST_SM, NEAREST_EQ, FURTHEST_EQ):
+        _same(nsv_scan.nsv_scan_left(x, typ),
+              nsv_scan.nsv_scan_left_plain(x, typ))
+    assert nsv_scan.nsv_scan_left.launches == before + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("kind", sorted(_arrays(0)))
+def test_block_psv_kernel_vs_plain(cuda, kind, dtype):
+    a = _arrays(5)[kind].astype(np.int64)
+    if dtype == torch.int64:
+        a = a * (1 << 33) - (1 << 40)  # order kept, out of int32
+    for n in (len(a), 1, 255, 256, 257, 70000):
+        x = torch.from_numpy(a[:n]).to(dtype).to(cuda)
+        before = bansv.block_psv.launches
+        for strict in (True, False):
+            got = bansv.block_psv(x, strict)
+            assert got.dtype == torch.int32
+            _same((got,), (bansv.block_psv_plain(x, strict),))
+        assert bansv.block_psv.launches == before + 2
+
+
+def test_public_ansv_on_gpu(cuda):
+    from psac_tpu_torch.parallel.ansv import ansv
+
+    rng = np.random.RandomState(6)
+    types = (NEAREST_SM, NEAREST_EQ, FURTHEST_EQ)
+    for a in (rng.randint(0, 6, 5000).astype(np.int32),
+              rng.randint(0, 6, 5000).astype(np.int64) << 33):
+        for lt in types:
+            for rt in types:
+                got = ansv(a, lt, rt, device=cuda)
+                for g, w in zip(got, ansv_seq(a, lt, rt, nonsv=len(a))):
+                    np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("tli", ["tllt", "tldt"])
+def test_desa_on_gpu(cuda, tli):
+    from psac_tpu_torch import build_desa
+    from psac_tpu_torch.ops.alphabet import rand_dna
+    from psac_tpu_torch.seq import SAIndex
+
+    text = rand_dna(5000, seed=3)
+    d = build_desa(text, cuda, tli=tli, maxsize=16)
+    idx = SAIndex(text)
+    rng = np.random.RandomState(1)
+    pats = [text[i:i + ln] for ln in (3, 8, 20, 64)
+            for i in rng.randint(0, len(text) - ln, 8)] + [b"G" * 40]
+    for pat, (l, r) in zip(pats, d.bulk_locate(pats)):
+        want = idx.locate(pat)
+        assert (l, r) == want or (l == r and want[0] == want[1]), pat
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(2048, dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
@@ -82,6 +139,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         tansv.tile_side(torch.zeros(1000, dtype=torch.int32, device=cuda),
                         True)
+    with pytest.raises(ValueError):
+        nsv_scan.nsv_scan_left(x, 0)
+    with pytest.raises(ValueError):
+        bansv.block_psv(x.to(torch.int16), True)
 
 
 def test_ansv_fallback_on_gpu(cuda):

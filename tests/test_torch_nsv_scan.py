@@ -1,4 +1,4 @@
-"""The run-stack scans K1 (spine) and K2 (dual): the port's plain versions
+"""The run-stack scans K1 (spine), K2 (dual) and K3 (left): the port's plain versions
 against the JAX package's Pallas kernels in interpret mode, and against the
 sequential oracle ``ansv_seq``.  Exact equality (integers only).  The CUDA
 kernels themselves are held against these plain versions in
@@ -70,6 +70,22 @@ def test_dual_plain_vs_pallas_interpret(typs):
 
 
 @pytest.mark.parametrize("typ", [NEAREST_SM, NEAREST_EQ, FURTHEST_EQ])
+def test_left_plain_vs_pallas_interpret(typ):
+    from psac_tpu.ops.nsv_scan import CHUNK, nsv_scan_left
+
+    rng = np.random.RandomState(11 + typ)
+    for x in (rng.randint(0, 5, 2 * CHUNK), rng.randint(0, 10**6, CHUNK),
+              np.repeat(rng.randint(0, 3, 64), 64)):
+        x = x.astype(np.int32)
+        want = nsv_scan_left(jnp.asarray(x), typ, True)
+        got = t_scan.nsv_scan_left(_t(x), typ)
+        assert int(want[2]) == 0 and int(got[2]) == 0
+        for g, w in zip(got[:2], want[:2]):
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("typ", [NEAREST_SM, NEAREST_EQ, FURTHEST_EQ])
 @pytest.mark.parametrize("kind", ["random", "runs", "increasing",
                                   "decreasing", "negative"])
 def test_left_matches_vs_oracle(typ, kind):
@@ -106,6 +122,8 @@ def test_wrappers_reject_bad_tensors():
     x = torch.zeros(2048, dtype=torch.int32)
     with pytest.raises((ValueError, RuntimeError)):
         t_scan.nsv_scan_dual(x.to("meta"), x.to("meta"), 0, 0)
+    with pytest.raises((ValueError, RuntimeError)):
+        t_scan.nsv_scan_left(x.to("meta"), 0)
     from psac_tpu_torch.ops import cuda_lib
     with pytest.raises(ValueError):
         cuda_lib.check_cuda_int32("k", x)

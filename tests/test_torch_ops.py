@@ -1,7 +1,8 @@
 """Parity of the port's small ops with the JAX package: bitops (with the
-clz edge cases), k-mer packing, RMQ queries, the multi-key sort, the p = 1
-collectives and routing, the config converter, and the numpy helpers the
-port copies.  Integers only: every comparison is exact."""
+clz edge cases), k-mer packing, RMQ queries (min and leftmost argmin), the
+multi-key sort, the p = 1 collectives and routing, the config converter,
+and the numpy helpers and modules the port copies.  Integers only: every
+comparison is exact."""
 
 import inspect
 
@@ -131,6 +132,35 @@ def test_rmq_queries(s, dt):
                                                  np.iinfo(dt).max))
 
 
+@pytest.mark.parametrize("s,dt", [(1024, np.int32), (4096, np.int64),
+                                  (8, np.int32), (48, np.int32)])
+def test_arg_rmq_queries(s, dt):
+    """Leftmost argmin (the DESA's blind search RMQ) vs the JAX package and
+    a brute force, on small alphabets so minima tie often."""
+    from psac_tpu.models.suffix_array import _x64_ctx
+    from psac_tpu.ops.rmq import build_arg_rmq, query_arg_rmq
+
+    rng = np.random.RandomState(s + 1)
+    x = rng.randint(0, 4, s).astype(dt)
+    q = 2000
+    lo = rng.randint(0, s, q)
+    hi = np.minimum(s - 1, lo + rng.geometric(0.02, q) - 1)
+    lo[:q // 8] = hi[:q // 8]
+    with _x64_ctx(jnp.int64 if dt == np.int64 else jnp.int32):
+        r = build_arg_rmq(jnp.asarray(x))
+        want = np.asarray(query_arg_rmq(r, jnp.asarray(lo, jnp.int32),
+                                        jnp.asarray(hi, jnp.int32)))
+    rt = t_rmq.build_arg_rmq(_t(x))
+    assert rt.block == r.block
+    np.testing.assert_array_equal(rt.tab_v.numpy(), np.asarray(r.tab_v))
+    np.testing.assert_array_equal(rt.tab_a.numpy(), np.asarray(r.tab_a))
+    got = t_rmq.query_arg_rmq(rt, _t(lo), _t(hi))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    brute = np.array([a + int(np.argmin(x[a:b + 1])) for a, b in zip(lo, hi)])
+    np.testing.assert_array_equal(got.numpy(), brute)
+
+
 @pytest.mark.parametrize("num_keys,ncols", [(1, 3), (3, 3), (5, 5)])
 def test_multikey_sort(num_keys, ncols):
     """Lexicographic LSD composition vs lax.sort; the last key column is
@@ -216,10 +246,10 @@ def test_config_from_jax():
     for n in (8, (1 << 30) - 1, 1 << 30):
         assert str(t_config.index_dtype(n)).endswith(
             np.dtype(index_dtype(n)).name)
-    for bad in (dict(pack_keys=True), dict(fused=False),
-                dict(construct_lc=True)):
+    for bad in (dict(pack_keys=True), dict(fused=False)):
         with pytest.raises(NotImplementedError):
             t_config.SAConfig(**bad).check_supported()
+    t_config.SAConfig(construct_lc=True).check_supported()  # ported
 
 
 def test_copied_numpy_helpers_equal_originals():
@@ -263,3 +293,43 @@ def test_native_oracle_matches_jax_package():
     with open(t_native._SRC) as f_t, \
             open(t_native._SRC.replace("psac_tpu_torch", "psac_tpu")) as f_j:
         assert f_t.read() == f_j.read()
+
+
+def _source(mod, name: str) -> str:
+    """Source of a definition with the package name normalized."""
+    return inspect.getsource(getattr(mod, name)).replace("psac_tpu_torch",
+                                                         "psac_tpu")
+
+
+def test_copied_query_modules_equal_originals():
+    """``ops/sample_lcp.py`` and ``seq.py`` are numpy copies (the host
+    oracles of the DESA on a machine without JAX)."""
+    import psac_tpu.ops.sample_lcp as j_samp
+    import psac_tpu.seq as j_seq
+    import psac_tpu_torch.ops.sample_lcp as t_samp
+    import psac_tpu_torch.seq as t_seq
+
+    for mod_t, mod_j, names in (
+            (t_samp, j_samp, ("sample_lcp_seq", "sample_lcp_ansv")),
+            (t_seq, j_seq, ("_RMQ", "SAIndex", "SALCPIndex", "ESAIndex",
+                            "BSESAIndex", "DESAIndex", "LookupDESAIndex"))):
+        for name in names:
+            assert _source(mod_t, name) == _source(mod_j, name), name
+    rng = np.random.RandomState(2)
+    lcp = rng.randint(0, 6, 3000)
+    lcp[0] = 0
+    for maxsize in (2, 16, 200):
+        np.testing.assert_array_equal(t_samp.sample_lcp_ansv(lcp, maxsize),
+                                      j_samp.sample_lcp_seq(lcp, maxsize))
+    text = t_alpha.rand_dna(3000, seed=3)
+    pats = [text[i:i + ln] for ln in (1, 4, 9, 30) for i in (0, 777, 2900)]
+    pats += [b"GGGGGGGGGGGGGGGGG", b"xyz"]
+    t_idx = t_seq.LookupDESAIndex(text)
+    j_idx = j_seq.LookupDESAIndex(text)
+    t_sa_idx = t_seq.SAIndex(text, t_idx.sa)
+    for pat in pats:
+        got = t_idx.locate(pat)
+        assert got == j_idx.locate(pat), pat
+        l, r = t_sa_idx.locate(pat)
+        # absent patterns: both ranges empty (at different rows)
+        assert got == (l, r) or (got[0] == got[1] and l == r), pat
