@@ -4,12 +4,15 @@
 Builds the hand-written CUDA kernels from ``psac_tpu_torch/csrc``, checks
 each against its plain PyTorch version on the card, then drives the main
 paths through the user entry points: SA+LCP of 2^26 random DNA, SA+LCP of
-2^24 repetitive DNA and the suffix tree of the 2^26 text; the public ANSV
-of 2^24 values for five match-type pairs; the DESA of the 2^26 text with
+2^24 repetitive DNA, the suffix tree of the 2^26 text and that of the 2^24
+repetitive text (its ANSV pass runs on K2); the public ANSV of 2^24 values
+for five match-type pairs; the DESA of the 2^26 text with
 both top-level indexes, answering batches of 65,536 patterns of lengths 8,
 20 and 64.  Every result is held against the native SA-IS + Kasai oracle,
 the sequential ANSV oracle or the plain path; the script prints the kernel
-table, the card's name and power limit, and a last JSON line.  Any
+table (each kernel's time beside its bound: the bytes it must move once at
+the card's memory rate), the card's name and power limit, and a last JSON
+line.  Any
 mismatch raises; the exit code is then non-zero.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -29,6 +32,12 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W): device memory,
+# and float32 outside the tensor cores, against which a comparison counts as
+# one operation (the ANSV kernels only compare).
+MEM_BYTES_PER_S = 3.35e12
+CORE_OPS_PER_S = 67e12
 
 
 def log(msg: str) -> None:
@@ -56,6 +65,42 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take for work that must move
+    ``nbytes`` (each input read once, each output written once) and do
+    ``ops`` comparisons, and which of the two bounds it."""
+    by_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    by_ops = ops / CORE_OPS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                library_ms=None)  # no single PyTorch call computes these
+
+
+def scan_adversaries(dev) -> dict:
+    """Inputs that stress K2/K3's minima hierarchy (32-wide groups, 1024-
+    element tiles): long monotone and equal runs, a sawtooth whose every
+    query crosses a tile, a leading INT32_MAX run (the public ANSV's padding
+    as the reversed stream sees it), and lengths 32^k - 1 and 32^k + 1."""
+    import torch
+
+    rng = np.random.RandomState(31)
+    i = np.arange(1 << 20)
+    cases = {
+        "increasing": np.arange(1 << 17),
+        "decreasing": i[::-1] + 1,
+        "homopolymer_lcp": np.concatenate([[-1, 0], i[1:-1]]),
+        "all_equal": np.full(1 << 20, 5),
+        "sawtooth": i // 1024 * 1024 + 1023 - i % 1024,
+        "max_lead": np.concatenate([np.full(300000, 2**31 - 1),
+                                    rng.randint(0, 9, (1 << 20) - 300000)]),
+    }
+    for k in (1, 2, 3, 4):
+        for n in (32**k - 1, 32**k + 1):
+            cases[f"len{n}"] = rng.randint(0, 1 << (4 * k), n)
+    return {k: torch.from_numpy(v.astype(np.int32)).to(dev)
+            for k, v in cases.items()}
 
 
 def max_abs_err(got, want) -> int:
@@ -116,30 +161,81 @@ def check_k3_k5(dev, lcp_adj, log2n: int, ansv_log2n: int, kern: dict):
     from psac_tpu_torch.ops.nsv_scan import nsv_scan_left, nsv_scan_left_plain
 
     rnd = torch.from_numpy(ansv_values(ansv_log2n)).to(dev)
+    advs = scan_adversaries(dev)
     errs = []
-    for x in (rnd, lcp_adj):
+    for x in (rnd, lcp_adj, *advs.values()):
         for typ in (NEAREST_SM, NEAREST_EQ, FURTHEST_EQ):
             errs.append(max_abs_err(nsv_scan_left(x, typ),
                                     nsv_scan_left_plain(x, typ)))
+    m = rnd.shape[0]
     kern["nsv_scan_left"] = dict(
         route="cuda", source="psac_tpu_torch/csrc/nsv_scan.cu",
         replaces="psac_tpu/ops/nsv_scan.py:392", max_abs_err=max(errs),
-        ms=cuda_ms(lambda: nsv_scan_left(rnd, FURTHEST_EQ), 1),
-        plain_ms=cuda_ms(lambda: nsv_scan_left_plain(rnd, FURTHEST_EQ), 1))
+        ms=cuda_ms(lambda: nsv_scan_left(rnd, FURTHEST_EQ), 10),
+        plain_ms=cuda_ms(lambda: nsv_scan_left_plain(rnd, FURTHEST_EQ), 1),
+        **bound(12 * m + 4, m))
     log(f"[kernel] K3 nsv_scan_left == plain for NSM, NEQ, FEQ on "
-        f"2^{ansv_log2n} random int32 and the 2^{log2n} LCP")
+        f"2^{ansv_log2n} random int32, the 2^{log2n} LCP and "
+        f"{len(advs)} adversaries ({', '.join(advs)})")
 
     wide = torch.from_numpy(
         ansv_values(ansv_log2n - 2).astype(np.int64) << 33).to(dev)
     errs = [max_abs_err((block_psv(x, strict),), (block_psv_plain(x, strict),))
             for x in (rnd, lcp_adj, wide) for strict in (True, False)]
+    S = lcp_adj.shape[0]
     kern["block_psv"] = dict(
         route="cuda", source="psac_tpu_torch/csrc/bansv.cu",
         replaces="psac_tpu/ops/bansv.py:76", max_abs_err=max(errs),
         ms=cuda_ms(lambda: block_psv(lcp_adj, True), 3),
-        plain_ms=cuda_ms(lambda: block_psv_plain(lcp_adj, True), 1))
+        plain_ms=cuda_ms(lambda: block_psv_plain(lcp_adj, True), 1),
+        **bound(8 * S, S))
     log(f"[kernel] K5 block_psv == plain, strict and not, on 2^{ansv_log2n} "
         f"random int32, the 2^{log2n} LCP and 2^{ansv_log2n - 2} int64")
+
+
+def rep_tree_phase(dev, rep_text: bytes, log2n: int, overflows: bool,
+                   kern: dict, card: str) -> dict:
+    """The suffix tree of repetitive DNA on the card.  When its LCP spines
+    overflow the tile-spine engine's capacity (``overflows``, as they do at
+    2^24), the ANSV pass runs on K2: one launch, counted; the tree is held
+    against the plain path's; timed with the host clock around a
+    synchronized call, first and second."""
+    import torch
+
+    from psac_tpu_torch.models.suffix_array import (construct_device,
+                                                    encode_and_shard)
+    from psac_tpu_torch.models.suffix_tree import (
+        _st_local, construct_suffix_tree_device)
+    from psac_tpu_torch.ops.nsv_scan import nsv_scan_dual, nsv_scan_spine
+    from psac_tpu_torch.ops.tansv import tile_side
+    from psac_tpu_torch.parallel.ansv import PLAIN
+
+    xs, alpha, n, N = encode_and_shard(rep_text, dev)
+    dsa = construct_device(xs, alpha, n, N)
+    reset, read = counter((tile_side, nsv_scan_spine, nsv_scan_dual))
+    want = {"tile_side": 2, "nsv_scan_spine": int(not overflows),
+            "nsv_scan_dual": int(overflows)}
+    out = {}
+    for run in ("cold", "warm"):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = construct_suffix_tree_device(dsa, xs)
+        torch.cuda.synchronize()
+        out[run] = time.perf_counter() - t0
+        counts = read()
+        if counts != want:
+            raise AssertionError(f"ST of rep_dna launched {counts}, "
+                                 f"expected {want}")
+        if run == "cold":
+            kern["nsv_scan_dual"]["launches"] += counts["nsv_scan_dual"]
+    plain = _st_local(dsa, xs, PLAIN)
+    if not torch.equal(tree.nodes, plain.nodes):
+        raise AssertionError("suffix tree of rep_dna differs from the plain "
+                             "path")
+    log(f"[rep-st] ST 2^{log2n} rep_dna == plain path: {out['cold']:.3f} s "
+        f"first, {out['warm']:.3f} s second; launches {counts} on {card}")
+    return out
 
 
 def ansv_values(log2n: int, seed: int = 24) -> np.ndarray:
@@ -445,7 +541,9 @@ def main() -> int:
         route="cuda", source="psac_tpu_torch/csrc/tansv_tile.cu",
         replaces="psac_tpu/ops/tansv.py:67", max_abs_err=max(errs),
         ms=cuda_ms(lambda: tile_side(lcp_adj, True), 3),
-        plain_ms=cuda_ms(lambda: tile_side_plain(lcp_adj, True), 1))
+        plain_ms=cuda_ms(lambda: tile_side_plain(lcp_adj, True), 1),
+        # 4 B in; psv_g, psv_val, nxt, e_g, h_in (4 B) and two masks (1 B)
+        **bound(26 * S, 2 * S))
     log(f"[kernel] K4 tile_side == plain on {len(tansv_cases())} "
         f"adversaries and the 2^{args.log2n} LCP")
 
@@ -460,7 +558,8 @@ def main() -> int:
         route="cuda", source="psac_tpu_torch/csrc/nsv_scan.cu",
         replaces="psac_tpu/ops/nsv_scan.py:325", max_abs_err=err,
         ms=cuda_ms(lambda: nsv_scan_spine(vf, kf, vn, kn), 3),
-        plain_ms=cuda_ms(lambda: nsv_scan_spine_plain(vf, kf, vn, kn), 1))
+        plain_ms=cuda_ms(lambda: nsv_scan_spine_plain(vf, kf, vn, kn), 1),
+        **bound(36 * kf.shape[0] + 4, 2 * kf.shape[0]))
     log(f"[kernel] K1 nsv_scan_spine == plain on the spine streams "
         f"({kf.shape[0]} entries; spines {int(spine_f.sum())} and "
         f"{int(spine_n.sum())} of {S})")
@@ -474,25 +573,32 @@ def main() -> int:
         errs.append(max_abs_err(
             nsv_scan_dual(small, small.flip(0), tl, tr),
             nsv_scan_dual_plain(small, small.flip(0), tl, tr)))
-    # an increasing array stacks every element: spills past shared memory
-    inc = torch.arange(1 << 17, dtype=torch.int32, device=dev)
+    advs = scan_adversaries(dev)
+    for x in advs.values():
+        for tl, tr in ((FURTHEST_EQ, NEAREST_SM), (FURTHEST_EQ, FURTHEST_EQ),
+                       (NEAREST_EQ, NEAREST_SM)):
+            errs.append(max_abs_err(
+                nsv_scan_dual(x, x.flip(0), tl, tr),
+                nsv_scan_dual_plain(x, x.flip(0), tl, tr)))
+    # the second stream is an input of its own, not x reversed
+    other = lcp_adj[:1 << 20].roll(12345)
     errs.append(max_abs_err(
-        nsv_scan_dual(inc, inc.flip(0), FURTHEST_EQ, NEAREST_SM),
-        nsv_scan_dual_plain(inc, inc.flip(0), FURTHEST_EQ, NEAREST_SM)))
+        nsv_scan_dual(small, other, FURTHEST_EQ, NEAREST_SM),
+        nsv_scan_dual_plain(small, other, FURTHEST_EQ, NEAREST_SM)))
     kern["nsv_scan_dual"] = dict(
         route="cuda", source="psac_tpu_torch/csrc/nsv_scan.cu",
         replaces="psac_tpu/ops/nsv_scan.py:358", max_abs_err=max(errs),
         ms=cuda_ms(lambda: nsv_scan_dual(lcp_adj, xr, FURTHEST_EQ,
-                                         NEAREST_SM), 1),
+                                         NEAREST_SM), 10),
         plain_ms=cuda_ms(lambda: nsv_scan_dual_plain(
-            lcp_adj, xr, FURTHEST_EQ, NEAREST_SM), 1))
+            lcp_adj, xr, FURTHEST_EQ, NEAREST_SM), 1),
+        **bound(24 * S + 4, 2 * S))
     log("[kernel] K2 nsv_scan_dual == plain for (FEQ, NSM) at full length, "
-        "(NEQ, NEQ) and (NSM, FEQ) at 2^20, and an increasing 2^17 array")
+        "(NEQ, NEQ) and (NSM, FEQ) at 2^20, (FEQ, NSM), (FEQ, FEQ) and "
+        f"(NEQ, NSM) on {len(advs)} adversaries ({', '.join(advs)}), and "
+        "two unrelated streams")
     check_k3_k5(dev, lcp_adj, args.log2n, args.ansv_log2n, kern)
-    del lcp_adj, xr, small, inc, spine_f, spine_n, kf, vf, kn, vn
-    for k, v in kern.items():
-        log(f"[kernel] {k}: kernel {v['ms']:.3f} ms, plain "
-            f"{v['plain_ms']:.3f} ms")
+    del lcp_adj, xr, small, other, advs, spine_f, spine_n, kf, vf, kn, vn
 
     # ---- 4. main path (counted) ------------------------------------------
     reset_counts, read_counts = counter((tile_side, nsv_scan_spine,
@@ -521,8 +627,9 @@ def main() -> int:
         if main_counts[k] == 0:
             raise AssertionError(f"{k} was not launched on the main path")
 
-    # K2 runs on the main path only when a spine overflows: the suffix tree
-    # of a homopolymer (its LCP rises in every tile), counted on its own
+    # K2 runs on the main path when a spine overflows: the suffix tree of a
+    # homopolymer (its LCP rises in every tile), counted on its own, and
+    # that of the repetitive text (phase 4b)
     homo = b"A" * 4096
     reset_counts()
     homo_tree = build_suffix_tree(homo, dev)
@@ -587,6 +694,10 @@ def main() -> int:
     log(f"[main] ST of A^{m} (spine overflow -> dual scan) == oracle")
     del tree, dsa, xs
 
+    # ---- 4b. suffix tree of the repetitive text (counted) ---------------
+    rep_st = rep_tree_phase(dev, rep_text, args.rep_log2n,
+                            max(spines) > cap, kern, card)
+
     # ---- 5. fallback through ansv_local ---------------------------------
     dec = np.arange(1 << 20, 0, -1).astype(np.int32)
     before = nsv_scan_dual.launches
@@ -622,11 +733,18 @@ def main() -> int:
         f"({n / t_sa / 1e6:.1f} MB/s; warm {t_sa_warm:.3f} s), rep_dna "
         f"2^{args.rep_log2n} {t_rep:.3f} s, ST {t_st:.3f} s (warm "
         f"{t_st_warm:.3f} s) on {card}")
+    log(f"[result] ST 2^{args.rep_log2n} rep_dna {rep_st['cold']:.3f} s "
+        f"(second {rep_st['warm']:.3f} s)")
     log(f"[result] public ANSV 2^{args.ansv_log2n} s: "
         + ", ".join(f"{k} {v:.3f}" for k, v in ansv_times.items()))
     log("[result] DESA: " + ", ".join(
         f"{k} {v:.3f}" if k.startswith("build") else f"{k} {v:,.0f}"
         for k, v in desa.items()))
+    for k, v in kern.items():
+        log(f"[kernel] {k}: kernel {v['ms']:.3f} ms, plain "
+            f"{v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms "
+            f"({v['bound_by']}, {100 * v['bound_ms'] / v['ms']:.2f}% of it "
+            f"reached), launches {v['launches']}")
     table = [dict(name=k, **v) for k, v in kern.items()]
     print(json.dumps({"kernels": table}))
     print(card)

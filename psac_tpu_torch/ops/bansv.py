@@ -115,16 +115,6 @@ def block_psv_plain(x: torch.Tensor, strict: bool) -> torch.Tensor:
     return ans[:s].to(torch.int32)
 
 
-def _level_sizes(s: int) -> list[int]:
-    """Entries of the kernel's minima levels above level 0."""
-    sizes = []
-    n = s
-    while n > KERNEL_BLOCK:
-        n = -(-n // KERNEL_BLOCK)
-        sizes.append(n)
-    return sizes
-
-
 def block_psv(x: torch.Tensor, strict: bool) -> torch.Tensor:
     """K5 (replaces ``psac_tpu/ops/bansv.py::block_psv``): see
     ``block_psv_plain`` for the contract."""
@@ -137,8 +127,8 @@ def block_psv(x: torch.Tensor, strict: bool) -> torch.Tensor:
     if s >= (1 << 31):
         raise ValueError(f"block_psv: length {s} does not fit int32 indices")
     out = torch.empty(s, dtype=torch.int32, device=x.device)
-    scratch = torch.empty(max(1, sum(_level_sizes(s))), dtype=x.dtype,
-                          device=x.device)
+    scratch = torch.empty(max(1, sum(cuda_lib.level_sizes(s, KERNEL_BLOCK))),
+                          dtype=x.dtype, device=x.device)
     name = "psac_block_psv_i32" if x.dtype == torch.int32 else \
         "psac_block_psv_i64"
     cuda_lib.launch(name, x.data_ptr(), out.data_ptr(), scratch.data_ptr(), s,

@@ -119,6 +119,19 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
+def level_sizes(s: int, width: int) -> list[int]:
+    """Entries of each level above level 0 of a minima hierarchy over ``s``
+    values with ``width``-entry groups, built until a level has at most
+    ``width`` entries: the scratch of K5 (``csrc/bansv.cu``) and of K2/K3
+    (``csrc/nsv_scan.cu``)."""
+    sizes = []
+    n = s
+    while n > width:
+        n = -(-n // width)
+        sizes.append(n)
+    return sizes
+
+
 def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous 1-D CUDA tensor of
     ``dtype`` and of the first one's shape, on one device."""

@@ -1,7 +1,8 @@
-"""Run-stack ANSV scans: K1 (spine), K2 (dual) and K3 (left) of the JAX
-package's ``psac_tpu/ops/nsv_scan.py``, as hand-written CUDA kernels
+"""ANSV scans: K1 (spine), K2 (dual) and K3 (left) of the JAX package's
+``psac_tpu/ops/nsv_scan.py``, as hand-written CUDA kernels
 (``psac_tpu_torch/csrc/nsv_scan.cu``) with plain PyTorch versions beside
-them.
+them.  K1 is a serial run-stack chain; K2 and K3 are a parallel block
+engine (a minima hierarchy searched by warp ballots).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  The plain versions do not replay the stack:
@@ -10,9 +11,9 @@ min-table (the JAX package's ``_left_match_local_only`` formulation), which
 also checks the kernels independently.
 
 Answers follow ``psac_tpu_torch/ops/ansv.py::_left_scan``: index -1 means
-no match and the value is then 0.  The stack cannot overflow here (the
-kernel spills to a scratch stack as long as the stream), so the returned
-flag is always 0; it is kept for the JAX interface.
+no match and the value is then 0.  Nothing can overflow here (K1's stack
+spills to a scratch stack as long as the stream; K2 and K3 keep no stack),
+so the returned flag is always 0; it is kept for the JAX interface.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from psac_tpu_torch.ops import cuda_lib
 from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_EQ, NEAREST_SM
 
 CHUNK = 2048  # stream lengths the JAX kernels take are multiples of this
+GROUP = 32    # entries per group of K2/K3's minima hierarchy (csrc G)
 
 # ---------------------------------------------------------------------------
 # plain versions
@@ -159,6 +161,15 @@ def nsv_scan_spine(xf, gf, xn, gn):
 nsv_scan_spine.launches = 0
 
 
+def _block_scan_scratch(x: torch.Tensor, streams: int) -> torch.Tensor:
+    """The hierarchy levels of ``streams`` streams of x's length."""
+    s = x.shape[0]
+    if s >= (1 << 31):
+        raise ValueError(f"length {s} does not fit int32 indices")
+    return torch.empty(max(1, streams * sum(cuda_lib.level_sizes(s, GROUP))),
+                       dtype=torch.int32, device=x.device)
+
+
 def nsv_scan_dual(x, xr, typ_l: int, typ_r: int):
     """K2 (replaces ``psac_tpu/ops/nsv_scan.py::nsv_scan_dual``): see
     ``nsv_scan_dual_plain`` for the contract."""
@@ -167,12 +178,11 @@ def nsv_scan_dual(x, xr, typ_l: int, typ_r: int):
     cuda_lib.check_cuda_int32("nsv_scan_dual", x, xr)
     if {typ_l, typ_r} - {NEAREST_SM, NEAREST_EQ, FURTHEST_EQ}:
         raise ValueError(f"unknown match types {typ_l}, {typ_r}")
-    s = x.shape[0]
     il, vl, ir, vr = (torch.empty_like(x) for _ in range(4))
     flag = torch.empty(1, dtype=torch.int32, device=x.device)
-    scratch = torch.empty(4 * s, dtype=torch.int32, device=x.device)
+    scratch = _block_scan_scratch(x, 2)
     cuda_lib.launch("psac_nsv_dual", *(t.data_ptr() for t in (
-        x, xr, il, vl, ir, vr, flag, scratch)), s, typ_l, typ_r)
+        x, xr, il, vl, ir, vr, flag, scratch)), x.shape[0], typ_l, typ_r)
     nsv_scan_dual.launches += 1
     return il, vl, ir, vr, flag[0]
 
@@ -188,12 +198,11 @@ def nsv_scan_left(x, typ: int):
     cuda_lib.check_cuda_int32("nsv_scan_left", x)
     if typ not in (NEAREST_SM, NEAREST_EQ, FURTHEST_EQ):
         raise ValueError(f"unknown match type {typ}")
-    s = x.shape[0]
     idx, val = torch.empty_like(x), torch.empty_like(x)
     flag = torch.empty(1, dtype=torch.int32, device=x.device)
-    scratch = torch.empty(2 * s, dtype=torch.int32, device=x.device)
+    scratch = _block_scan_scratch(x, 1)
     cuda_lib.launch("psac_nsv_left", *(t.data_ptr() for t in (
-        x, idx, val, flag, scratch)), s, typ)
+        x, idx, val, flag, scratch)), x.shape[0], typ)
     nsv_scan_left.launches += 1
     return idx, val, flag[0]
 

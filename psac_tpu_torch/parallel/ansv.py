@@ -8,7 +8,8 @@ package's ``hybrid`` engine chooses it, never by the device:
 - (FURTHEST_EQ, NEAREST_SM) on int32, the suffix tree's pass: the
   tile-spine engine (``ops/tansv.py``: kernels K4 and K1), falling back to
   the dual run-stack scan (K2) when the spine overflows its capacity;
-- (FURTHEST_EQ, FURTHEST_EQ) on int32: the dual scan (K2);
+- (FURTHEST_EQ, FURTHEST_EQ) on int32: the dual scan (K2, a block engine
+  over both directions in one launch);
 - any other pair, each side on its own: a furthest_eq side on int32 runs
   the one-chain scan (K3); a nearest_sm or nearest_eq side runs the block
   engine (``ops/bansv.py::nsv_left`` on K5);
@@ -132,10 +133,11 @@ def ansv_local(x: torch.Tensor, left_type: int, right_type: int,
 
 
 def ansv(arr, left_type: int = NEAREST_SM, right_type: int = NEAREST_SM,
-         device="cpu", nonsv: int | None = None, indexing: str = "global",
+         device=None, nonsv: int | None = None, indexing: str = "global",
          kernels: AnsvKernels = KERNELS):
     """ANSV of a host array on ``device`` (port of the JAX package's public
-    ``ansv`` at p = 1).
+    ``ansv`` at p = 1); ``device=None`` is the CUDA card (pass "cpu" for
+    the plain versions on the host).
 
     Values that do not fit int32 run at int64 (the reference's ``T``
     template) and are never narrowed.  ``nonsv`` defaults to n (one past
@@ -158,7 +160,7 @@ def ansv(arr, left_type: int = NEAREST_SM, right_type: int = NEAREST_SM,
     N = padded_size(max(n, 1), 1)
     xp = np.full(N, infd, dt)
     xp[:n] = vals.astype(dt)
-    x = torch.from_numpy(xp).to(device)
+    x = torch.from_numpy(xp).to("cuda" if device is None else device)
     lidx, lval, ridx, rval = (t.cpu().numpy() for t in _ansv(
         x, left_type, right_type, kernels, x.dtype))
 

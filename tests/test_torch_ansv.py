@@ -47,7 +47,7 @@ def jax_ansv(mesh1):
 def test_public_ansv_vs_jax_and_oracle(jax_ansv, lt, rt):
     for name, a in _inputs().items():
         n = len(a)
-        got = t_ansv.ansv(a, lt, rt)
+        got = t_ansv.ansv(a, lt, rt, device="cpu")
         want = jax_ansv(a, lt, rt)
         seq = ansv_seq(a, lt, rt, nonsv=n)
         for g, w, o in zip(got, want, seq):
@@ -62,7 +62,7 @@ def test_public_ansv_past_one_scan_chunk(lt, rt):
     rng = np.random.RandomState(lt * 3 + rt)
     for a in (rng.randint(0, 6, 2500), rng.randint(0, 10**6, 4097)):
         a = a.astype(np.int32)
-        got = t_ansv.ansv(a, lt, rt)
+        got = t_ansv.ansv(a, lt, rt, device="cpu")
         for g, o in zip(got, ansv_seq(a, lt, rt, nonsv=len(a))):
             np.testing.assert_array_equal(g, o)
 
@@ -72,16 +72,16 @@ def test_public_ansv_past_one_scan_chunk(lt, rt):
                                    (NEAREST_EQ, FURTHEST_EQ)])
 def test_nonsv_and_local_indexing(jax_ansv, lt, rt):
     a = _inputs()["equal_heavy"]
-    for got, want in zip(t_ansv.ansv(a, lt, rt, nonsv=-7),
+    for got, want in zip(t_ansv.ansv(a, lt, rt, device="cpu", nonsv=-7),
                          jax_ansv(a, lt, rt, nonsv=-7)):
         np.testing.assert_array_equal(got, want)
-    got = t_ansv.ansv(a, lt, rt, indexing="local")
+    got = t_ansv.ansv(a, lt, rt, device="cpu", indexing="local")
     want = jax_ansv(a, lt, rt, indexing="local")
     for g_side, w_side in zip(got, want):
         for g, w in zip(g_side, w_side):
             np.testing.assert_array_equal(g, w)
     with pytest.raises(ValueError):
-        t_ansv.ansv(a, lt, rt, indexing="bogus")
+        t_ansv.ansv(a, lt, rt, device="cpu", indexing="bogus")
 
 
 @pytest.mark.parametrize("lt,rt", [(NEAREST_SM, NEAREST_SM),
@@ -96,12 +96,12 @@ def test_wide_values(jax_ansv, lt, rt):
                 np.array([2**33, 5, 2**34, 2**34, 7, 2**33], np.int64),
                 np.array([-2**40, 3, 2**31 - 1, 3], np.int64)):
         n = len(arr)
-        got = t_ansv.ansv(arr, lt, rt)
+        got = t_ansv.ansv(arr, lt, rt, device="cpu")
         for g, w, o in zip(got, jax_ansv(arr, lt, rt),
                            ansv_seq(arr, lt, rt, nonsv=n)):
             np.testing.assert_array_equal(g, w)
             np.testing.assert_array_equal(g, o)
-        got = t_ansv.ansv(arr, lt, rt, indexing="local")
+        got = t_ansv.ansv(arr, lt, rt, device="cpu", indexing="local")
         want = jax_ansv(arr, lt, rt, indexing="local")
         for g_side, w_side in zip(got, want):
             for g, w in zip(g_side, w_side):
@@ -141,7 +141,7 @@ def test_dispatch_by_pair_and_dtype(lt, rt, wide, want):
     if wide:
         a = a << 33
     kernels, calls = _counting_plain()
-    got = t_ansv.ansv(a, lt, rt, kernels=kernels)
+    got = t_ansv.ansv(a, lt, rt, device="cpu", kernels=kernels)
     assert calls == want
     for g, o in zip(got, ansv_seq(a, lt, rt, nonsv=len(a))):
         np.testing.assert_array_equal(g, o)
@@ -150,7 +150,8 @@ def test_dispatch_by_pair_and_dtype(lt, rt, wide, want):
 def test_spine_overflow_falls_back_to_dual_scan():
     a = np.arange(5000, 0, -1).astype(np.int32)  # every row on the spine
     kernels, calls = _counting_plain()
-    got = t_ansv.ansv(a, FURTHEST_EQ, NEAREST_SM, kernels=kernels)
+    got = t_ansv.ansv(a, FURTHEST_EQ, NEAREST_SM, device="cpu",
+                      kernels=kernels)
     assert calls == {"tile_side": 2, "dual_scan": 1}
     for g, o in zip(got, ansv_seq(a, FURTHEST_EQ, NEAREST_SM, nonsv=5000)):
         np.testing.assert_array_equal(g, o)

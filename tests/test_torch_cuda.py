@@ -27,11 +27,20 @@ def cuda():
 
 def _arrays(seed: int):
     rng = np.random.RandomState(seed)
+    saw = 1024  # K2/K3's tile: every query of the sawtooth crosses one
+    i = np.arange(1 << 15)
     return {
         "random": rng.randint(0, 9, 1 << 16),
         "runs": np.repeat(rng.randint(0, 5, 1024), 64),
         "decreasing": np.arange(1 << 14, 0, -1),
-        "increasing": np.arange(1 << 17),  # stack spills past shared memory
+        # past two levels of K2/K3's 32-wide minima hierarchy
+        "decreasing_deep": np.arange(1 << 17, 0, -1),
+        "increasing": np.arange(1 << 17),
+        "all_equal": np.full(1 << 15, 3),
+        "sawtooth": i // saw * saw + saw - 1 - i % saw,
+        # the public ansv's padding, as K2's reversed stream sees it
+        "max_lead": np.concatenate([np.full(5000, 2**31 - 1),
+                                    rng.randint(0, 4, 3 * 2048 - 5000)]),
         "st_padding": np.concatenate([np.full(700, -1), [0],
                                       rng.randint(0, 12, 8 * 2048 - 701)]),
     }
@@ -58,10 +67,39 @@ def test_tile_side_kernel_vs_plain(cuda, kind):
 @pytest.mark.parametrize("kind", sorted(_arrays(0)))
 def test_dual_kernel_vs_plain(cuda, kind):
     x = torch.from_numpy(_arrays(2)[kind].astype(np.int32)).to(cuda)
+    before = nsv_scan.nsv_scan_dual.launches
     for typs in ((FURTHEST_EQ, NEAREST_SM), (NEAREST_EQ, NEAREST_EQ),
-                 (NEAREST_SM, FURTHEST_EQ)):
+                 (NEAREST_SM, FURTHEST_EQ), (FURTHEST_EQ, FURTHEST_EQ)):
         _same(nsv_scan.nsv_scan_dual(x, x.flip(0), *typs),
               nsv_scan.nsv_scan_dual_plain(x, x.flip(0), *typs))
+    # the two streams are independent inputs
+    y = x.roll(777)
+    _same(nsv_scan.nsv_scan_dual(x, y, FURTHEST_EQ, NEAREST_SM),
+          nsv_scan.nsv_scan_dual_plain(x, y, FURTHEST_EQ, NEAREST_SM))
+    assert nsv_scan.nsv_scan_dual.launches == before + 5
+
+
+G = nsv_scan.GROUP
+
+
+@pytest.mark.parametrize("n", [1, G - 1, G, G + 1, G**2 - 1, G**2 + 1,
+                               G**3 - 1, G**3 + 1, G**4 + 1])
+def test_block_scans_around_group_powers(cuda, n):
+    """K2 and K3 at lengths around the levels of their hierarchy."""
+    rng = np.random.RandomState(n)
+    for a in (rng.randint(0, 7, n), np.arange(n, 0, -1)):
+        x = torch.from_numpy(a.astype(np.int32)).to(cuda)
+        before = (nsv_scan.nsv_scan_left.launches,
+                  nsv_scan.nsv_scan_dual.launches)
+        for typ in (NEAREST_SM, NEAREST_EQ, FURTHEST_EQ):
+            _same(nsv_scan.nsv_scan_left(x, typ),
+                  nsv_scan.nsv_scan_left_plain(x, typ))
+        _same(nsv_scan.nsv_scan_dual(x, x.flip(0), FURTHEST_EQ, NEAREST_EQ),
+              nsv_scan.nsv_scan_dual_plain(x, x.flip(0), FURTHEST_EQ,
+                                           NEAREST_EQ))
+        assert (nsv_scan.nsv_scan_left.launches,
+                nsv_scan.nsv_scan_dual.launches) == (before[0] + 3,
+                                                     before[1] + 1)
 
 
 def test_spine_kernel_vs_plain(cuda):
@@ -99,6 +137,18 @@ def test_block_psv_kernel_vs_plain(cuda, kind, dtype):
             assert got.dtype == torch.int32
             _same((got,), (bansv.block_psv_plain(x, strict),))
         assert bansv.block_psv.launches == before + 2
+
+
+def test_public_ansv_runs_on_the_card_by_default(cuda):
+    from psac_tpu_torch import ansv
+
+    a = np.random.RandomState(7).randint(0, 6, 5000).astype(np.int32)
+    before = (bansv.block_psv.launches, nsv_scan.nsv_scan_left.launches)
+    got = ansv(a, NEAREST_EQ, FURTHEST_EQ)
+    assert (bansv.block_psv.launches,
+            nsv_scan.nsv_scan_left.launches) == (before[0] + 1, before[1] + 1)
+    for g, w in zip(got, ansv_seq(a, NEAREST_EQ, FURTHEST_EQ, nonsv=5000)):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_public_ansv_on_gpu(cuda):

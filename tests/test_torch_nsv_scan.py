@@ -11,7 +11,7 @@ import torch
 
 from psac_tpu_torch.ops import nsv_scan as t_scan
 from psac_tpu_torch.ops.ansv import (FURTHEST_EQ, NEAREST_EQ, NEAREST_SM,
-                                     NONSV, _left_scan)
+                                     NONSV, _left_scan, ansv_seq)
 
 torch.set_num_threads(1)
 
@@ -127,3 +127,178 @@ def test_wrappers_reject_bad_tensors():
     from psac_tpu_torch.ops import cuda_lib
     with pytest.raises(ValueError):
         cuda_lib.check_cuda_int32("k", x)
+
+
+# ---------------------------------------------------------------------------
+# K2/K3 block engine: adversaries of a minima hierarchy, and a numpy model
+# of the CUDA kernel's search at a tiny group width
+# ---------------------------------------------------------------------------
+
+SAW = 1024  # the CUDA kernel's tile: a sawtooth of this period crosses it
+
+
+def _adversaries():
+    """Inputs that stress the block engine (lengths multiples of CHUNK)."""
+    rng = np.random.RandomState(5)
+    n = 4096
+    i = np.arange(n)
+    return {
+        "all_equal": np.full(n, 7),
+        "sawtooth": i // SAW * SAW + SAW - 1 - i % SAW,
+        "decreasing": i[::-1] + 1,
+        "increasing": i,
+        "max_lead": np.concatenate([np.full(1500, I32_INF),
+                                    rng.randint(0, 5, n - 1500)]),
+        "short_runs": np.repeat(rng.randint(0, 3, n // 16), 16),
+    }
+
+
+@pytest.mark.parametrize("kind", sorted(_adversaries()))
+def test_adversaries_plain_vs_pallas_interpret(kind):
+    from psac_tpu.ops.nsv_scan import nsv_scan_dual, nsv_scan_left
+
+    x = _adversaries()[kind].astype(np.int32)
+    xr = x[::-1].copy()
+    for typ in (NEAREST_SM, NEAREST_EQ, FURTHEST_EQ):
+        want = nsv_scan_left(jnp.asarray(x), typ, True)
+        got = t_scan.nsv_scan_left(_t(x), typ)
+        assert int(want[2]) == 0 and int(got[2]) == 0
+        for g, w in zip(got[:2], want[:2]):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    want = nsv_scan_dual(jnp.asarray(x), jnp.asarray(xr), FURTHEST_EQ,
+                         NEAREST_SM, True)
+    got = t_scan.nsv_scan_dual(_t(x), _t(xr), FURTHEST_EQ, NEAREST_SM)
+    for g, w in zip(got[:4], want[:4]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("kind", sorted(_adversaries()))
+def test_adversaries_plain_vs_oracle(kind):
+    x = _adversaries()[kind].astype(np.int32)
+    s = len(x)
+    for typ in (NEAREST_SM, NEAREST_EQ, FURTHEST_EQ):
+        idx, val, _ = t_scan.nsv_scan_left(_t(x), typ)
+        want = _oracle_left(x, typ)
+        np.testing.assert_array_equal(idx.numpy(), want)
+        np.testing.assert_array_equal(
+            val.numpy(), np.where(want >= 0, x[np.maximum(want, 0)], 0))
+    for lt, rt in ((FURTHEST_EQ, FURTHEST_EQ), (NEAREST_EQ, NEAREST_SM)):
+        il, _, ir, _, _ = t_scan.nsv_scan_dual(_t(x), _t(x[::-1].copy()),
+                                               lt, rt)
+        wl, wr = ansv_seq(x, lt, rt, nonsv=-1)
+        np.testing.assert_array_equal(il.numpy(), wl)
+        ir = ir.numpy()[::-1]
+        np.testing.assert_array_equal(np.where(ir < 0, -1, s - 1 - ir), wr)
+
+
+class _BlockEngineModel:
+    """The search of ``csrc/nsv_scan.cu``'s K2/K3 engine in numpy, with the
+    kernel's group width G as a parameter: the minima hierarchy, the
+    neighbour fast paths, the group-wide 'ballots' that climb and descend,
+    and FURTHEST_EQ as H(PSV<=(i)).  Every read asserts that it stays
+    inside its level, and each descent that the group it reads is full,
+    which is what the kernel relies on to read without masks."""
+
+    def __init__(self, x, G):
+        self.G = G
+        self.lv = [np.asarray(x, np.int64)]
+        while len(self.lv[-1]) > G:
+            a = self.lv[-1]
+            pad = np.full(-len(a) % G, np.iinfo(np.int64).max)
+            self.lv.append(np.concatenate([a, pad]).reshape(-1, G).min(1))
+
+    def at(self, k, e):
+        assert 0 <= e < len(self.lv[k]), (k, e)
+        return self.lv[k][e]
+
+    def prev(self, i, v, strict):
+        """Largest j < i with x[j] < v (strict) or <= v; -1 if none."""
+        G = self.G
+        hit = (lambda a: a < v) if strict else (lambda a: a <= v)
+        p, k = i, 0
+        while True:
+            if p <= 0:
+                return -1
+            lo = (p - 1) // G * G
+            lanes = [e for e in range(lo, lo + G)
+                     if e < p and hit(self.at(k, e))]
+            if lanes:
+                j = max(lanes)
+                break
+            if lo == 0 or k + 1 == len(self.lv):
+                return -1
+            p, k = lo // G, k + 1
+        while k > 0:
+            k -= 1
+            j = max(e for e in range(j * G, j * G + G) if hit(self.at(k, e)))
+        return j
+
+    def next(self, q, v):
+        """Smallest j >= q with x[j] <= v; -1 if none."""
+        G = self.G
+        k = 0
+        while True:
+            n = len(self.lv[k])
+            if q >= n:
+                return -1
+            lo = q // G * G
+            lanes = [e for e in range(lo, lo + G)
+                     if q <= e < n and self.at(k, e) <= v]
+            if lanes:
+                j = min(lanes)
+                break
+            if k + 1 == len(self.lv):
+                return -1
+            q, k = lo // G + 1, k + 1
+        while k > 0:
+            k -= 1
+            n = len(self.lv[k])
+            j = min(e for e in range(j * G, j * G + G)
+                    if e < n and self.at(k, e) <= v)
+        return j
+
+    def left(self, typ):
+        x = self.lv[0]
+        idx = np.full(len(x), -1, np.int64)
+        for i in range(len(x)):
+            v = x[i]
+            strict = typ == NEAREST_SM
+            if i > 0 and (x[i - 1] < v if strict else x[i - 1] <= v):
+                t = i - 1
+            else:
+                t = self.prev(i, v, strict)
+            if typ == FURTHEST_EQ and t >= 0:
+                vt = x[t]
+                u = (t - 1 if t > 0 and x[t - 1] < vt
+                     else self.prev(t, vt, True))
+                h = u + 1 if x[u + 1] <= vt else self.next(u + 1, vt)
+                assert u < h <= t and x[h] == vt
+                t = h
+            idx[i] = t
+        return idx
+
+
+def _model_inputs():
+    """The adversaries at the model's scale, and lengths G^k - 1, G^k and
+    G^k + 1 around the levels of a G = 4 hierarchy."""
+    rng = np.random.RandomState(8)
+    cases = {k: v[:700] for k, v in _adversaries().items()}
+    cases["max_lead"] = np.concatenate([np.full(70, I32_INF),
+                                        rng.randint(0, 4, 630)])
+    cases["sawtooth"] = np.arange(700) // 16 * 16 + 15 - np.arange(700) % 16
+    for n in (3, 4, 5, 15, 17, 63, 65, 255, 257):
+        cases[f"len{n}"] = rng.randint(0, 4, n)
+    cases["negative"] = np.concatenate([np.full(9, -1), [0],
+                                        rng.randint(0, 3, 190)])
+    return cases
+
+
+@pytest.mark.parametrize("kind", sorted(_model_inputs()))
+def test_block_engine_model_vs_oracle(kind):
+    x = _model_inputs()[kind].astype(np.int32)
+    for G in (4, 32):
+        model = _BlockEngineModel(x, G)
+        for typ in (NEAREST_SM, NEAREST_EQ, FURTHEST_EQ):
+            np.testing.assert_array_equal(model.left(typ),
+                                          _oracle_left(x, typ),
+                                          err_msg=f"G={G} typ={typ}")
