@@ -2,18 +2,21 @@
 """Smoke run of psac_tpu_torch on one NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from ``psac_tpu_torch/csrc``, checks
-each against its plain PyTorch version on the card, then drives the main
-paths through the user entry points: SA+LCP of 2^26 random DNA, SA+LCP of
-2^24 repetitive DNA, the suffix tree of the 2^26 text and that of the 2^24
-repetitive text (its ANSV pass runs on K2); the public ANSV of 2^24 values
-for five match-type pairs; the DESA of the 2^26 text with
-both top-level indexes, answering batches of 65,536 patterns of lengths 8,
-20 and 64.  Every result is held against the native SA-IS + Kasai oracle,
-the sequential ANSV oracle or the plain path; the script prints the kernel
-table (each kernel's time beside its bound: the bytes it must move once at
-the card's memory rate), the card's name and power limit, and a last JSON
-line.  Any
-mismatch raises; the exit code is then non-zero.
+each against its plain PyTorch version on the card (at the main path's
+shapes and on adversaries), times the suffix tree's ANSV pass both ways
+(the tile-spine pass, K4 + K1, against the dual scan K2), then drives the
+main paths through the user entry points, most with no device (the card
+is the default): SA+LCP of 2^26 random DNA, SA+LCP of 2^24 repetitive DNA,
+the suffix tree of the 2^26 text and that of the 2^24 repetitive text (its
+ANSV pass runs on K2); the public ANSV of 2^24 values for five match-type
+pairs; the DESA of the 2^26 text with both top-level indexes, answering
+batches of 65,536 patterns of lengths 8, 20 and 64.  Every result is held
+against the native SA-IS + Kasai oracle, the sequential ANSV oracle or the
+plain path; the script prints the kernel table (each kernel's time beside
+its bound: the bytes it must move once at the card's memory rate, and its
+launches summed over the main-path phases), the card's name and power
+limit, and a last JSON line.  Any mismatch raises; the exit code is then
+non-zero.
 
 Run from the repository root:  python3 chip_smoke.py
 (``--log2n``/``--rep-log2n``/``--ansv-log2n``/``--batch`` shrink the work
@@ -135,11 +138,16 @@ def tansv_cases():
     x = np.full(4096, 9)
     x[T + 1::T] = 4
     cases["straddle"] = x
+    # every element a chain member; one tile of one value
+    cases["decreasing"] = np.arange(4096, 0, -1)
+    cases["one_value_tile"] = np.full(T, 3)
     return {k: v.astype(np.int32) for k, v in cases.items()}
 
 
 def counter(fns):
-    """(reset, read) over the launch counts of kernel wrappers."""
+    """(reset, read) over the launch counts of kernel wrappers.  Each
+    main-path phase adds what it read into ``LAUNCHES``, the count the
+    kernel table reports."""
     def reset():
         for fn in fns:
             fn.launches = 0
@@ -150,8 +158,121 @@ def counter(fns):
     return reset, read
 
 
+LAUNCHES: dict = {}
+
+
+def add_launches(counts: dict) -> None:
+    for k, v in counts.items():
+        LAUNCHES[k] = LAUNCHES.get(k, 0) + v
+
+
+def pad_chunk(x, value: int = 2**31 - 1):
+    """x padded at the end with ``value`` to a multiple of 2048, as the
+    ANSV pads an int32 array."""
+    import torch
+
+    pad = -x.shape[0] % 2048
+    return torch.cat([x, x.new_full((pad,), value)]) if pad else x
+
+
+def check_k4_k1(dev, lcp_adj, log2n: int, kern: dict) -> None:
+    """K4 (tile phase) and K1 (spine scan) against their plain versions:
+    K4 on the tile adversaries and the 2^26 LCP, both directions, with_eq
+    on and off; K1 on the 2^26 LCP's spine streams and on the spine streams
+    of the scan adversaries and of the suffix tree's -1 padding rows."""
+    import torch
+
+    from psac_tpu_torch.ops.nsv_scan import (nsv_scan_spine,
+                                             nsv_scan_spine_plain)
+    from psac_tpu_torch.ops.tansv import (pack_spines, spine_streams,
+                                          tile_side, tile_side_plain)
+
+    S = lcp_adj.shape[0]
+    cases = tansv_cases()
+    errs = []
+    for a in cases.values():
+        x = torch.from_numpy(a).to(dev)
+        for xx in (x, x.flip(0)):
+            for with_eq in (True, False):
+                errs.append(max_abs_err(tile_side(xx, with_eq),
+                                        tile_side_plain(xx, with_eq)))
+    errs += [max_abs_err(tile_side(xx, we), tile_side_plain(xx, we))
+             for xx in (lcp_adj, lcp_adj.flip(0)) for we in (True, False)]
+    kern["tile_side"] = dict(
+        route="cuda", source="psac_tpu_torch/csrc/tansv_tile.cu",
+        replaces="psac_tpu/ops/tansv.py:67", max_abs_err=max(errs),
+        ms=cuda_ms(lambda: tile_side(lcp_adj, True), 10),
+        plain_ms=cuda_ms(lambda: tile_side_plain(lcp_adj, True), 1),
+        # 4 B in; psv_g, psv_val, nxt, e_g, h_in (4 B) and two masks (1 B)
+        **bound(26 * S, 2 * S))
+    log(f"[kernel] K4 tile_side == plain on {len(cases)} adversaries "
+        f"({', '.join(cases)}) and the 2^{log2n} LCP, both directions, "
+        "with_eq on and off")
+
+    spine_f = tile_side(lcp_adj, True)[3]
+    spine_n = tile_side(lcp_adj.flip(0), False)[3]
+    kf, vf, kn, vn, ovf = spine_streams(lcp_adj, spine_f, spine_n)
+    if ovf:
+        raise AssertionError("spine of the random-DNA LCP overflowed")
+    errs = [max_abs_err(nsv_scan_spine(vf, kf, vn, kn),
+                        nsv_scan_spine_plain(vf, kf, vn, kn))]
+    advs = scan_adversaries(dev)
+    rng = np.random.RandomState(77)
+    advs["st_padding"] = torch.from_numpy(np.concatenate(
+        [np.full(700, -1), [0], rng.randint(0, 12, 8 * 2048 - 701)]
+    ).astype(np.int32)).to(dev)
+    for x in advs.values():
+        x = pad_chunk(x)
+        f_k, f_v, n_k, n_v = pack_spines(x, tile_side_plain(x, True)[3],
+                                         tile_side_plain(x.flip(0), False)[3])
+        errs.append(max_abs_err(nsv_scan_spine(f_v, f_k, n_v, n_k),
+                                nsv_scan_spine_plain(f_v, f_k, n_v, n_k)))
+    m = kf.shape[0]
+    kern["nsv_scan_spine"] = dict(
+        route="cuda", source="psac_tpu_torch/csrc/nsv_scan.cu",
+        replaces="psac_tpu/ops/nsv_scan.py:325", max_abs_err=max(errs),
+        ms=cuda_ms(lambda: nsv_scan_spine(vf, kf, vn, kn), 10),
+        plain_ms=cuda_ms(lambda: nsv_scan_spine_plain(vf, kf, vn, kn), 1),
+        **bound(36 * m + 4, 2 * m))
+    log(f"[kernel] K1 nsv_scan_spine == plain on the 2^{log2n} LCP's spine "
+        f"streams ({m} entries; spines {int(spine_f.sum())} and "
+        f"{int(spine_n.sum())} of {S}) and on the spine streams of "
+        f"{len(advs)} adversaries ({', '.join(advs)})")
+
+
+def engine_comparison(x, label: str, card: str) -> dict:
+    """The suffix tree's (FURTHEST_EQ, NEAREST_SM) pass on the LCP ``x``
+    two ways: the tile-spine pass (``tansv_feq_nsm``: K4 twice, the spine
+    streams, K1, the combine) and the dual scan K2 on x and its reverse;
+    both must agree.  A spine over the capacity would send the pass to K2,
+    so the capacity is lifted here (``CAPDIV`` = 1) to time the tile-spine
+    pass on any spine.  CUDA-event means over 5 calls after a warm-up."""
+    from unittest import mock
+
+    from psac_tpu_torch.ops import tansv
+    from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_SM
+    from psac_tpu_torch.ops.nsv_scan import nsv_scan_dual
+
+    S = x.shape[0]
+    spines = (int(tansv.tile_side(x, True)[3].sum()),
+              int(tansv.tile_side(x.flip(0), False)[3].sum()))
+    with mock.patch.object(tansv, "CAPDIV", 1):
+        got = tansv.tansv_feq_nsm(x)
+        max_abs_err(got[:4], nsv_scan_dual(x, x.flip(0), FURTHEST_EQ,
+                                           NEAREST_SM)[:4])
+        t_spine = cuda_ms(lambda: tansv.tansv_feq_nsm(x), 5)
+    t_dual = cuda_ms(lambda: nsv_scan_dual(x, x.flip(0), FURTHEST_EQ,
+                                           NEAREST_SM), 5)
+    out = dict(tile_spine_ms=t_spine, dual_ms=t_dual, spines=spines,
+               spine_share=max(spines) / S)
+    log(f"[engines] {label} ({S} rows): tile-spine pass {t_spine:.3f} ms, "
+        f"dual scan K2 {t_dual:.3f} ms; spines {spines} "
+        f"({100 * max(spines) / S:.3f}% of the rows); both agree; on {card}")
+    return out
+
+
 def check_k3_k5(dev, lcp_adj, log2n: int, ansv_log2n: int, kern: dict):
-    """K3 (one run-stack chain) and K5 (the block engine's previous-smaller
+    """K3 (the block engine's left scan) and K5 (the block engine's previous-smaller
     pass) against their plain versions: the random values of the public
     ANSV phase and the 2^26 LCP, every match type, int32 and int64."""
     import torch
@@ -183,23 +304,31 @@ def check_k3_k5(dev, lcp_adj, log2n: int, ansv_log2n: int, kern: dict):
     errs = [max_abs_err((block_psv(x, strict),), (block_psv_plain(x, strict),))
             for x in (rnd, lcp_adj, wide) for strict in (True, False)]
     S = lcp_adj.shape[0]
+    # also at the public ANSV's shape, where most of its launches run
+    at_ansv = dict(
+        shape=f"2^{ansv_log2n} random int32, strict",
+        ms=cuda_ms(lambda: block_psv(rnd, True), 10),
+        plain_ms=cuda_ms(lambda: block_psv_plain(rnd, True), 1),
+        bound_ms=bound(8 * m, m)["bound_ms"])
     kern["block_psv"] = dict(
         route="cuda", source="psac_tpu_torch/csrc/bansv.cu",
         replaces="psac_tpu/ops/bansv.py:76", max_abs_err=max(errs),
-        ms=cuda_ms(lambda: block_psv(lcp_adj, True), 3),
+        ms=cuda_ms(lambda: block_psv(lcp_adj, True), 10),
         plain_ms=cuda_ms(lambda: block_psv_plain(lcp_adj, True), 1),
-        **bound(8 * S, S))
+        **bound(8 * S, S), at_ansv_shape=at_ansv)
     log(f"[kernel] K5 block_psv == plain, strict and not, on 2^{ansv_log2n} "
-        f"random int32, the 2^{log2n} LCP and 2^{ansv_log2n - 2} int64")
+        f"random int32, the 2^{log2n} LCP and 2^{ansv_log2n - 2} int64; "
+        f"{at_ansv['ms']:.3f} ms at 2^{ansv_log2n} (bound "
+        f"{at_ansv['bound_ms']:.4f} ms, plain {at_ansv['plain_ms']:.3f} ms)")
 
 
 def rep_tree_phase(dev, rep_text: bytes, log2n: int, overflows: bool,
-                   kern: dict, card: str) -> dict:
+                   card: str) -> dict:
     """The suffix tree of repetitive DNA on the card.  When its LCP spines
     overflow the tile-spine engine's capacity (``overflows``, as they do at
-    2^24), the ANSV pass runs on K2: one launch, counted; the tree is held
-    against the plain path's; timed with the host clock around a
-    synchronized call, first and second."""
+    2^24), the ANSV pass runs on K2: K4 twice and K2 once, counted; the
+    tree is held against the plain path's; timed with the host clock
+    around a synchronized call, first and second."""
     import torch
 
     from psac_tpu_torch.models.suffix_array import (construct_device,
@@ -228,7 +357,7 @@ def rep_tree_phase(dev, rep_text: bytes, log2n: int, overflows: bool,
             raise AssertionError(f"ST of rep_dna launched {counts}, "
                                  f"expected {want}")
         if run == "cold":
-            kern["nsv_scan_dual"]["launches"] += counts["nsv_scan_dual"]
+            add_launches(counts)
     plain = _st_local(dsa, xs, PLAIN)
     if not torch.equal(tree.nodes, plain.nodes):
         raise AssertionError("suffix tree of rep_dna differs from the plain "
@@ -244,7 +373,7 @@ def ansv_values(log2n: int, seed: int = 24) -> np.ndarray:
     return rng.randint(0, 1 << 16, 1 << log2n).astype(np.int32)
 
 
-def public_ansv_phase(dev, log2n: int, kern: dict, card: str) -> dict:
+def public_ansv_phase(dev, log2n: int, card: str) -> dict:
     """The public ``ansv`` on the card for five match-type pairs, each call
     counted on its own and held against the plain path on the card; the
     same pairs at 2^16 against ``ansv_seq``; wide int64 values at 2^20."""
@@ -326,9 +455,9 @@ def public_ansv_phase(dev, log2n: int, kern: dict, card: str) -> dict:
     log("[ansv] 2^20 int64 values (NSM,NSM), (FEQ,NEQ), (FEQ,FEQ): K5 only, "
         "== plain path")
     for k in ("nsv_scan_left", "block_psv"):
-        kern[k]["launches"] = total[k]
         if total[k] == 0:
             raise AssertionError(f"{k} was not launched by the public ansv")
+    add_launches(total)
     log(f"[ansv] launches over the public ANSV calls: {total} on {card}")
     return times
 
@@ -357,11 +486,12 @@ def sa_bounds(tpad: np.ndarray, sa: np.ndarray, pats: np.ndarray,
     return lo
 
 
-def desa_phase(dev, text: bytes, sa_ref: np.ndarray, batch: int, kern: dict,
+def desa_phase(dev, text: bytes, sa_ref: np.ndarray, batch: int,
                card: str) -> dict:
-    """DESA of the text on the card with the TLLT and the TLDT; batches of
-    ``batch`` patterns (half text substrings, half random DNA) of lengths
-    8, 20 and 64; every range checked against the native SA."""
+    """DESA of the text on the card (``build_desa`` with no device) with
+    the TLLT and the TLDT; batches of ``batch`` patterns (half text
+    substrings, half random DNA) of lengths 8, 20 and 64; every range
+    checked against the native SA."""
     import torch
 
     from psac_tpu_torch import build_desa
@@ -381,16 +511,15 @@ def desa_phase(dev, text: bytes, sa_ref: np.ndarray, batch: int, kern: dict,
         reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        idx[tli] = build_desa(text, dev, tli=tli)
+        idx[tli] = build_desa(text, tli=tli)
         torch.cuda.synchronize()
         out[f"build_{tli}_s"] = time.perf_counter() - t0
         counts = read()
         log(f"[desa] build 2^{n.bit_length() - 1} {tli}: "
             f"{out[f'build_{tli}_s']:.3f} s, launches {counts}")
-        if tli == "tldt":
-            if counts["block_psv"] == 0:
-                raise AssertionError("K5 was not launched by the TLDT build")
-            kern["block_psv"]["launches"] += counts["block_psv"]
+        add_launches(counts)
+        if tli == "tldt" and counts["block_psv"] == 0:
+            raise AssertionError("K5 was not launched by the TLDT build")
     samp = idx["tldt"].samp
     log(f"[desa] tldt samples {samp['m']} rows (maxsize {n // 128}); "
         f"tllt k {idx['tllt'].k}, table {idx['tllt'].table.shape[0]}")
@@ -484,10 +613,8 @@ def main() -> int:
                                          ansv_seq)
     from psac_tpu_torch.ops.nsv_scan import (CHUNK, nsv_scan_dual,
                                              nsv_scan_dual_plain,
-                                             nsv_scan_spine,
-                                             nsv_scan_spine_plain)
-    from psac_tpu_torch.ops.tansv import (CAPDIV, spine_streams, tile_side,
-                                          tile_side_plain)
+                                             nsv_scan_spine)
+    from psac_tpu_torch.ops.tansv import CAPDIV, tile_side
     from psac_tpu_torch.parallel.ansv import PLAIN, ansv_local
     from psac_tpu_torch.verify.suffix_tree_oracle import suffix_tree_oracle
 
@@ -522,47 +649,11 @@ def main() -> int:
     def padded_lcp(lcp):
         """A host LCP array as the ANSV takes it: int32 on the card, padded
         at the end with INT32_MAX to a multiple of 2048."""
-        x = torch.from_numpy(lcp.astype(np.int32)).to(dev)
-        pad = -len(lcp) % 2048
-        return torch.cat([x, x.new_full((pad,), 2**31 - 1)]) if pad else x
+        return pad_chunk(torch.from_numpy(lcp.astype(np.int32)).to(dev))
 
     lcp_adj = padded_lcp(lcp_ref)
     S = lcp_adj.shape[0]
-
-    for name, a in tansv_cases().items():
-        x = torch.from_numpy(a).to(dev)
-        for xx in (x, x.flip(0)):
-            for with_eq in (True, False):
-                max_abs_err(tile_side(xx, with_eq),
-                            tile_side_plain(xx, with_eq))
-    errs = [max_abs_err(tile_side(xx, we), tile_side_plain(xx, we))
-            for xx in (lcp_adj, lcp_adj.flip(0)) for we in (True, False)]
-    kern["tile_side"] = dict(
-        route="cuda", source="psac_tpu_torch/csrc/tansv_tile.cu",
-        replaces="psac_tpu/ops/tansv.py:67", max_abs_err=max(errs),
-        ms=cuda_ms(lambda: tile_side(lcp_adj, True), 3),
-        plain_ms=cuda_ms(lambda: tile_side_plain(lcp_adj, True), 1),
-        # 4 B in; psv_g, psv_val, nxt, e_g, h_in (4 B) and two masks (1 B)
-        **bound(26 * S, 2 * S))
-    log(f"[kernel] K4 tile_side == plain on {len(tansv_cases())} "
-        f"adversaries and the 2^{args.log2n} LCP")
-
-    spine_f = tile_side(lcp_adj, True)[3]
-    spine_n = tile_side(lcp_adj.flip(0), False)[3]
-    kf, vf, kn, vn, ovf = spine_streams(lcp_adj, spine_f, spine_n)
-    if ovf:
-        raise AssertionError("spine of the random-DNA LCP overflowed")
-    err = max_abs_err(nsv_scan_spine(vf, kf, vn, kn),
-                      nsv_scan_spine_plain(vf, kf, vn, kn))
-    kern["nsv_scan_spine"] = dict(
-        route="cuda", source="psac_tpu_torch/csrc/nsv_scan.cu",
-        replaces="psac_tpu/ops/nsv_scan.py:325", max_abs_err=err,
-        ms=cuda_ms(lambda: nsv_scan_spine(vf, kf, vn, kn), 3),
-        plain_ms=cuda_ms(lambda: nsv_scan_spine_plain(vf, kf, vn, kn), 1),
-        **bound(36 * kf.shape[0] + 4, 2 * kf.shape[0]))
-    log(f"[kernel] K1 nsv_scan_spine == plain on the spine streams "
-        f"({kf.shape[0]} entries; spines {int(spine_f.sum())} and "
-        f"{int(spine_n.sum())} of {S})")
+    check_k4_k1(dev, lcp_adj, args.log2n, kern)
 
     xr = lcp_adj.flip(0)
     errs = [max_abs_err(nsv_scan_dual(lcp_adj, xr, FURTHEST_EQ, NEAREST_SM),
@@ -598,7 +689,9 @@ def main() -> int:
         f"(NEQ, NSM) on {len(advs)} adversaries ({', '.join(advs)}), and "
         "two unrelated streams")
     check_k3_k5(dev, lcp_adj, args.log2n, args.ansv_log2n, kern)
-    del lcp_adj, xr, small, other, advs, spine_f, spine_n, kf, vf, kn, vn
+    label = f"2^{args.log2n} LCP"
+    engines = {label: engine_comparison(lcp_adj, label, card)}
+    del lcp_adj, xr, small, other, advs
 
     # ---- 4. main path (counted) ------------------------------------------
     reset_counts, read_counts = counter((tile_side, nsv_scan_spine,
@@ -621,21 +714,22 @@ def main() -> int:
     t_st = time.perf_counter() - t0
     mem_st = torch.cuda.max_memory_allocated()
     main_counts = read_counts()
+    add_launches(main_counts)
     log(f"[main] launches in SA+LCP+ST of 2^{args.log2n} DNA: {main_counts}")
     for k in ("tile_side", "nsv_scan_spine"):
-        kern[k]["launches"] = main_counts[k]
         if main_counts[k] == 0:
             raise AssertionError(f"{k} was not launched on the main path")
 
     # K2 runs on the main path when a spine overflows: the suffix tree of a
     # homopolymer (its LCP rises in every tile), counted on its own, and
-    # that of the repetitive text (phase 4b)
+    # that of the repetitive text (phase 4b).  Both builds here take no
+    # device: the card is the default.
     homo = b"A" * 4096
     reset_counts()
-    homo_tree = build_suffix_tree(homo, dev)
+    homo_tree = build_suffix_tree(homo)
     homo_counts = read_counts()
+    add_launches(homo_counts)
     log(f"[main] launches in build_suffix_tree(A^{len(homo)}): {homo_counts}")
-    kern["nsv_scan_dual"]["launches"] = homo_counts["nsv_scan_dual"]
     if homo_counts["nsv_scan_dual"] == 0:
         raise AssertionError("nsv_scan_dual was not launched on an "
                              "overflowing spine")
@@ -643,7 +737,7 @@ def main() -> int:
     rep_n = 1 << args.rep_log2n
     rep_text = rep_dna(rep_n)
     t0 = time.perf_counter()
-    rres = build_suffix_array(rep_text, dev)
+    rres = build_suffix_array(rep_text)
     t_rep = time.perf_counter() - t0
     # second, warm runs (allocator and library state settled)
     t0 = time.perf_counter()
@@ -673,8 +767,9 @@ def main() -> int:
     # sends a suffix tree to K2 (s // CAPDIV)
     rx = padded_lcp(rres.lcp)
     rs = rx.shape[0]
-    spines = (int(tile_side(rx, True)[3].sum()),
-              int(tile_side(rx.flip(0), False)[3].sum()))
+    label = f"2^{args.rep_log2n} rep_dna LCP"
+    engines[label] = engine_comparison(rx, label, card)
+    spines = engines[label]["spines"]
     cap = max(CHUNK, rs // CAPDIV // CHUNK * CHUNK)
     log(f"[main] rep_dna 2^{args.rep_log2n} LCP spines {spines} of {rs} rows "
         f"({100 * max(spines) / rs:.3f}%), capacity {cap}: "
@@ -696,7 +791,7 @@ def main() -> int:
 
     # ---- 4b. suffix tree of the repetitive text (counted) ---------------
     rep_st = rep_tree_phase(dev, rep_text, args.rep_log2n,
-                            max(spines) > cap, kern, card)
+                            max(spines) > cap, card)
 
     # ---- 5. fallback through ansv_local ---------------------------------
     dec = np.arange(1 << 20, 0, -1).astype(np.int32)
@@ -717,16 +812,16 @@ def main() -> int:
         sa = native.suffix_array(t)
         want = suffix_tree_oracle(a.encode(t), sa, native.lcp_array(t, sa),
                                   a.sigma)
-        if not np.array_equal(build_suffix_tree(t, dev), want):
+        if not np.array_equal(build_suffix_tree(t), want):
             raise AssertionError(f"suffix tree of {t[:12]!r} differs")
     log("[small] ST == suffix_tree_oracle for mississippi, rand_dna(4177), "
         "abc*300")
 
     # ---- 7. public ANSV (counted per call) --------------------------------
-    ansv_times = public_ansv_phase(dev, args.ansv_log2n, kern, card)
+    ansv_times = public_ansv_phase(dev, args.ansv_log2n, card)
 
     # ---- 8. DESA of the 2^26 text: both top-level indexes, bulk_locate ---
-    desa = desa_phase(dev, text, sa_ref, args.batch, kern, card)
+    desa = desa_phase(dev, text, sa_ref, args.batch, card)
 
     # ---- 9. results -------------------------------------------------------
     log(f"[result] SA+LCP 2^{args.log2n} DNA {t_sa:.3f} s "
@@ -740,6 +835,15 @@ def main() -> int:
     log("[result] DESA: " + ", ".join(
         f"{k} {v:.3f}" if k.startswith("build") else f"{k} {v:,.0f}"
         for k, v in desa.items()))
+    for k, e in engines.items():
+        log(f"[result] engines on the {k}: tile-spine pass "
+            f"{e['tile_spine_ms']:.3f} ms vs K2 {e['dual_ms']:.3f} ms "
+            f"(spine {100 * e['spine_share']:.3f}% of the rows)")
+    log(f"[result] launches over the main-path phases: {LAUNCHES}")
+    for k, v in kern.items():
+        v["launches"] = LAUNCHES.get(k, 0)
+        if v["launches"] == 0:
+            raise AssertionError(f"{k} was not launched on the main path")
     for k, v in kern.items():
         log(f"[kernel] {k}: kernel {v['ms']:.3f} ms, plain "
             f"{v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms "

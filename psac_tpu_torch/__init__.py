@@ -3,9 +3,9 @@
 Suffix array + LCP construction, the suffix tree, the public ANSV and the
 DESA pattern index of one text on one device.  The package imports
 ``torch`` only; its hand-written CUDA kernels (``csrc/``) are built with
-``nvcc`` at first use.  Every entry point takes an explicit ``device``: CPU
-tensors run each kernel's plain PyTorch version, CUDA tensors run the
-kernel.
+``nvcc`` at first use.  Every entry point takes ``device``, the CUDA card
+when it is None: CPU tensors (``device="cpu"``) run each kernel's plain
+PyTorch version, CUDA tensors run the kernel.
 """
 
 from psac_tpu_torch.config import SAConfig  # noqa: F401

@@ -15,6 +15,14 @@ import torch
 INT32_MAX = 2**31 - 1
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a build runs on: the CUDA card when ``device`` is None,
+    else ``device`` as given (``"cpu"`` runs the kernels' plain versions).
+    There is no fallback: without a card, ``None`` fails where torch first
+    allocates on it."""
+    return torch.device("cuda" if device is None else device)
+
+
 def index_dtype(n: int) -> torch.dtype:
     """int32 while the padded length stays below 2^30 (bucket ids reach
     N+1 and doubling distances 2N, both of which must fit int32), int64

@@ -1,9 +1,9 @@
 // ANSV scans for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of psac_tpu/ops/nsv_scan.py:
-//   * K1 nsv_scan_spine (_spine_kernel): a FURTHEST_EQ chain over the
-//     explicit-index stream (xf, gf) that also emits each element's run
-//     first after merge/push (fh), and a NEAREST_SM chain over (xn, gn);
+//   * K1 nsv_scan_spine (_spine_kernel): FURTHEST_EQ left matches of the
+//     explicit-index stream (xf, gf), with each element's run first after
+//     merge/push (fh), and NEAREST_SM left matches of (xn, gn);
 //   * K2 nsv_scan_dual (_dual_kernel): left matches of x (typ_l) and of the
 //     second array xr (typ_r), any of the three match types;
 //   * K3 nsv_scan_left (_scan_kernel): left matches of x, one match type.
@@ -15,38 +15,29 @@
 // value is then 0.  The flag output is always written 0 (nothing here can
 // overflow); it is kept for the JAX interface.
 //
-// ---- K1: the run-stack chain -------------------------------------------
-// The TPU grid ran its 2048-element chunks in order and carried the stack
-// across them in SMEM.  Here each chain is one warp on its own block: the
-// warp stages a chunk of B inputs into shared memory with coalesced loads,
-// lane 0 runs the scan over it, and the warp writes the chunk's answers
-// back.  The top run lives in lane 0's registers; the cells below it live
-// in shared memory up to C cells and spill beyond that to a global scratch
-// stack the wrapper sizes to the stream length.
-// What bounds it: one serial dependency chain per scan (~130-150 ns per
-// element); its bound (36 bytes per stream entry at 3.35 TB/s) is ~0.01% of
-// its time.  It is the next one to move onto the block engine below.
-//
-// ---- K2, K3: the block engine --------------------------------------------
-// Every answer depends on x alone, not on the order of a scan.  With
-// PSV<(i) the nearest j < i with x[j] < x[i] and PSV<=(i) the nearest with
-// x[j] <= x[i]:
+// The TPU grid ran its chunks in order and carried the stack across them.
+// Here no kernel keeps a stack: every answer depends on x alone, not on the
+// order of a scan.  With PSV<(i) the nearest j < i with x[j] < x[i] and
+// PSV<=(i) the nearest with x[j] <= x[i]:
 //   NEAREST_SM(i)  = PSV<(i)
 //   NEAREST_EQ(i)  = PSV<=(i)
 //   FURTHEST_EQ(i) = H(PSV<=(i)) (-1 when PSV<=(i) = -1), where H(t), the
 //                    head of t's run, is the first j >= PSV<(t) + 1 with
 //                    x[j] <= x[t] (everything in (PSV<(t), t] is >= x[t], so
 //                    x[H(t)] = x[t]).
-// The value is x at the match.
+// The value is x at the match.  K1's run first after merge/push is H(t)
+// when x[t] = x[i] at t = PSV<=(i) (the element merges into the top run),
+// else the element itself; K1 maps both through its stream's explicit
+// indices g inside the kernel.
 //
-// Design:
+// The block engine (K1, K2 and K3 alike):
 //   * a minima hierarchy per stream: level 0 is x, level k+1 holds the
 //     minima of the G = 32-entry groups of level k, one warp-reduction
 //     kernel per level until a level has at most G entries (6 levels at
 //     2^26).  The levels are the only scratch (s/31 entries per stream);
-//   * one thread block per TILE-element tile (both streams of K2 are the
-//     two rows of one grid, blockIdx.y), the tile plus a G-entry halo on
-//     its left staged in shared memory with 16-byte loads;
+//   * one thread block per TILE-element tile (the two streams of K1 and K2
+//     are the two rows of one grid, blockIdx.y), the tile plus a G-entry
+//     halo on its left staged in shared memory with 16-byte loads;
 //   * each thread first tries the cheap answer (the neighbour, from shared
 //     memory); the queries left over are answered one at a time by the
 //     whole warp: a __ballot_sync over a G-entry group and the highest (for
@@ -57,12 +48,15 @@
 //   * FURTHEST_EQ runs three such phases (PSV<=, PSV< of the match, the
 //     forward search for H).
 // What bounds it: the bytes are one read of each input and one write of
-// each output (K2 24 bytes per element, K3 12), 0.48 ms and 0.060 ms at the
-// chip_smoke shapes.  The engine reads x about twice (the level build and
-// the tile) and keeps the levels (1/31 of x) in L2; the rest of its time
-// goes to the dependent loads of the warp searches, which only the many
-// resident warps hide (2-4% of the bound on an H100 SXM at 700 W).  No
-// tensor cores: this is comparison work.
+// each output (K1 36 bytes per stream entry, K2 24 per element, K3 12).
+// The engine reads x about twice (the level build and the tile) and keeps
+// the levels (1/31 of x) in L2; the rest of its time goes to the dependent
+// loads of the warp searches, which only the many resident warps hide
+// (K1 6.6%, K2 4.5%, K3 2.6% of the bound on an NVIDIA H100 80GB HBM3 at
+// 700 W).  K1's spine streams are the worst case of a search: in every
+// 512-wide tile of the LCP a spine falls (weak prefix minima) and then
+// rises, and its falling halves miss their neighbour.  No tensor cores:
+// this is comparison work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -72,148 +66,6 @@ namespace {
 constexpr int NEAREST_SM = 0;
 constexpr int NEAREST_EQ = 1;
 constexpr int FURTHEST_EQ = 2;
-
-// ===========================================================================
-// K1: the run-stack chain
-// ===========================================================================
-
-constexpr int B = 2048;    // stream elements staged per chunk
-constexpr int C = 16384;   // stack cells held in shared memory
-constexpr size_t SMEM_BYTES = sizeof(int32_t) * (2 * C + 5 * B);  // 168 KB
-
-// Stack cells [0, C) in shared memory, [C, ...) in global scratch (indexed
-// by the absolute cell number).
-struct Stack {
-  int32_t* sv_s;
-  int32_t* se_s;
-  int32_t* sv_g;
-  int32_t* se_g;
-  __device__ __forceinline__ int32_t v(long long i) const {
-    return i < C ? sv_s[i] : sv_g[i];
-  }
-  __device__ __forceinline__ int32_t e(long long i) const {
-    return i < C ? se_s[i] : se_g[i];
-  }
-  __device__ __forceinline__ void put(long long i, int32_t val, int32_t end) {
-    if (i < C) {
-      sv_s[i] = val;
-      se_s[i] = end;
-    } else {
-      sv_g[i] = val;
-      se_g[i] = end;
-    }
-  }
-};
-
-// Chain state: cells [0, sp-1) are in the stack; the top cell sp-1 is in
-// (tv, te).
-struct Chain {
-  Stack st;
-  long long sp;
-  int32_t tv, te;
-};
-
-// One element of the scan; writes the match (index, value) and returns
-// the top run's endpoint after merge/push (the run FIRST for FURTHEST_EQ).
-template <int TYP>
-__device__ __forceinline__ int32_t chain_step(Chain& c, int32_t v, int32_t gi,
-                                              int32_t* midx_out,
-                                              int32_t* mval_out) {
-  while (c.sp > 0 && c.tv > v) {
-    c.sp -= 1;
-    if (c.sp > 0) {
-      c.tv = c.st.v(c.sp - 1);
-      c.te = c.st.e(c.sp - 1);
-    }
-  }
-  const bool has = c.sp > 0;
-  const bool eq_top = has && c.tv == v;
-  int32_t midx, mval;
-  if (TYP == NEAREST_SM && eq_top) {
-    // nearest strictly smaller = the run below the equal top
-    if (c.sp > 1) {
-      midx = c.st.e(c.sp - 2);
-      mval = c.st.v(c.sp - 2);
-    } else {
-      midx = -1;
-      mval = 0;
-    }
-  } else {
-    midx = has ? c.te : -1;
-    mval = c.tv;
-  }
-  *midx_out = midx;
-  *mval_out = midx >= 0 ? mval : 0;
-  if (eq_top) {
-    if (TYP != FURTHEST_EQ) c.te = gi;  // run last moves to gi
-  } else {
-    if (has) c.st.put(c.sp - 1, c.tv, c.te);
-    c.sp += 1;
-    c.tv = v;
-    c.te = gi;
-  }
-  return c.te;
-}
-
-// One chain on one warp over the explicit-index stream (x, g).
-template <int TYP>
-__device__ void run_chain(const int32_t* __restrict__ x,
-                          const int32_t* __restrict__ g,
-                          int32_t* __restrict__ idx, int32_t* __restrict__ val,
-                          int32_t* __restrict__ head, int32_t* sv_g,
-                          int32_t* se_g, long long s, int32_t* smem) {
-  int32_t* xs = smem + 2 * C;
-  int32_t* gs = xs + B;
-  int32_t* oi = gs + B;
-  int32_t* ov = oi + B;
-  int32_t* oh = ov + B;
-  const int lane = threadIdx.x;
-  Chain c{Stack{smem, smem + C, sv_g, se_g}, 0, 0, 0};
-  for (long long base = 0; base < s; base += B) {
-    const int len = static_cast<int>(s - base < B ? s - base : B);
-    for (int k = lane; k < len; k += 32) {
-      xs[k] = x[base + k];
-      gs[k] = g[base + k];
-    }
-    __syncwarp();
-    if (lane == 0) {
-      for (int k = 0; k < len; ++k) {
-        int32_t mi, mv;
-        oh[k] = chain_step<TYP>(c, xs[k], gs[k], &mi, &mv);
-        oi[k] = mi;
-        ov[k] = mv;
-      }
-    }
-    __syncwarp();
-    for (int k = lane; k < len; k += 32) {
-      idx[base + k] = oi[k];
-      val[base + k] = ov[k];
-      if (head) head[base + k] = oh[k];
-    }
-    __syncwarp();
-  }
-}
-
-// blockIdx.x 0: FURTHEST_EQ chain over (xf, gf); 1: NEAREST_SM over (xn, gn).
-__global__ void __launch_bounds__(32)
-spine_kernel(const int32_t* xf, const int32_t* gf, const int32_t* xn,
-             const int32_t* gn, int32_t* fi, int32_t* fv, int32_t* fh,
-             int32_t* ni, int32_t* nv, int32_t* flag, int32_t* scratch,
-             long long s) {
-  extern __shared__ int32_t smem[];
-  int32_t* sv_g = scratch + 2 * s * blockIdx.x;
-  int32_t* se_g = sv_g + s;
-  if (blockIdx.x == 0) {
-    if (threadIdx.x == 0) flag[0] = 0;
-    run_chain<FURTHEST_EQ>(xf, gf, fi, fv, fh, sv_g, se_g, s, smem);
-  } else {
-    run_chain<NEAREST_SM>(xn, gn, ni, nv, nullptr, sv_g, se_g, s, smem);
-  }
-}
-
-// ===========================================================================
-// K2, K3: the block engine
-// ===========================================================================
 
 constexpr int G = 32;          // entries per hierarchy group (one warp)
 constexpr int LOG_G = 5;
@@ -230,11 +82,15 @@ struct Hier {
   int count;
 };
 
-// One stream: its hierarchy, its outputs and its match type.
+// One stream: its hierarchy, its outputs and its match type.  When g is
+// given, answers are written as g[match] (-1 kept), and head, when given,
+// receives K1's run first (FURTHEST_EQ only).
 struct Side {
   Hier h;
   int32_t* idx;
   int32_t* val;
+  const int32_t* g;
+  int32_t* head;
   int typ;
 };
 
@@ -355,9 +211,8 @@ __device__ __forceinline__ void warp_search(const Ctx& c, bool need, int arg,
 // Left match of element i (value v) for match type TYP; every lane of the
 // warp calls it (inactive lanes only take part in the ballots).
 template <int TYP>
-__device__ __forceinline__ void answer(const Ctx& c, int i, bool active,
-                                       int32_t v, int32_t* idx,
-                                       int32_t* val) {
+__device__ __forceinline__ void answer(const Ctx& c, const Side& sd, int i,
+                                       bool active, int32_t v) {
   // PSV (<= for the two equal types): the neighbour first
   int t = -1;
   bool need = false;
@@ -393,15 +248,22 @@ __device__ __forceinline__ void answer(const Ctx& c, int i, bool active,
     }
     warp_search<2>(c, need, u + 1, vt, r);
   }
-  if (active) {
-    idx[i] = r;
-    val[i] = r >= 0 ? vt : 0;
+  if (!active) return;
+  const int32_t* g = sd.g;
+  sd.idx[i] = g == nullptr ? r : r >= 0 ? __ldg(g + r) : -1;
+  sd.val[i] = r >= 0 ? vt : 0;
+  if (TYP == FURTHEST_EQ && sd.head != nullptr) {
+    // K1: the element merges into the top run when PSV<=(i) is an equal
+    sd.head[i] = __ldg(g + (t >= 0 && vt == v ? r : i));
   }
 }
 
-// blockIdx.y selects the stream (K2: two, K3: one); blockIdx.x the tile.
+// blockIdx.y selects the stream (K1, K2: two, K3: one); blockIdx.x the
+// tile.  __grid_constant__ lets the kernel select a Side by reference
+// without a per-thread local copy of the parameters.
 __global__ void __launch_bounds__(THREADS)
-block_scan_kernel(Side a, Side b, int s) {
+block_scan_kernel(const __grid_constant__ Side a,
+                  const __grid_constant__ Side b, int s) {
   __shared__ __align__(16) int32_t tile[TILE + HALO];
   const Side& sd = blockIdx.y == 0 ? a : b;
   const int32_t* x = sd.h.lv[0];
@@ -428,13 +290,13 @@ block_scan_kernel(Side a, Side b, int s) {
     const int32_t v = active ? tile[i - tlo] : 0;
     switch (sd.typ) {
       case NEAREST_SM:
-        answer<NEAREST_SM>(c, i, active, v, sd.idx, sd.val);
+        answer<NEAREST_SM>(c, sd, i, active, v);
         break;
       case NEAREST_EQ:
-        answer<NEAREST_EQ>(c, i, active, v, sd.idx, sd.val);
+        answer<NEAREST_EQ>(c, sd, i, active, v);
         break;
       default:
-        answer<FURTHEST_EQ>(c, i, active, v, sd.idx, sd.val);
+        answer<FURTHEST_EQ>(c, sd, i, active, v);
         break;
     }
   }
@@ -461,29 +323,37 @@ int32_t* build_hier(const int32_t* x, int s, int32_t* scratch, Hier* h,
   return scratch;
 }
 
-// Left matches of x (typ_x) and, when y is given, of y (typ_y).
-int block_scan(const int32_t* x, const int32_t* y, int32_t* ix, int32_t* vx,
-               int32_t* iy, int32_t* vy, int32_t* flag, int32_t* scratch,
-               long long s, int typ_x, int typ_y, cudaStream_t stream) {
+// One stream as the C entry points hand it over (g, head: K1 only).
+struct Stream {
+  const int32_t* x;
+  const int32_t* g;
+  int32_t* idx;
+  int32_t* val;
+  int32_t* head;
+  int typ;
+};
+
+// Left matches of stream p and, when q is given, of stream q (same length).
+int block_scan(const Stream& p, const Stream* q, int32_t* flag,
+               int32_t* scratch, long long s, cudaStream_t stream) {
   if (s >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaMemsetAsync(flag, 0, sizeof(int32_t), stream);
   if (err != cudaSuccess || s == 0) return static_cast<int>(err);
   const int n = static_cast<int>(s);
-  Side a{}, b{};
-  scratch = build_hier(x, n, scratch, &a.h, stream, &err);
-  a.idx = ix;
-  a.val = vx;
-  a.typ = typ_x;
-  if (y != nullptr) {
-    build_hier(y, n, scratch, &b.h, stream, &err);
-    b.idx = iy;
-    b.val = vy;
-    b.typ = typ_y;
+  Side sides[2] = {};
+  for (int k = 0; k < (q != nullptr ? 2 : 1); ++k) {
+    const Stream& st = k == 0 ? p : *q;
+    scratch = build_hier(st.x, n, scratch, &sides[k].h, stream, &err);
+    sides[k].idx = st.idx;
+    sides[k].val = st.val;
+    sides[k].g = st.g;
+    sides[k].head = st.head;
+    sides[k].typ = st.typ;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((n + TILE - 1) / TILE),
-                  y != nullptr ? 2u : 1u);
-  block_scan_kernel<<<grid, THREADS, 0, stream>>>(a, b, n);
+                  q != nullptr ? 2u : 1u);
+  block_scan_kernel<<<grid, THREADS, 0, stream>>>(sides[0], sides[1], n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -491,34 +361,33 @@ int block_scan(const int32_t* x, const int32_t* y, int32_t* ix, int32_t* vx,
 
 extern "C" {
 
-// scratch: 4*s int32.  Returns the first CUDA error of the launch, 0 if none.
+// Every entry point returns the first CUDA error of its launches, 0 if
+// none.  scratch: the hierarchy levels above 0 of each stream, sum over
+// k >= 1 of ceil(s / G^k) while the level below has more than G entries
+// (K1, K2: twice that, one set per stream).
+
 int psac_nsv_spine(const int32_t* xf, const int32_t* gf, const int32_t* xn,
                    const int32_t* gn, int32_t* fi, int32_t* fv, int32_t* fh,
                    int32_t* ni, int32_t* nv, int32_t* flag, int32_t* scratch,
                    long long s, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      spine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  spine_kernel<<<2, 32, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      xf, gf, xn, gn, fi, fv, fh, ni, nv, flag, scratch, s);
-  return static_cast<int>(cudaGetLastError());
+  const Stream q{xn, gn, ni, nv, nullptr, NEAREST_SM};
+  return block_scan(Stream{xf, gf, fi, fv, fh, FURTHEST_EQ}, &q, flag,
+                    scratch, s, static_cast<cudaStream_t>(stream));
 }
 
-// scratch: the hierarchy levels above 0 of both streams, 2 * sum over
-// k >= 1 of ceil(s / G^k) while the level below has more than G entries.
 int psac_nsv_dual(const int32_t* x, const int32_t* xr, int32_t* il,
                   int32_t* vl, int32_t* ir, int32_t* vr, int32_t* flag,
                   int32_t* scratch, long long s, int typ_l, int typ_r,
                   void* stream) {
-  return block_scan(x, xr, il, vl, ir, vr, flag, scratch, s, typ_l, typ_r,
-                    static_cast<cudaStream_t>(stream));
+  const Stream q{xr, nullptr, ir, vr, nullptr, typ_r};
+  return block_scan(Stream{x, nullptr, il, vl, nullptr, typ_l}, &q, flag,
+                    scratch, s, static_cast<cudaStream_t>(stream));
 }
 
-// scratch: the hierarchy levels above 0 of x (half of K2's).
 int psac_nsv_left(const int32_t* x, int32_t* idx, int32_t* val, int32_t* flag,
                   int32_t* scratch, long long s, int typ, void* stream) {
-  return block_scan(x, nullptr, idx, val, nullptr, nullptr, flag, scratch, s,
-                    typ, typ, static_cast<cudaStream_t>(stream));
+  return block_scan(Stream{x, nullptr, idx, val, nullptr, typ}, nullptr,
+                    flag, scratch, s, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

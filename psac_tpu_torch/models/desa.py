@@ -274,11 +274,13 @@ class DESA:
         return out
 
 
-def build_desa(text, device, config: cfg_mod.SAConfig = cfg_mod.DEFAULT,
+def build_desa(text, device=None,
+               config: cfg_mod.SAConfig = cfg_mod.DEFAULT,
                tli_bits: int = 24, tli: str = "tllt",
                maxsize: int | None = None) -> DESA:
-    """Construct the DESA of a byte text on ``device``: SA+LCP+Lc, the
-    top-level index (TLLT or TLDT), the slabs and the RMQ."""
+    """Construct the DESA of a byte text on ``device`` (None: the CUDA
+    card; ``"cpu"`` runs the plain versions): SA+LCP+Lc, the top-level
+    index (TLLT or TLDT), the slabs and the RMQ."""
     if not (isinstance(text, (bytes, bytearray))
             or np.asarray(text).dtype == np.uint8):
         # a TLLT of (sigma bits)^k entries over a wide integer alphabet

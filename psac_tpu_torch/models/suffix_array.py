@@ -417,12 +417,14 @@ def kmer_words_for(bits_per_char: int,
     return tuple(ks)
 
 
-def encode_and_shard(text, device):
-    """Alphabet detection and encoding onto ``device``: returns (xs, alpha,
-    n, N) with xs the (N,) int32 codes (1..sigma), zero-padded.
+def encode_and_shard(text, device=None):
+    """Alphabet detection and encoding onto ``device`` (None: the CUDA
+    card, ``config.resolve_device``): returns (xs, alpha, n, N) with xs the
+    (N,) int32 codes (1..sigma), zero-padded.
 
     Bytes use the dense histogram alphabet (NUL is the sentinel and
     raises); wider integer arrays use the min/max ``IntAlphabet``."""
+    device = cfg_mod.resolve_device(device)
     if len(text) >= (1 << 40):
         raise ValueError(f"text too large: {len(text)} (2^40 char ceiling)")
     if isinstance(text, (bytes, bytearray)) or \
@@ -505,10 +507,11 @@ def compute_lc_device(dsa: DeviceSuffixArray, xs) -> torch.Tensor:
     return _lc_local(dsa.lcp, dsa.sa, xs, dsa.n)
 
 
-def build_suffix_array(text, device,
+def build_suffix_array(text, device=None,
                        config: cfg_mod.SAConfig = cfg_mod.DEFAULT
                        ) -> SuffixArray:
-    """Suffix array (and optionally LCP) of ``text`` built on ``device``."""
+    """Suffix array (and optionally LCP) of ``text`` built on ``device``
+    (None: the CUDA card; ``"cpu"`` runs the plain versions)."""
     if len(text) < 1:
         return SuffixArray(
             sa=np.zeros(0, np.int64),

@@ -126,9 +126,10 @@ def _st_local(dsa: DeviceSuffixArray, xs,
     return DeviceSuffixTree(nodes=nodes, sigma=sigma, n=n, N=N)
 
 
-def build_suffix_tree(text, device, config=None) -> np.ndarray:
-    """SA+LCP construction + suffix tree of ``text`` on ``device``; returns
-    the (n, sigma+1) int64 node table (the reference's ``psac -t``)."""
+def build_suffix_tree(text, device=None, config=None) -> np.ndarray:
+    """SA+LCP construction + suffix tree of ``text`` on ``device`` (None:
+    the CUDA card; ``"cpu"`` runs the plain versions); returns the
+    (n, sigma+1) int64 node table (the reference's ``psac -t``)."""
     xs, alpha, n, N = encode_and_shard(text, device)
     kw = {} if config is None else {"config": config}
     dsa = construct_device(xs, alpha, n, N, **kw)

@@ -122,8 +122,8 @@ def launch(name: str, *args) -> None:
 def level_sizes(s: int, width: int) -> list[int]:
     """Entries of each level above level 0 of a minima hierarchy over ``s``
     values with ``width``-entry groups, built until a level has at most
-    ``width`` entries: the scratch of K5 (``csrc/bansv.cu``) and of K2/K3
-    (``csrc/nsv_scan.cu``)."""
+    ``width`` entries: the scratch of K5 (``csrc/bansv.cu``) and of K1, K2
+    and K3 (``csrc/nsv_scan.cu``)."""
     sizes = []
     n = s
     while n > width:

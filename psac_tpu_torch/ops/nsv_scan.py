@@ -1,8 +1,9 @@
 """ANSV scans: K1 (spine), K2 (dual) and K3 (left) of the JAX package's
 ``psac_tpu/ops/nsv_scan.py``, as hand-written CUDA kernels
 (``psac_tpu_torch/csrc/nsv_scan.cu``) with plain PyTorch versions beside
-them.  K1 is a serial run-stack chain; K2 and K3 are a parallel block
-engine (a minima hierarchy searched by warp ballots).
+them.  All three run one parallel block engine (a minima hierarchy
+searched by warp ballots); none keeps a run stack.  K1 writes its answers
+in the streams' explicit indices inside the kernel.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  The plain versions do not replay the stack:
@@ -11,9 +12,9 @@ min-table (the JAX package's ``_left_match_local_only`` formulation), which
 also checks the kernels independently.
 
 Answers follow ``psac_tpu_torch/ops/ansv.py::_left_scan``: index -1 means
-no match and the value is then 0.  Nothing can overflow here (K1's stack
-spills to a scratch stack as long as the stream; K2 and K3 keep no stack),
-so the returned flag is always 0; it is kept for the JAX interface.
+no match and the value is then 0.  Nothing can overflow here (no kernel
+keeps a stack), so the returned flag is always 0; it is kept for the JAX
+interface.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from psac_tpu_torch.ops import cuda_lib
 from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_EQ, NEAREST_SM
 
 CHUNK = 2048  # stream lengths the JAX kernels take are multiples of this
-GROUP = 32    # entries per group of K2/K3's minima hierarchy (csrc G)
+GROUP = 32    # entries per group of the block engine's minima hierarchy (csrc G)
 
 # ---------------------------------------------------------------------------
 # plain versions
@@ -142,6 +143,15 @@ def nsv_scan_dual_plain(x, xr, typ_l: int, typ_r: int):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _block_scan_scratch(x: torch.Tensor, streams: int) -> torch.Tensor:
+    """The hierarchy levels of ``streams`` streams of x's length."""
+    s = x.shape[0]
+    if s >= (1 << 31):
+        raise ValueError(f"length {s} does not fit int32 indices")
+    return torch.empty(max(1, streams * sum(cuda_lib.level_sizes(s, GROUP))),
+                       dtype=torch.int32, device=x.device)
+
+
 def nsv_scan_spine(xf, gf, xn, gn):
     """K1 (replaces ``psac_tpu/ops/nsv_scan.py::nsv_scan_spine``): see
     ``nsv_scan_spine_plain`` for the contract."""
@@ -151,7 +161,7 @@ def nsv_scan_spine(xf, gf, xn, gn):
     s = xf.shape[0]
     fi, fv, fh, ni, nv = (torch.empty_like(xf) for _ in range(5))
     flag = torch.empty(1, dtype=torch.int32, device=xf.device)
-    scratch = torch.empty(4 * s, dtype=torch.int32, device=xf.device)
+    scratch = _block_scan_scratch(xf, 2)
     cuda_lib.launch("psac_nsv_spine", *(t.data_ptr() for t in (
         xf, gf, xn, gn, fi, fv, fh, ni, nv, flag, scratch)), s)
     nsv_scan_spine.launches += 1
@@ -159,15 +169,6 @@ def nsv_scan_spine(xf, gf, xn, gn):
 
 
 nsv_scan_spine.launches = 0
-
-
-def _block_scan_scratch(x: torch.Tensor, streams: int) -> torch.Tensor:
-    """The hierarchy levels of ``streams`` streams of x's length."""
-    s = x.shape[0]
-    if s >= (1 << 31):
-        raise ValueError(f"length {s} does not fit int32 indices")
-    return torch.empty(max(1, streams * sum(cuda_lib.level_sizes(s, GROUP))),
-                       dtype=torch.int32, device=x.device)
 
 
 def nsv_scan_dual(x, xr, typ_l: int, typ_r: int):

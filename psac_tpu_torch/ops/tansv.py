@@ -5,17 +5,19 @@ suffix tree's (FURTHEST_EQ left, NEAREST_SM right) pass.
      previous smaller, the chain mask (no in-tile previous smaller), the
      run-compressed spine of weak prefix/suffix minima, the next spine
      member, and for FURTHEST_EQ the leftmost in-tile equal after the PSV.
-     Hand-written CUDA kernel ``csrc/tansv_tile.cu`` (``tile_side``) with
-     the JAX formula, over batches of tiles, as its plain version.
-  2. **Spine scan (K1)**: the run-stack scans over the compacted spines
-     (``ops/nsv_scan.py::nsv_scan_spine``).
+     Hand-written CUDA kernel ``csrc/tansv_tile.cu`` (``tile_side``: a
+     doubling min-table per tile in shared memory and fixed-step searches,
+     no per-thread loop whose length depends on the data), with the JAX
+     formula, over batches of tiles, as its plain version.
+  2. **Spine scan (K1)**: left matches over the compacted spines
+     (``ops/nsv_scan.py::nsv_scan_spine``, the block engine of K2/K3).
   3. **Combine**: plain tensor indexing (see the JAX module's docstring for
      why the spine closure is exact).
 
 The spine may exceed its capacity (``s // CAPDIV``); ``tansv_feq_nsm`` then
 reports the overflow and the caller runs the dual scan (K2) instead.  The
 scanned streams are as long as the longer spine (rounded up to CHUNK), not
-the capacity: K1 is a serial scan, so its time follows the stream length.
+the capacity: K1's work follows the stream length.
 """
 
 from __future__ import annotations
@@ -107,6 +109,31 @@ def tile_side(a: torch.Tensor, with_eq: bool):
 tile_side.launches = 0
 
 
+def _pack_spines(x: torch.Tensor, pos):
+    """(kf, vf, kn, vn): the spine positions ``pos`` of ``x`` and of its
+    reverse as (index, value) streams in index order, both padded with
+    (I32_INF, I32_INF) (inert in the scan) to one length: the larger spine
+    rounded up to CHUNK."""
+    longest = max(p.shape[0] for p in pos)
+    m = max(CHUNK, -(-longest // CHUNK) * CHUNK)
+    out = []
+    for a, p in zip((x, x.flip(0)), pos):
+        keys = a.new_full((m,), I32_INF)
+        vals = a.new_full((m,), I32_INF)
+        keys[:p.shape[0]] = p.to(torch.int32)
+        vals[:p.shape[0]] = a[p]
+        out += [keys, vals]
+    return tuple(out)
+
+
+def pack_spines(x: torch.Tensor, spine_f: torch.Tensor,
+                spine_n: torch.Tensor):
+    """The streams K1 scans for spine masks of any length (no capacity):
+    (kf, vf, kn, vn) as ``spine_streams`` lays them out."""
+    return _pack_spines(x, [torch.nonzero(sp).squeeze(1)
+                            for sp in (spine_f, spine_n)])
+
+
 def spine_streams(x: torch.Tensor, spine_f: torch.Tensor,
                   spine_n: torch.Tensor):
     """The two spines (of ``x`` and of its reverse) as (index, value)
@@ -120,19 +147,10 @@ def spine_streams(x: torch.Tensor, spine_f: torch.Tensor,
     s = x.shape[0]
     cap = max(CHUNK, ((s // CAPDIV) // CHUNK) * CHUNK)
     pos = [torch.nonzero(sp).squeeze(1) for sp in (spine_f, spine_n)]
-    longest = max(p.shape[0] for p in pos)
-    if longest > cap:
+    if max(p.shape[0] for p in pos) > cap:
         return None, None, None, None, sum(max(0, p.shape[0] - cap)
                                            for p in pos)
-    m = max(CHUNK, -(-longest // CHUNK) * CHUNK)
-    out = []
-    for a, p in zip((x, x.flip(0)), pos):
-        keys = a.new_full((m,), I32_INF)
-        vals = a.new_full((m,), I32_INF)
-        keys[:p.shape[0]] = p.to(torch.int32)
-        vals[:p.shape[0]] = a[p]
-        out += [keys, vals]
-    return (*out, 0)
+    return (*_pack_spines(x, pos), 0)
 
 
 def _scatter_back(keys: torch.Tensor, vals_list, s: int):

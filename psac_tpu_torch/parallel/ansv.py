@@ -11,7 +11,7 @@ package's ``hybrid`` engine chooses it, never by the device:
 - (FURTHEST_EQ, FURTHEST_EQ) on int32: the dual scan (K2, a block engine
   over both directions in one launch);
 - any other pair, each side on its own: a furthest_eq side on int32 runs
-  the one-chain scan (K3); a nearest_sm or nearest_eq side runs the block
+  the left scan (K3); a nearest_sm or nearest_eq side runs the block
   engine (``ops/bansv.py::nsv_left`` on K5);
 - int64 values (the public ``ansv`` keeps values that do not fit int32 in
   int64): every side runs the block engine, furthest_eq through its
@@ -31,6 +31,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from psac_tpu_torch import config as cfg_mod
 from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_SM
 from psac_tpu_torch.ops.bansv import block_psv, block_psv_plain, nsv_left
 from psac_tpu_torch.ops.nsv_scan import (CHUNK, nsv_scan_dual,
@@ -45,7 +46,7 @@ from psac_tpu_torch.parallel.mesh import padded_size
 @dataclasses.dataclass(frozen=True)
 class AnsvKernels:
     """The functions ANSV runs: the tile phase (K4), the spine scan (K1),
-    the dual scan (K2), the one-chain scan (K3) and the block engine's
+    the dual scan (K2), the left scan (K3) and the block engine's
     previous-smaller pass (K5)."""
 
     tile_side: Callable
@@ -160,7 +161,7 @@ def ansv(arr, left_type: int = NEAREST_SM, right_type: int = NEAREST_SM,
     N = padded_size(max(n, 1), 1)
     xp = np.full(N, infd, dt)
     xp[:n] = vals.astype(dt)
-    x = torch.from_numpy(xp).to("cuda" if device is None else device)
+    x = torch.from_numpy(xp).to(cfg_mod.resolve_device(device))
     lidx, lval, ridx, rval = (t.cpu().numpy() for t in _ansv(
         x, left_type, right_type, kernels, x.dtype))
 

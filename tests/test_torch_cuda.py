@@ -102,6 +102,60 @@ def test_block_scans_around_group_powers(cuda, n):
                                                      before[1] + 1)
 
 
+@pytest.mark.parametrize("kind", ["one_value", "decreasing", "increasing",
+                                  "negative"])
+def test_tile_side_kernel_on_whole_tiles(cuda, kind):
+    """K4's extreme tiles: one value (every element has an equal, none a
+    PSV), strictly decreasing (every element a chain member), strictly
+    increasing, and the suffix tree's negative padding values."""
+    t = tansv.T
+    a = {"one_value": np.full(8 * t, 3),
+         "decreasing": np.tile(np.arange(t, 0, -1), 8),
+         "increasing": np.tile(np.arange(t), 8),
+         "negative": np.concatenate([np.full(700, -1), [0],
+                                     np.arange(8 * t - 701) % 5 - 2])}[kind]
+    x = torch.from_numpy(a.astype(np.int32)).to(cuda)
+    for xx in (x, x.flip(0)):
+        for with_eq in (True, False):
+            _same(tansv.tile_side(xx, with_eq),
+                  tansv.tile_side_plain(xx, with_eq))
+
+
+def _padded(a, cuda):
+    pad = -len(a) % nsv_scan.CHUNK
+    return torch.from_numpy(np.concatenate(
+        [a, np.full(pad, 2**31 - 1)]).astype(np.int32)).to(cuda)
+
+
+@pytest.mark.parametrize("kind", sorted(_arrays(0)))
+def test_spine_kernel_on_spines_of_arrays(cuda, kind):
+    """K1 on the spine streams of each array (the tile phase's plain
+    version, no capacity), against its plain version."""
+    x = _padded(_arrays(6)[kind], cuda)
+    kf, vf, kn, vn = tansv.pack_spines(
+        x, tansv.tile_side_plain(x, True)[3],
+        tansv.tile_side_plain(x.flip(0), False)[3])
+    before = nsv_scan.nsv_scan_spine.launches
+    _same(nsv_scan.nsv_scan_spine(vf, kf, vn, kn),
+          nsv_scan.nsv_scan_spine_plain(vf, kf, vn, kn))
+    assert nsv_scan.nsv_scan_spine.launches == before + 1
+
+
+@pytest.mark.parametrize("n", [1, G - 1, G + 1, G**2 - 1, G**2 + 1,
+                               G**3 - 1, G**3 + 1, G**4 + 1])
+def test_spine_kernel_around_group_powers(cuda, n):
+    """K1 at stream lengths around the levels of its hierarchy: random,
+    falling and one-value FEQ streams with increasing explicit indices."""
+    rng = np.random.RandomState(n + 3)
+    g = np.sort(rng.choice(4 * n + 8, n, replace=False))
+    xn = rng.randint(0, 9, n)
+    for xf in (rng.randint(0, 7, n), np.arange(n, 0, -1), np.full(n, 5)):
+        args = [torch.from_numpy(a.astype(np.int32)).to(cuda)
+                for a in (xf, g, xn, g)]
+        _same(nsv_scan.nsv_scan_spine(*args),
+              nsv_scan.nsv_scan_spine_plain(*args))
+
+
 def test_spine_kernel_vs_plain(cuda):
     x = torch.from_numpy(_arrays(3)["st_padding"].astype(np.int32)).to(cuda)
     kf, vf, kn, vn, ovf = tansv.spine_streams(
@@ -230,3 +284,24 @@ def test_suffix_array_on_gpu(cuda):
     sa = native.suffix_array(text)
     np.testing.assert_array_equal(res.sa, sa)
     np.testing.assert_array_equal(res.lcp, native.lcp_array(text, sa))
+
+
+def test_build_entry_points_default_to_the_card(cuda):
+    """With no device, the builds run on the card: the SA of mississippi,
+    its encoded text and SA+LCP on the card, and a suffix tree that
+    launches K4 and K1."""
+    from psac_tpu_torch import build_suffix_array, build_suffix_tree
+    from psac_tpu_torch.models.suffix_array import (construct_device,
+                                                    encode_and_shard)
+
+    res = build_suffix_array(b"mississippi")
+    np.testing.assert_array_equal(res.sa, [10, 7, 4, 1, 0, 9, 8, 6, 3, 5, 2])
+    np.testing.assert_array_equal(res.lcp, [0, 1, 1, 4, 0, 0, 1, 0, 2, 1, 3])
+    xs, alpha, n, N = encode_and_shard(b"mississippi")
+    dsa = construct_device(xs, alpha, n, N)
+    assert xs.is_cuda and dsa.sa.is_cuda and dsa.lcp.is_cuda
+    before = (tansv.tile_side.launches, nsv_scan.nsv_scan_spine.launches)
+    build_suffix_tree(b"mississippi")
+    assert (tansv.tile_side.launches,
+            nsv_scan.nsv_scan_spine.launches) == (before[0] + 2,
+                                                  before[1] + 1)

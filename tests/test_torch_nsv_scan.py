@@ -1,6 +1,7 @@
-"""The run-stack scans K1 (spine), K2 (dual) and K3 (left): the port's plain versions
-against the JAX package's Pallas kernels in interpret mode, and against the
-sequential oracle ``ansv_seq``.  Exact equality (integers only).  The CUDA
+"""The ANSV scans K1 (spine), K2 (dual) and K3 (left): the port's plain
+versions against the JAX package's Pallas kernels in interpret mode and
+against the sequential oracle ``ansv_seq``, and a numpy model of the CUDA
+block engine that runs all three.  Exact equality (integers only).  The CUDA
 kernels themselves are held against these plain versions in
 tests/test_torch_cuda.py, which needs a GPU."""
 
@@ -302,3 +303,104 @@ def test_block_engine_model_vs_oracle(kind):
             np.testing.assert_array_equal(model.left(typ),
                                           _oracle_left(x, typ),
                                           err_msg=f"G={G} typ={typ}")
+
+
+# ---------------------------------------------------------------------------
+# K1 on the block engine: both spine streams through the engine's search,
+# then the kernel's explicit-index mapping and its run-first rule
+# ---------------------------------------------------------------------------
+
+def _spine_engine_model(xf, gf, xn, gn, G):
+    """K1 as ``csrc/nsv_scan.cu`` computes it: FURTHEST_EQ matches r and
+    PSV<=(i) = t of stream f, NEAREST_SM matches of stream n, each from
+    ``_BlockEngineModel``; answers are g[r] (-1 kept), and the run first is
+    g[r] when x[t] equals x[i] (the element merges into the top run), else
+    g[i]."""
+    out = []
+    for x, g, typ in ((xf, gf, FURTHEST_EQ), (xn, gn, NEAREST_SM)):
+        model = _BlockEngineModel(x, G)
+        r = model.left(typ)
+        hit = r >= 0
+        rs = np.maximum(r, 0)
+        out += [np.where(hit, g[rs], -1), np.where(hit, x[rs], 0)]
+        if typ == FURTHEST_EQ:
+            t = model.left(NEAREST_EQ)  # the engine's first phase
+            has_eq = (t >= 0) & (x[np.maximum(t, 0)] == x)
+            out.append(g[np.where(has_eq, rs, np.arange(len(x)))])
+    return tuple(out)  # fi, fv, fh, ni, nv
+
+
+def _pack_spines(x):
+    """The two spine streams of ``x`` (padded at the end with I32_INF to a
+    multiple of CHUNK, as ``ansv_local`` pads it) without a capacity:
+    (xf, gf, xn, gn) in numpy."""
+    from psac_tpu_torch.ops import tansv
+
+    s = -(-len(x) // t_scan.CHUNK) * t_scan.CHUNK
+    xp = _t(np.concatenate([x, np.full(s - len(x), I32_INF)]).astype(np.int32))
+    kf, vf, kn, vn = tansv.pack_spines(
+        xp, tansv.tile_side_plain(xp, True)[3],
+        tansv.tile_side_plain(xp.flip(0), False)[3])
+    return [t.numpy() for t in (vf, kf, vn, kn)]
+
+
+def _spine_cases():
+    """Spine streams of the model's adversaries (each with the I32_INF
+    padding run of its tiles and the (I32_INF, I32_INF) stream padding),
+    of the suffix tree's -1 padding rows, and streams of one value."""
+    rng = np.random.RandomState(21)
+    cases = {k: _pack_spines(v.astype(np.int32))
+             for k, v in _model_inputs().items()}
+    cases["st_padding"] = _pack_spines(np.concatenate(
+        [np.full(300, -1), [0], rng.randint(0, 9, 1747)]).astype(np.int32))
+    g = np.sort(rng.choice(10**6, 2048, replace=False)).astype(np.int32)
+    eq = np.full(2048, 7, np.int32)
+    eq[1900:] = I32_INF
+    cases["all_equal_stream"] = [eq, g, eq.copy(), g.copy()]
+    return cases
+
+
+SPINE_CASES = _spine_cases()
+
+
+@pytest.mark.parametrize("kind", sorted(SPINE_CASES))
+def test_spine_engine_model_vs_plain(kind):
+    """The model of K1 on the engine equals K1's plain version at group
+    widths 4 and 32."""
+    xf, gf, xn, gn = SPINE_CASES[kind]
+    want = t_scan.nsv_scan_spine_plain(*map(_t, (xf, gf, xn, gn)))
+    for G in (4, 32):
+        got = _spine_engine_model(xf, gf, xn, gn, G)
+        for k, (g, w) in enumerate(zip(got, want[:5])):
+            np.testing.assert_array_equal(g, w.numpy(),
+                                          err_msg=f"G={G} output {k}")
+
+
+@pytest.mark.parametrize("kind", ["all_equal", "all_equal_stream",
+                                  "decreasing", "max_lead", "sawtooth",
+                                  "st_padding"])
+def test_spine_cases_plain_vs_pallas_interpret(kind):
+    from psac_tpu.ops.nsv_scan import nsv_scan_spine
+
+    xf, gf, xn, gn = SPINE_CASES[kind]
+    want = nsv_scan_spine(*map(jnp.asarray, (xf, gf, xn, gn)), True)
+    got = t_scan.nsv_scan_spine(*map(_t, (xf, gf, xn, gn)))
+    assert int(want[-1]) == 0 and int(got[-1]) == 0
+    for k, (g, w) in enumerate(zip(got[:5], want[:5])):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                      err_msg=f"output {k}")
+
+
+def test_spine_padding_changes_no_real_answer():
+    """Appending (I32_INF, I32_INF) entries to both streams leaves every
+    answer of the real entries as it was."""
+    xf, gf, xn, gn = SPINE_CASES["st_padding"]
+    real = int((gf != I32_INF).sum())
+    short = t_scan.nsv_scan_spine_plain(
+        *(_t(a[:real]) for a in (xf, gf, xn, gn)))
+    long_ = t_scan.nsv_scan_spine_plain(*map(_t, (xf, gf, xn, gn)))
+    for g, w in zip(long_[:5], short[:5]):
+        np.testing.assert_array_equal(g.numpy()[:real], w.numpy())
+    model = _spine_engine_model(xf, gf, xn, gn, 32)
+    for g, w in zip(model, short[:5]):
+        np.testing.assert_array_equal(g[:real], w.numpy())

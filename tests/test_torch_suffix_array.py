@@ -47,6 +47,55 @@ def test_mississippi_golden():
     np.testing.assert_array_equal(res.lcp, [0, 1, 1, 4, 0, 0, 1, 0, 2, 1, 3])
 
 
+def test_resolve_device_defaults_to_the_card():
+    from psac_tpu_torch.config import resolve_device
+
+    assert resolve_device() == torch.device("cuda")
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cuda", 1)) == torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("entry", ["encode_and_shard", "build_suffix_array",
+                                   "build_suffix_tree", "build_desa",
+                                   "ansv"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """Called with no device, every build entry point resolves None through
+    ``config.resolve_device``, which gives the card.  The spy hands the
+    CPU back so the call runs here."""
+    import psac_tpu_torch
+    from psac_tpu_torch import config
+
+    asked = []
+    real = config.resolve_device
+
+    def spy(device=None):
+        asked.append(real(device))
+        return torch.device("cpu")
+
+    monkeypatch.setattr(config, "resolve_device", spy)
+    fn = t_sa.encode_and_shard if entry == "encode_and_shard" else \
+        getattr(psac_tpu_torch, entry)
+    fn(np.array([3, 1, 2]) if entry == "ansv" else b"mississippi")
+    assert asked == [torch.device("cuda")]
+
+
+def test_no_device_means_the_card_without_fallback():
+    """With no card, a build with no device raises rather than running on
+    the CPU; with one, its tensors are on the card."""
+    if torch.cuda.is_available():
+        xs = t_sa.encode_and_shard(b"mississippi")[0]
+        assert xs.device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            t_sa.encode_and_shard(b"mississippi")
+        with pytest.raises((RuntimeError, AssertionError)):
+            build_suffix_array(b"mississippi")
+    np.testing.assert_array_equal(
+        build_suffix_array(b"mississippi", "cpu").sa,
+        [10, 7, 4, 1, 0, 9, 8, 6, 3, 5, 2])
+
+
 @pytest.mark.parametrize("cfg", sorted(CONFIGS))
 @pytest.mark.parametrize("text", sorted(TEXTS))
 def test_vs_native(text, cfg):

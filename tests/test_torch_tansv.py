@@ -172,3 +172,130 @@ def test_ansv_local_other_types_and_int64():
     assert li.dtype == torch.int64 and lv.dtype == torch.int64
     np.testing.assert_array_equal(li.numpy(), want_l)
     np.testing.assert_array_equal(ri.numpy(), want_r)
+
+
+# ---------------------------------------------------------------------------
+# A numpy model of the K4 kernel's steps (csrc/tansv_tile.cu)
+# ---------------------------------------------------------------------------
+
+def _tile_engine_model(a, with_eq):
+    """``csrc/tansv_tile.cu`` in numpy, one tile at a time: the doubling
+    min-table, psv and e by nine-step binary lifting, sufvis as a range
+    minimum of two table entries, and nxt from per-warp ballots.  Every
+    table read asserts that the entry is defined (j + 2^k <= T), as the
+    kernel reads the table without masks."""
+    T, LOG_T, W = t_tansv.T, 9, 32
+    i = np.arange(T)
+    outs = [[] for _ in range(7)]
+    for tile in range(len(a) // T):
+        t = a[tile * T:(tile + 1) * T].astype(np.int64)
+        base = tile * T
+        lv = [t]
+        for k in range(1, LOG_T):
+            w = 1 << (k - 1)
+            lv.append(np.minimum(lv[-1][:-w], lv[-1][w:]))
+        assert all(len(lv[k]) == T - (1 << k) + 1 for k in range(LOG_T))
+
+        def read(k, j, ok):
+            assert (j[ok] >= 0).all() and (j[ok] < len(lv[k])).all()
+            return lv[k][np.where(ok, j, 0)]
+
+        skip = np.zeros(T, np.int64)
+        for k in reversed(range(LOG_T)):
+            w = 1 << k
+            lo = i - skip - w
+            ok = lo >= 0
+            skip += np.where(ok & (read(k, lo, ok) >= t), w, 0)
+        psv = i - skip - 1
+        chain = psv < 0
+        prefix = np.minimum.accumulate(np.concatenate([[I32_NONSV], t]))[:T]
+        np.testing.assert_array_equal(chain, prefix >= t)
+
+        sufvis = np.ones(T, bool)
+        inner = i < T - 1
+        kk = np.floor(np.log2(np.maximum(T - 1 - i, 1))).astype(int)
+        for k in range(LOG_T):
+            sel = inner & (kk == k)
+            m = np.minimum(read(k, i + 1, sel), read(k, np.full(T, T - (1 << k)),
+                                                      sel))
+            sufvis[sel] = t[sel] <= m[sel]
+        run_first = np.concatenate([[True], t[1:] != t[:-1]])
+        run_last = np.concatenate([t[:-1] != t[1:], [True]])
+        spine = (chain | sufvis) & (run_first | run_last)
+
+        masks = spine.reshape(T // W, W)
+        nxt = np.full(T, T)
+        for j in range(T):
+            w, lane = divmod(j, W)
+            here = np.flatnonzero(masks[w, lane:])
+            later = [u for u in range(w + 1, T // W) if masks[u].any()]
+            if len(here):
+                nxt[j] = w * W + lane + here[0]
+            elif later:
+                nxt[j] = later[0] * W + np.flatnonzero(masks[later[0]])[0]
+
+        cols = [np.where(chain, -1, base + psv),
+                np.where(chain, 0, t[np.maximum(psv, 0)]), chain, spine, nxt]
+        if with_eq:
+            start = psv + 1
+            fwd = np.zeros(T, np.int64)
+            for k in reversed(range(LOG_T)):
+                w = 1 << k
+                lo = start + fwd
+                ok = lo + w <= T
+                fwd += np.where(ok & (read(k, lo, ok) > t), w, 0)
+            e = start + fwd
+            assert (e <= i).all()
+            cols += [np.where(e < i, base + e, I32_NONSV), base + e]
+        for acc, col in zip(outs, cols):
+            acc.append(col)
+    return [np.concatenate(acc) if acc else None for acc in outs]
+
+
+def _tile_engine_cases():
+    """The tile-boundary adversaries, random LCP arrays, a tile of one
+    value, strictly decreasing and increasing tiles, and negative values
+    (the suffix tree's -1 padding rows)."""
+    from psac_tpu_torch.ops.oracle import lcp_kasai, suffix_array_np
+
+    rng = np.random.RandomState(17)
+    cases = dict(CASES)
+    text = bytes(rng.randint(97, 101, 2100).astype(np.uint8))
+    cases["lcp_random"] = lcp_kasai(text, suffix_array_np(text))[:2048]
+    rep = bytes(rng.randint(97, 99, 300).astype(np.uint8)) * 7
+    cases["lcp_repetitive"] = lcp_kasai(rep, suffix_array_np(rep))[:2048]
+    cases["one_value_tile"] = np.full(512, 3)
+    cases["decreasing_tile"] = np.arange(512, 0, -1)
+    cases["increasing_tile"] = np.arange(512)
+    cases["negative"] = np.concatenate([np.full(600, -1), [0],
+                                        rng.randint(-3, 9, 423)])
+    return {k: np.asarray(v).astype(np.int32) for k, v in cases.items()}
+
+
+ENGINE_CASES = _tile_engine_cases()
+
+
+@pytest.mark.parametrize("name", sorted(ENGINE_CASES))
+def test_tile_engine_model_vs_plain(name):
+    """The model of the K4 kernel equals K4's plain version (and, on
+    non-negative input, the JAX ``_tile_side``), both directions, with
+    and without the equal search."""
+    from psac_tpu.ops.tansv import _tile_side
+
+    a = ENGINE_CASES[name]
+    fn = jax.jit(_tile_side, static_argnums=(1, 2))
+    for arr in (a, a[::-1].copy()):
+        for with_eq in (True, False):
+            got = _tile_engine_model(arr, with_eq)
+            want = t_tansv.tile_side_plain(_t(arr), with_eq)
+            jax_ok = (arr >= 0).all()
+            jwant = fn(jnp.asarray(arr), len(arr) // t_tansv.T, with_eq)
+            for k, (g, w, jw) in enumerate(zip(got, want, jwant)):
+                if w is None:
+                    assert g is None and jw is None
+                    continue
+                np.testing.assert_array_equal(g, w.numpy(),
+                                              err_msg=f"{k} eq={with_eq}")
+                if jax_ok:
+                    np.testing.assert_array_equal(
+                        g, np.asarray(jw).reshape(-1), err_msg=f"jax {k}")
