@@ -6,21 +6,24 @@ each against its plain PyTorch version on the card (at the main path's
 shapes and on adversaries), times the suffix tree's ANSV pass both ways
 (the tile-spine pass, K4 + K1, against the dual scan K2), then drives the
 main paths through the user entry points, most with no device (the card
-is the default): SA+LCP of 2^26 random DNA, SA+LCP of 2^24 repetitive DNA,
-the suffix tree of the 2^26 text and that of the 2^24 repetitive text (its
-ANSV pass runs on K2); the public ANSV of 2^24 values for five match-type
-pairs; the DESA of the 2^26 text with both top-level indexes, answering
-batches of 65,536 patterns of lengths 8, 20 and 64.  Every result is held
-against the native SA-IS + Kasai oracle, the sequential ANSV oracle or the
-plain path; the script prints the kernel table (each kernel's time beside
-its bound: the bytes it must move once at the card's memory rate, and its
-launches summed over the main-path phases), the card's name and power
-limit, and a last JSON line.  Any mismatch raises; the exit code is then
-non-zero.
+is the default): SA+LCP of 2^26 random DNA, SA+LCP of 2^24 repetitive DNA
+(the LCP resolve K6 in every dense and tail step), the suffix tree of the
+2^26 text and that of the 2^24 repetitive text (its ANSV pass runs on K2);
+the public ANSV of 2^24 values for five match-type pairs; the DESA of the
+2^26 text with both top-level indexes, answering batches of 65,536
+patterns of lengths 8, 20 and 64; the generalized suffix array + LCP and
+the generalized suffix tree of 16,384 random 4 KiB strings (2^26
+characters) and of a family of 64 near-identical 256 KiB strings (2^24).
+Every result is held against the native SA-IS + Kasai oracle, the
+sequential ANSV oracle, the sorting oracles or the plain path; the script
+prints the kernel table (each kernel's time beside its bound: the bytes it
+must move once at the card's memory rate, and its launches summed over the
+main-path phases), the card's name and power limit, and a last JSON line.
+Any mismatch raises; the exit code is then non-zero.
 
 Run from the repository root:  python3 chip_smoke.py
-(``--log2n``/``--rep-log2n``/``--ansv-log2n``/``--batch`` shrink the work
-for a quick rehearsal.)
+(``--log2n``/``--rep-log2n``/``--ansv-log2n``/``--batch``/``--gsa-log2n``/
+``--fam-log2n`` shrink the work for a quick rehearsal.)
 """
 
 from __future__ import annotations
@@ -322,6 +325,321 @@ def check_k3_k5(dev, lcp_adj, log2n: int, ansv_log2n: int, kern: dict):
         f"{at_ansv['bound_ms']:.4f} ms, plain {at_ansv['plain_ms']:.3f} ms)")
 
 
+def k6_bound(rmq, ks, ls, rs, js, nq: int) -> dict:
+    """K6's bound from this resolve's data: the bytes it must move at
+    32-byte sector granularity.  Per valid query its three or four query
+    words, the sectors of the LCP under its range (under 8 wide) or under
+    the parts of the range in its two edge blocks (wider), two table words
+    where whole blocks lie between (a sector each), and one written word (a
+    sector); plus one copy of the LCP (read and written).  One comparison
+    per LCP or table word read."""
+    import torch
+
+    lcp = rmq.x
+    s, block, isz = lcp.shape[0], rmq.block, lcp.element_size()
+    valid = ks[:nq] != torch.iinfo(lcp.dtype).max
+    lo = ls[:nq].to(torch.int64).clamp(0, s - 1)
+    hi = torch.maximum(rs[:nq], ls[:nq]).to(torch.int64).clamp(0, s - 1)
+
+    def sectors(a, b):  # 32-byte sectors under elements a..b
+        return (b * isz >> 5) - (a * isz >> 5) + 1
+
+    bl, bh = lo // block, hi // block
+    narrow = hi - lo < 8
+    cross = bl != bh
+    lend = torch.where(cross, (bl + 1) * block - 1, hi)
+    wide_sec = sectors(lo, lend) + torch.where(
+        cross, sectors(bh * block, hi), 0) + torch.where(bh - bl > 1, 2, 0)
+    wide_words = lend - lo + 1 + torch.where(
+        cross, hi - bh * block + 1, 0) + torch.where(bh - bl > 1, 2, 0)
+    sec = torch.where(narrow, sectors(lo, hi), wide_sec)
+    words = torch.where(narrow, hi - lo + 1, wide_words)
+    nv = int(valid.sum())
+    nbytes = 2 * s * isz + nv * (3 + (js is not None)) * isz + 32 * nv + \
+        32 * int(sec[valid].sum())
+    return bound(nbytes, int(words[valid].sum()))
+
+
+def resolve_spy(resolve):
+    """``resolve`` (K6's wrapper or its plain version) wrapped to note each
+    call: returns (spy, calls), ``calls`` a list of (slots, rows, nq, args,
+    kw).  A dense step offers as many slots as the LCP has rows, a tail step
+    its buffer's capacity."""
+    calls = []
+
+    def spy(rmq, ks, ls, rs, js, d, **kw):
+        calls.append((ks.shape[0], rmq.x.shape[0], kw["nq"],
+                      (rmq, ks, ls, rs, js, d), kw))
+        return resolve(rmq, ks, ls, rs, js, d, **kw)
+
+    return spy, calls
+
+
+def resolve_steps(calls) -> str:
+    """'D dense, T tail (capacities ...)' of a build's resolve calls."""
+    tails = [c[0] for c in calls if c[0] != c[1]]
+    return (f"{len(calls) - len(tails)} dense, {len(tails)} tail"
+            + (f" (capacities {sorted(set(tails), reverse=True)})"
+               if tails else ""))
+
+
+def check_k6(dev, rep_text: bytes, rep_lcp: np.ndarray, log2n: int,
+             card: str, kern: dict) -> None:
+    """K6 (the LCP resolve) against its plain version, bit for bit: on the
+    native LCP of the repetitive text with 2^(log2n - 2) seeded queries, L
+    in {2, 4}, the three key packings, int32 and int64; on small arrays
+    whose block is 8, 32 and 128; and on an unsorted tail-style buffer.
+    Timed at the largest resolve of the repetitive text's SA+LCP build."""
+    import torch
+    from unittest import mock
+
+    from psac_tpu_torch.models import suffix_array as sa_mod
+    from psac_tpu_torch.ops.rmq import (PACKINGS, build_local_rmq,
+                                        rmq_resolve, rmq_resolve_plain)
+    from psac_tpu_torch.verify.cases import (resolve_lcp, resolve_queries,
+                                             resolve_query_arrays)
+
+    errs = []
+
+    def compare(lcp_np, m, L, dt, seed, d):
+        s = len(lcp_np)
+        b = sa_mod._Builder(s, (10, 10), 3, True, dt, dev)
+        rmq = build_local_rmq(torch.from_numpy(lcp_np).to(dev).to(dt))
+        rows, lo, hi, j = resolve_queries(s, m, rmq.block, L, seed)
+        q = {k: torch.from_numpy(v).to(dev).to(dt) for k, v in
+             resolve_query_arrays(s, rows, lo, hi, j,
+                                  torch.iinfo(dt).max).items()}
+        n_narrow = int((hi - lo < 8).sum())
+        for packing in PACKINGS:
+            ks, ls, rs, js, Lm, _ = b._pack_queries(q, L, packing)
+            kw = dict(Lm=Lm, packing=packing, nq=m)
+            got = rmq_resolve(rmq, ks, ls, rs, js, d, **kw)
+            want = rmq_resolve_plain(rmq, ks, ls, rs, js, d, **kw,
+                                     n_narrow=n_narrow,
+                                     m_pad=max(8, s // 32))
+            errs.append(max_abs_err((got,), (want,)))
+        return rmq.block
+
+    m = 1 << (log2n - 2)
+    for dt in (torch.int32, torch.int64):
+        for L in (2, 4):
+            compare(rep_lcp, m, L, dt, seed=60 + L, d=1 << 14)
+    blocks = set()
+    for s in (8 * 37, 32 * 9, 128 * 5, 8 * 4099, 128 * 257):
+        small = resolve_lcp(s, seed=s)
+        for dt in (torch.int32, torch.int64):
+            for L in (2, 4):
+                blocks.add(compare(small, s // 2, L, dt, seed=s + L, d=7))
+    if not {8, 32, 128} <= blocks:
+        raise AssertionError(f"small K6 arrays had blocks {blocks}")
+    # the tail's buffer: unsorted rows with INF keys between them
+    s = len(rep_lcp)
+    for dt in (torch.int32, torch.int64):
+        rmq = build_local_rmq(torch.from_numpy(rep_lcp).to(dev).to(dt))
+        mt = 1 << (log2n - 5)
+        rows, lo, hi, _ = resolve_queries(s, mt // 2, rmq.block, 2, seed=9)
+        inf = torch.iinfo(dt).max
+        buf = np.stack([np.full(mt, inf), np.full(mt, -3), np.full(mt, 2 * s)])
+        slots = np.sort(np.random.RandomState(9).permutation(mt)[:mt // 2])
+        buf[:, slots] = np.stack([rows, lo, hi])
+        kq, lq, rq = (torch.from_numpy(a).to(dev).to(dt) for a in buf)
+        kw = dict(Lm=1, packing="rows", nq=mt)
+        errs.append(max_abs_err(
+            (rmq_resolve(rmq, kq, lq, rq, None, 33, **kw),),
+            (rmq_resolve_plain(rmq, kq, lq, rq, None, 33, **kw),)))
+    log(f"[kernel] K6 rmq_resolve == plain on the 2^{log2n} rep_dna LCP with "
+        f"{m} mixed queries (L 2 and 4, packings {', '.join(PACKINGS)}, "
+        f"int32 and int64), on small arrays of blocks {sorted(blocks)}, and "
+        "on an unsorted tail buffer")
+
+    # the largest dense resolve of the repetitive text's SA+LCP build
+    spy, calls = resolve_spy(rmq_resolve)
+    xs, alpha, n, N = sa_mod.encode_and_shard(rep_text, dev)
+    with mock.patch.object(sa_mod, "rmq_resolve", spy):
+        sa_mod.construct_device(xs, alpha, n, N)
+    dense = [c for c in calls if c[0] == c[1]]
+    if not dense:
+        raise AssertionError("the SA+LCP build of rep_dna ran no dense "
+                             "resolve")
+    *_, args, kw = max(dense, key=lambda c: c[2])
+    steps = resolve_steps(calls)
+    del calls, dense
+    errs.append(max_abs_err((rmq_resolve(*args, **kw),),
+                            (rmq_resolve_plain(*args, **kw),)))
+    rmq, ks, ls, rs, js, d = args
+    kern["rmq_resolve"] = dict(
+        route="cuda", source="psac_tpu_torch/csrc/rmq_resolve.cu",
+        replaces="psac_tpu/models/suffix_array.py:463-526",
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda: rmq_resolve(*args, **kw), 10),
+        plain_ms=cuda_ms(lambda: rmq_resolve_plain(*args, **kw), 1),
+        **k6_bound(rmq, ks, ls, rs, js, kw["nq"]),
+        shape=dict(rows=rmq.x.shape[0], nq=kw["nq"],
+                   n_narrow=kw["n_narrow"], packing=kw["packing"],
+                   Lm=kw["Lm"], d=d, block=rmq.block))
+    log(f"[kernel] K6 timed at the largest resolve of the 2^{log2n} rep_dna "
+        f"build: {kw['nq']} queries ({kw['n_narrow']} under 8 wide) of "
+        f"{rmq.x.shape[0]} rows, packing {kw['packing']}, L - 1 = "
+        f"{kw['Lm']}, d = {d}; the build's resolves: {steps}; on {card}")
+
+    # does the build's wall follow K6?  The same construct_device with the
+    # plain resolve in K6's place, in turns within this process
+    def build_s(resolve) -> float:
+        with mock.patch.object(sa_mod, "rmq_resolve", resolve):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sa_mod.construct_device(xs, alpha, n, N)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+    turns = [(name, build_s(fn)) for name, fn in (
+        ("plain", rmq_resolve_plain), ("K6", rmq_resolve),
+        ("K6", rmq_resolve), ("plain", rmq_resolve_plain))]
+    kern["rmq_resolve"]["rep_build_s"] = {
+        k: [t for name, t in turns if name == k] for k in ("K6", "plain")}
+    log(f"[resolve] construct_device of 2^{log2n} rep_dna (synchronized, in "
+        "turns): " + ", ".join(f"{name} {t:.3f} s" for name, t in turns)
+        + f" on {card}")
+
+
+def gsa_phase(label: str, strings: list, want_k6: bool, card: str,
+              tail_stages: int = 0) -> dict:
+    """GSA + GLCP (``build_gsa_device``) and GST (``construct_gst_device``)
+    of a string set on the card, no device given; first and second run by
+    the host clock around synchronized calls, peak memory, launches per
+    kernel.  The GSA + GLCP is held against the native host oracle, the GST
+    against the plain path on the card.  With ``want_k6`` the build must
+    launch K6 and is repeated with the plain resolve in K6's place, its
+    tail then showing at least ``tail_stages`` buffer capacities."""
+    import torch
+
+    from psac_tpu_torch.models.gsa import _flatten, build_gsa_device
+    from psac_tpu_torch.models.suffix_tree import (_gst_local,
+                                                   construct_gst_device)
+    from psac_tpu_torch.ops.nsv_scan import nsv_scan_dual, nsv_scan_spine
+    from psac_tpu_torch.ops.rmq import rmq_resolve
+    from psac_tpu_torch.ops.tansv import tile_side
+    from psac_tpu_torch.parallel.ansv import PLAIN
+    from psac_tpu_torch.verify.gsa_oracle import gsa_oracle_native
+
+    reset, read = counter((rmq_resolve, tile_side, nsv_scan_spine,
+                           nsv_scan_dual))
+    out = {}
+    dgsa = tree = None
+    for run in ("first", "second"):
+        del dgsa, tree
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dgsa = build_gsa_device(strings)
+        torch.cuda.synchronize()
+        out[f"gsa_{run}_s"] = time.perf_counter() - t0
+        mem_gsa = torch.cuda.max_memory_allocated()
+        gsa_counts = read()
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tree = construct_gst_device(dgsa)
+        torch.cuda.synchronize()
+        out[f"gst_{run}_s"] = time.perf_counter() - t0
+        mem_gst = torch.cuda.max_memory_allocated()
+        gst_counts = read()
+        if run == "first":
+            add_launches(gsa_counts)
+            add_launches(gst_counts)
+    if not (dgsa.sa.is_cuda and tree.nodes.is_cuda):
+        raise AssertionError("the GSA build with no device left the card")
+    if want_k6 and gsa_counts["rmq_resolve"] == 0:
+        raise AssertionError(f"K6 was not launched by the GSA of {label}")
+    if gst_counts["tile_side"] != 2 or \
+            gst_counts["nsv_scan_spine"] + gst_counts["nsv_scan_dual"] != 1:
+        raise AssertionError(f"GST of {label} launched {gst_counts}")
+    flat, lens = _flatten(strings)
+    t0 = time.perf_counter()
+    want_sa, want_lcp = gsa_oracle_native(flat, lens)
+    t_oracle = time.perf_counter() - t0
+    res = dgsa.materialize()
+    if not (np.array_equal(res.sa, want_sa)
+            and np.array_equal(res.lcp, want_lcp)):
+        raise AssertionError(f"GSA + GLCP of {label} differ from the host "
+                             "oracle")
+    rem = np.repeat(np.cumsum(lens), lens)[want_sa] - want_sa
+    ties = int(((want_lcp[1:] == rem[1:]) & (want_lcp[1:] == rem[:-1])).sum())
+    del res, want_sa, want_lcp, rem
+    plain = _gst_local(dgsa, PLAIN)
+    if not torch.equal(tree.nodes, plain.nodes):
+        raise AssertionError(f"GST of {label} differs from the plain path")
+    if want_k6:
+        # the same build with the plain resolve in K6's place
+        from unittest import mock
+
+        from psac_tpu_torch.models import suffix_array as sa_mod
+        from psac_tpu_torch.ops.rmq import rmq_resolve_plain
+
+        spy, calls = resolve_spy(rmq_resolve_plain)
+        with mock.patch.object(sa_mod, "rmq_resolve", spy):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            build_gsa_device(strings)
+            torch.cuda.synchronize()
+            out["gsa_plain_resolve_s"] = time.perf_counter() - t0
+        log(f"[gsa] {label}: GSA + GLCP with the plain resolve in K6's "
+            f"place {out['gsa_plain_resolve_s']:.3f} s (with K6 "
+            f"{out['gsa_second_s']:.3f} s); resolves: "
+            f"{resolve_steps(calls)}; on {card}")
+        if len({c[0] for c in calls if c[0] != c[1]}) < tail_stages:
+            raise AssertionError(f"the GSA of {label} ran fewer than "
+                                 f"{tail_stages} tail stages")
+        del calls
+    n = len(flat)
+    log(f"[gsa] {label} ({len(lens)} strings, {n} characters): GSA + GLCP == "
+        f"host oracle (SA-IS + Kasai of the joined strings, "
+        f"{t_oracle:.2f} s on the host; {ties} rows repeat the whole suffix "
+        f"above them): "
+        f"{out['gsa_first_s']:.3f} s first, {out['gsa_second_s']:.3f} s "
+        f"second ({n / out['gsa_second_s'] / 1e6:.1f} MB/s), peak "
+        f"{mem_gsa / 2**30:.2f} GiB, launches {gsa_counts} on {card}")
+    log(f"[gsa] {label}: GST == plain path: {out['gst_first_s']:.3f} s "
+        f"first, {out['gst_second_s']:.3f} s second, peak "
+        f"{mem_gst / 2**30:.2f} GiB, launches {gst_counts} on {card}")
+    out["k6_launches"] = gsa_counts["rmq_resolve"]
+    return out
+
+
+def small_gsa_sets(card: str) -> None:
+    """Small string sets on the card (no device given) against the sorting
+    oracle and ``gst_oracle``."""
+    from psac_tpu_torch import build_gsa, build_gst
+    from psac_tpu_torch.ops.alphabet import Alphabet, rand_dna
+    from psac_tpu_torch.verify.gsa_oracle import gsa_oracle
+    from psac_tpu_torch.verify.suffix_tree_oracle import gst_oracle
+
+    rng = np.random.RandomState(13)
+    sets = {
+        "24 random DNA strings": [
+            rand_dna(int(ln), seed=100 + i)
+            for i, ln in enumerate(rng.randint(5, 200, size=24))],
+        "(ab)^i": [b"ab" * i for i in range(1, 12)],
+        "duplicates": [b"banana"] * 5 + [b"ban", b"anana"],
+    }
+    for name, parts in sets.items():
+        flat = b"".join(parts)
+        lens = np.array([len(x) for x in parts], np.int64)
+        sa, lcp = gsa_oracle(parts)
+        res = build_gsa(parts)
+        if not (np.array_equal(res.sa, sa) and np.array_equal(res.lcp, lcp)):
+            raise AssertionError(f"GSA of {name} differs from the sorting "
+                                 "oracle")
+        alpha = Alphabet.from_bytes(flat)
+        want = gst_oracle(alpha.encode(flat), sa, lcp,
+                          np.repeat(np.cumsum(lens), lens), alpha.sigma)
+        if not np.array_equal(build_gst(parts), want):
+            raise AssertionError(f"GST of {name} differs from gst_oracle")
+    log(f"[small] GSA == sorting oracle and GST == gst_oracle for "
+        f"{', '.join(sets)} on {card}")
+
+
 def rep_tree_phase(dev, rep_text: bytes, log2n: int, overflows: bool,
                    card: str) -> dict:
     """The suffix tree of repetitive DNA on the card.  When its LCP spines
@@ -591,6 +909,10 @@ def main() -> int:
                     help="public ANSV input size (log2 values)")
     ap.add_argument("--batch", type=int, default=65536,
                     help="DESA patterns per bulk_locate batch")
+    ap.add_argument("--gsa-log2n", type=int, default=26,
+                    help="random string set size (log2 chars, 4 KiB strings)")
+    ap.add_argument("--fam-log2n", type=int, default=24,
+                    help="near-identical family size (log2 chars, 64 strings)")
     args = ap.parse_args()
 
     # ---- 1. device ------------------------------------------------------
@@ -609,11 +931,13 @@ def main() -> int:
         _st_local, build_suffix_tree, construct_suffix_tree_device)
     from psac_tpu_torch.ops import cuda_lib
     from psac_tpu_torch.ops.alphabet import Alphabet, rand_dna, rep_dna
+    from psac_tpu_torch.verify.cases import near_identical_family
     from psac_tpu_torch.ops.ansv import (FURTHEST_EQ, NEAREST_EQ, NEAREST_SM,
                                          ansv_seq)
     from psac_tpu_torch.ops.nsv_scan import (CHUNK, nsv_scan_dual,
                                              nsv_scan_dual_plain,
                                              nsv_scan_spine)
+    from psac_tpu_torch.ops.rmq import rmq_resolve
     from psac_tpu_torch.ops.tansv import CAPDIV, tile_side
     from psac_tpu_torch.parallel.ansv import PLAIN, ansv_local
     from psac_tpu_torch.verify.suffix_tree_oracle import suffix_tree_oracle
@@ -642,6 +966,10 @@ def main() -> int:
     lcp_ref = native.lcp_array(text, sa_ref)
     log(f"[oracle] native SA-IS+Kasai of 2^{args.log2n} DNA: "
         f"{time.perf_counter() - t0:.2f} s (host)")
+    rep_n = 1 << args.rep_log2n
+    rep_text = rep_dna(rep_n)
+    rsa = native.suffix_array(rep_text)
+    rlcp = native.lcp_array(rep_text, rsa)
 
     # ---- 3. kernels against their plain versions on the card ------------
     kern = {}
@@ -689,13 +1017,14 @@ def main() -> int:
         f"(NEQ, NSM) on {len(advs)} adversaries ({', '.join(advs)}), and "
         "two unrelated streams")
     check_k3_k5(dev, lcp_adj, args.log2n, args.ansv_log2n, kern)
+    check_k6(dev, rep_text, rlcp, args.rep_log2n, card, kern)
     label = f"2^{args.log2n} LCP"
     engines = {label: engine_comparison(lcp_adj, label, card)}
     del lcp_adj, xr, small, other, advs
 
     # ---- 4. main path (counted) ------------------------------------------
     reset_counts, read_counts = counter((tile_side, nsv_scan_spine,
-                                         nsv_scan_dual))
+                                         nsv_scan_dual, rmq_resolve))
 
     # SA+LCP and suffix tree of the 2^26 text: K4 and K1 must run here
     reset_counts()
@@ -734,11 +1063,16 @@ def main() -> int:
         raise AssertionError("nsv_scan_dual was not launched on an "
                              "overflowing spine")
 
-    rep_n = 1 << args.rep_log2n
-    rep_text = rep_dna(rep_n)
+    # SA+LCP of the repetitive text: K6 in every dense and tail step
+    reset_counts()
     t0 = time.perf_counter()
     rres = build_suffix_array(rep_text)
     t_rep = time.perf_counter() - t0
+    rep_counts = read_counts()
+    add_launches(rep_counts)
+    if rep_counts["rmq_resolve"] == 0:
+        raise AssertionError("K6 was not launched by the SA+LCP build of "
+                             "rep_dna")
     # second, warm runs (allocator and library state settled)
     t0 = time.perf_counter()
     construct_device(xs, alpha, n_, N)
@@ -757,12 +1091,10 @@ def main() -> int:
     log(f"[main] SA+LCP 2^{args.log2n} DNA == native: {t_sa:.3f} s "
         f"(with encoding), {n / t_sa / 1e6:.1f} MB/s, peak "
         f"{mem_sa / 2**30:.2f} GiB; warm construct_device {t_sa_warm:.3f} s")
-    rsa = native.suffix_array(rep_text)
-    if not (np.array_equal(rres.sa, rsa) and np.array_equal(
-            rres.lcp, native.lcp_array(rep_text, rsa))):
+    if not (np.array_equal(rres.sa, rsa) and np.array_equal(rres.lcp, rlcp)):
         raise AssertionError("SA+LCP of the repetitive DNA differ from SA-IS")
     log(f"[main] SA+LCP 2^{args.rep_log2n} rep_dna == native: {t_rep:.3f} s "
-        f"(to host arrays)")
+        f"(to host arrays), K6 launches {rep_counts['rmq_resolve']} on {card}")
     # how long the spines of a repetitive LCP are against the capacity that
     # sends a suffix tree to K2 (s // CAPDIV)
     rx = padded_lcp(rres.lcp)
@@ -774,7 +1106,7 @@ def main() -> int:
     log(f"[main] rep_dna 2^{args.rep_log2n} LCP spines {spines} of {rs} rows "
         f"({100 * max(spines) / rs:.3f}%), capacity {cap}: "
         f"{'overflows -> K2' if max(spines) > cap else 'fits -> K1'}")
-    del rres, rsa, rx
+    del rres, rsa, rlcp, rx
     plain_tree = _st_local(dsa, xs, PLAIN)
     if not torch.equal(tree.nodes, plain_tree.nodes):
         raise AssertionError("suffix tree differs from the plain path")
@@ -823,7 +1155,33 @@ def main() -> int:
     # ---- 8. DESA of the 2^26 text: both top-level indexes, bulk_locate ---
     desa = desa_phase(dev, text, sa_ref, args.batch, card)
 
-    # ---- 9. results -------------------------------------------------------
+    del text, sa_ref, lcp_ref
+
+    # ---- 9. generalized suffix array and tree (counted) -------------------
+    small_gsa_sets(card)
+    whole = rand_dna(1 << args.gsa_log2n, seed=43)
+    gsa_rand = gsa_phase(
+        f"2^{args.gsa_log2n} random DNA in 4 KiB strings",
+        [whole[i:i + 4096] for i in range(0, len(whole), 4096)], False, card)
+    del whole
+    # 64 copies with about 0.1% substitutions each, which separate within
+    # some 20,000 characters.  In strings much longer than that the last
+    # copy differs from the base in two places only: just past a doubling
+    # distance (a step at distance d settles ties shorter than 2d), so that
+    # its ties outlast the dense loop, fill the big tail stage for several
+    # steps and then fit the small one; and in its last character, so that
+    # the suffixes behind the first place do not tie to the very end
+    fam_len = (1 << args.fam_log2n) // 64
+    reach = 40 << max(0, int(0.7 * fam_len / 40).bit_length() - 1)
+    twin = (reach + fam_len // 128, fam_len - 1) \
+        if fam_len >= (1 << 17) else ()
+    gsa_fam = gsa_phase(
+        f"2^{args.fam_log2n} near-identical family",
+        near_identical_family(64, fam_len, max(1, fam_len // 1000),
+                              twin_subs=twin),
+        True, card, tail_stages=2 if twin else 0)
+
+    # ---- 10. results ------------------------------------------------------
     log(f"[result] SA+LCP 2^{args.log2n} DNA {t_sa:.3f} s "
         f"({n / t_sa / 1e6:.1f} MB/s; warm {t_sa_warm:.3f} s), rep_dna "
         f"2^{args.rep_log2n} {t_rep:.3f} s, ST {t_st:.3f} s (warm "
@@ -835,6 +1193,11 @@ def main() -> int:
     log("[result] DESA: " + ", ".join(
         f"{k} {v:.3f}" if k.startswith("build") else f"{k} {v:,.0f}"
         for k, v in desa.items()))
+    for label, g in (("random set", gsa_rand), ("family", gsa_fam)):
+        log(f"[result] GSA + GLCP of the {label}: {g['gsa_first_s']:.3f} s "
+            f"(second {g['gsa_second_s']:.3f} s), GST "
+            f"{g['gst_first_s']:.3f} s (second {g['gst_second_s']:.3f} s), "
+            f"K6 launches {g['k6_launches']}")
     for k, e in engines.items():
         log(f"[result] engines on the {k}: tile-spine pass "
             f"{e['tile_spine_ms']:.3f} ms vs K2 {e['dual_ms']:.3f} ms "

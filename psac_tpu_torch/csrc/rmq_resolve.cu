@@ -1,0 +1,211 @@
+// LCP resolve by batched range minima for Hopper (sm_90a): K6.
+//
+// Replaces the chunk body of psac_tpu/models/suffix_array.py::
+// _resolve_fused_local (with psac_tpu/ops/rmq.py::query_local_rmq), which
+// XLA fuses on the TPU: per query, decode (row, j) from a packed sort key,
+// take min(LCP[lo..hi]) and write j*d + min at `row`.  The TPU code answers
+// the queries in chunks of s / resolve_div so that its (chunk, 128) row
+// windows stay bounded, picks per chunk between a narrow tier (two 8-wide
+// rows) and the general path (two masked 128-wide edge rows plus two reads
+// of the doubling table over block minima), and scatters into a drop-slot
+// padded copy of the LCP.  None of that carries over: one launch takes all
+// the queries of a resolve, picks the tier per query, and writes into `out`,
+// a copy of the LCP that the wrapper makes before the launch.  Every read
+// is of the old LCP and of the table, which nothing writes.
+//
+// Design: eight lanes per query, four queries per warp.
+//   * a range under 8 wide is read by its group, one element per lane, and
+//     reduced by three shuffles;
+//   * the wider ranges of a warp are then taken one at a time by all 32
+//     lanes: the part of [lo, hi] in lo's block and the part in hi's block
+//     are consecutive values (at most `block` each, coalesced reads), the
+//     full blocks between them come from two reads of the doubling table;
+//     a five-step shuffle reduce gives the minimum;
+//   * the group's first lane writes j*d + min at `row`.
+// Invalid queries carry the key INF; they are skipped, so the caller may
+// pass sorted queries with `nq` the count of valid ones, or an unsorted
+// buffer with `nq` its length.
+//
+// What bounds it: bytes, at sector granularity.  Per query three or four
+// query words (coalesced), one or two 32-byte sectors of the LCP (narrow) or
+// up to two `block`-wide rows and two table words (wide), and one scattered
+// word written.  All index arithmetic is 64-bit, so no int32 product of an
+// invalid row can overflow; values are int32 or int64 (a template).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int GROUP = 8;                    // lanes per query
+constexpr int PER_BLOCK = THREADS / GROUP;  // queries per thread block
+
+// How (row, j) is packed into the sort key: mode 0 (narrow) is
+// ((wide ? s : 0) + row) * Lm + (j - 1), mode 1 (packed) is
+// row * Lm + (j - 1), mode 2 (rows) is the row itself, with j from js, or 1
+// when js is null.
+constexpr int MODE_NARROW = 0;
+constexpr int MODE_ROWS = 2;
+
+template <typename T>
+struct Inf;
+template <>
+struct Inf<int32_t> {
+  static constexpr int32_t v = INT32_MAX;
+};
+template <>
+struct Inf<int64_t> {
+  static constexpr int64_t v = INT64_MAX;
+};
+
+template <typename T>
+__device__ __forceinline__ T min_of(T a, T b) {
+  return b < a ? b : a;
+}
+
+template <typename T>
+struct Args {
+  const T* lcp;    // (s,) the pre-resolve LCP
+  const T* table;  // (levels, nb) doubling table over block minima
+  const T* ks;     // (>= nq,) keys
+  const T* ls;     // (>= nq,) range starts
+  const T* rs;     // (>= nq,) range ends (inclusive)
+  const T* js;     // (>= nq,) columns, or null
+  T* out;          // (s,) the new LCP, holding a copy of lcp
+  long long s, nb, nq, Lm, d;
+  int bshift;      // log2(block)
+  int mode;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+rmq_resolve_kernel(const __grid_constant__ Args<T> a) {
+  const unsigned FULL = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & (GROUP - 1);
+  const long long q =
+      static_cast<long long>(blockIdx.x) * PER_BLOCK + threadIdx.x / GROUP;
+
+  bool live = false;
+  long long row = 0, j = 1, lo = 0, hi = 0;
+  if (q < a.nq) {
+    const T key = a.ks[q];
+    if (key != Inf<T>::v) {
+      long long k = key;
+      if (a.mode == MODE_ROWS) {
+        row = k;
+        if (a.js != nullptr) j = a.js[q];
+      } else {
+        if (a.mode == MODE_NARROW && k >= a.s * a.Lm) k -= a.s * a.Lm;
+        row = k / a.Lm;
+        j = k - row * a.Lm + 1;
+      }
+      const long long l = a.ls[q];
+      const long long r = a.rs[q];
+      lo = l < 0 ? 0 : (l > a.s - 1 ? a.s - 1 : l);
+      hi = r < l ? l : r;
+      hi = hi < 0 ? 0 : (hi > a.s - 1 ? a.s - 1 : hi);
+      live = row >= 0 && row < a.s;
+    }
+  }
+
+  // ---- narrow tier: one element per lane of the group
+  const bool wide = live && hi - lo >= GROUP;
+  T m = Inf<T>::v;
+  if (live && !wide && lo + sub <= hi) m = a.lcp[lo + sub];
+  for (int off = GROUP / 2; off > 0; off >>= 1)
+    m = min_of(m, __shfl_xor_sync(FULL, m, off));
+
+  // ---- wide tier: the warp takes its wide queries one at a time
+  unsigned todo = __ballot_sync(FULL, wide && sub == 0);
+  while (todo) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const long long wlo = __shfl_sync(FULL, lo, src);
+    const long long whi = __shfl_sync(FULL, hi, src);
+    const long long bl = wlo >> a.bshift;
+    const long long bh = whi >> a.bshift;
+    T w = Inf<T>::v;
+    // the part of the range in lo's block
+    const long long lend = bl == bh ? whi : ((bl + 1) << a.bshift) - 1;
+    for (long long i = wlo + lane; i <= lend; i += 32) w = min_of(w, a.lcp[i]);
+    if (bl != bh) {
+      // the part in hi's block, and the full blocks between the two
+      for (long long i = (bh << a.bshift) + lane; i <= whi; i += 32)
+        w = min_of(w, a.lcp[i]);
+      const long long first = bl + 1;
+      const long long len = bh - first;
+      if (len > 0 && lane < 2) {
+        const int lev = 63 - __clzll(len);
+        const long long at =
+            lane == 0 ? first : bh - (1LL << lev);
+        w = min_of(w, a.table[lev * a.nb + at]);
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      w = min_of(w, __shfl_xor_sync(FULL, w, off));
+    if (lane == src) m = w;
+  }
+
+  if (live && sub == 0) a.out[row] = static_cast<T>(j * a.d + m);
+}
+
+template <typename T>
+int rmq_resolve(const T* lcp, const T* table, const T* ks, const T* ls,
+                const T* rs, const T* js, T* out, long long s, long long nb,
+                int block, long long nq, int Lm, int mode, long long d,
+                cudaStream_t stream) {
+  if (block <= 0 || (block & (block - 1)) != 0 || Lm < 1 || mode < 0 ||
+      mode > MODE_ROWS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nq <= 0) return 0;
+  Args<T> a;
+  a.lcp = lcp;
+  a.table = table;
+  a.ks = ks;
+  a.ls = ls;
+  a.rs = rs;
+  a.js = js;
+  a.out = out;
+  a.s = s;
+  a.nb = nb;
+  a.nq = nq;
+  a.Lm = Lm;
+  a.d = d;
+  a.bshift = 0;
+  while ((1 << a.bshift) < block) ++a.bshift;
+  a.mode = mode;
+  const long long blocks = (nq + PER_BLOCK - 1) / PER_BLOCK;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  rmq_resolve_kernel<T><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+      a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns the CUDA error of the launch, 0 if none.
+int psac_rmq_resolve_i32(const int32_t* lcp, const int32_t* table,
+                         const int32_t* ks, const int32_t* ls,
+                         const int32_t* rs, const int32_t* js, int32_t* out,
+                         long long s, long long nb, int block, long long nq,
+                         int Lm, int mode, long long d, void* stream) {
+  return rmq_resolve<int32_t>(lcp, table, ks, ls, rs, js, out, s, nb, block,
+                              nq, Lm, mode, d,
+                              static_cast<cudaStream_t>(stream));
+}
+
+int psac_rmq_resolve_i64(const int64_t* lcp, const int64_t* table,
+                         const int64_t* ks, const int64_t* ls,
+                         const int64_t* rs, const int64_t* js, int64_t* out,
+                         long long s, long long nb, int block, long long nq,
+                         int Lm, int mode, long long d, void* stream) {
+  return rmq_resolve<int64_t>(lcp, table, ks, ls, rs, js, out, s, nb, block,
+                              nq, Lm, mode, d,
+                              static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

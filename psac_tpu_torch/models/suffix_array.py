@@ -3,7 +3,8 @@
 
 k-mer initial ranking, then dense prefix-L-pling steps (sort by
 (B, B@d, ..., B@(L-1)d, i), rebucket by prefix max, SA -> ISA un-permute)
-with the LCP resolved per step by range-minimum queries, then a sparse
+with the LCP resolved per step by range-minimum queries (K6,
+``ops.rmq.rmq_resolve``), then a sparse
 "bucket chaising" tail over the compacted unfinished rows — the JAX
 package's ``_Builder.fused_full`` program.  Its ``lax.while_loop``s become
 host loops here that read one stacked scalar tensor back per step.
@@ -26,8 +27,7 @@ from psac_tpu_torch import config as cfg_mod
 from psac_tpu_torch.ops.alphabet import Alphabet, IntAlphabet
 from psac_tpu_torch.ops.bitops import lcp_bitwise_words
 from psac_tpu_torch.ops.kmer import optimal_k, pack_kmers_local
-from psac_tpu_torch.ops.rmq import (bulk_rmq_local, build_local_rmq,
-                                    edge_mins, query_local_rmq)
+from psac_tpu_torch.ops.rmq import build_local_rmq, rmq_resolve
 from psac_tpu_torch.parallel.collectives import (global_cummax,
                                                  global_shift_left_dyn,
                                                  halo_from_left,
@@ -89,6 +89,19 @@ class DeviceSuffixArray:
 
 def _pow2ceil(x: int) -> int:
     return 1 << max(0, int(x - 1).bit_length())
+
+
+def resolve_packing(s: int, Lm: int, inf: int) -> str:
+    """The tightest of ``ops.rmq.PACKINGS`` whose keys fit below ``inf``
+    for ``s`` rows and ``Lm`` columns: a class bit above the row key
+    (``narrow``: ranges under 8 wide, which span at most two 8-wide rows,
+    sort first), else row and column in one key (``packed``), else the
+    column in a tensor of its own (``rows``)."""
+    if s % 8 == 0 and inf // (2 * Lm) > s:
+        return "narrow"
+    if inf // Lm > s and Lm > 1:
+        return "packed"
+    return "rows"
 
 
 def _read(*scalars) -> list[int]:
@@ -198,82 +211,55 @@ class _Builder:
                  jcol=jcol)
         return isa_new, sa, lcp, q, b_new, active, counts
 
-    # ---------------- LCP resolve (bulk RMQ + scatter) ----------------
+    # ---------------- LCP resolve (K6: range minima, written back) -------
 
-    def _resolve_fused_local(self, lcp, q, d: int, *, m_pad: int, L: int,
-                             nq: int, n_narrow: int):
-        """Compact the queries by one sort of a packed key (row * (L-1) +
-        column), answer them in m_pad-sized chunks against the PRE-resolve
-        LCP, scatter back.  The last chunk's start is clamped to s - m_pad
-        (as ``lax.dynamic_slice`` clamps); its repeated rows rewrite
-        identical values."""
+    def _pack_queries(self, q, L: int, packing: str | None = None):
+        """Compact a dense step's queries by one sort of a packed key (row *
+        (L-1) + column; ``packing`` forces one of ``ops.rmq.PACKINGS``,
+        None takes the tightest that fits the index dtype).  Returns (ks,
+        ls, rs, js, Lm, packing): the sorted (s,) buffers K6 takes, valid
+        queries first."""
         s, idt, INF = self.s, self.idt, self.INF
         Lm = max(1, L - 1)
-        # narrow tier: queries with rq - lq < 8 span at most two 8-wide
-        # rows; a class bit above the row key groups them into own chunks
-        narrow = s % 8 == 0 and INF // (2 * Lm) > s
-        packed = INF // Lm > s
+        packing = packing or resolve_packing(s, Lm, INF)
         qkey, lq, rq, jcol = q["qkey"], q["lq"], q["rq"], q["jcol"]
         isq = qkey != INF
         js = None
-        if narrow:
+        if packing == "narrow":
             wide = (rq - lq) >= 8
             key2 = torch.where(
                 isq, (qkey + wide.to(idt) * s) * Lm + (jcol - 1), INF)
-        elif packed and Lm > 1:
+        elif packing == "packed":
             key2 = torch.where(isq, qkey * Lm + (jcol - 1), INF)
         else:
             key2 = qkey
             js = jcol if Lm > 1 else None
         perm = torch.sort(key2).indices
-        ks, ls, rs = key2[perm], lq[perm], rq[perm]
         if js is not None:
             js = js[perm]
-        rmq = build_local_rmq(lcp)
-        d = min(d, self.N)  # any real answer has j*d <= N
-        lcp_pad = torch.cat([lcp, lcp.new_zeros(1)])
+        return key2[perm], lq[perm], rq[perm], js, Lm, packing
 
-        c = 0
-        while c * m_pad < nq:
-            off = min(c * m_pad, s - m_pad)
-            sl = slice(off, off + m_pad)
-            kq_c, l_c, r_c = ks[sl], ls[sl], rs[sl]
-            valid = kq_c != INF
-            if js is not None:
-                j_c = js[sl]
-                row_loc = torch.where(valid, kq_c, 0)
-            elif narrow or Lm > 1:
-                kdec = torch.where(valid, kq_c, 0)
-                if narrow:
-                    kdec = torch.where(kdec >= s * Lm, kdec - s * Lm, kdec)
-                row_loc = (kdec // Lm).clamp(0, s - 1)
-                j_c = kdec - row_loc * Lm + 1
-            else:
-                row_loc = torch.where(valid, kq_c, 0)
-                j_c = torch.ones_like(kq_c)
-            lo = torch.where(valid, l_c, 0).clamp(0, s - 1)
-            hi = torch.where(valid, torch.maximum(r_c, l_c), 0).clamp(0, s - 1)
-            # sorted valid keys: narrow ones at [0, n_narrow), wide ones at
-            # [n_narrow, nq) — a chunk is all-narrow unless it meets those
-            has_wide = max(off, n_narrow) < min(off + m_pad, nq)
-            if narrow and not has_wide:
-                mins = edge_mins(lcp, 8, lo, hi)
-            else:
-                mins = query_local_rmq(rmq, lo, hi)
-            row = torch.where(valid, row_loc, s)
-            lcp_pad[row] = torch.where(valid, j_c * d + mins, 0)
-            c += 1
-        return lcp_pad[:s]
+    def _resolve_fused_local(self, lcp, q, d: int, *, m_pad: int, L: int,
+                             nq: int, n_narrow: int,
+                             packing: str | None = None):
+        """Hand the step's compacted queries to K6, which answers every one
+        against the PRE-resolve LCP and writes ``j*d + min`` at its row."""
+        ks, ls, rs, js, Lm, packing = self._pack_queries(q, L, packing)
+        # any real answer has j*d <= N
+        return rmq_resolve(build_local_rmq(lcp), ks, ls, rs, js,
+                           min(d, self.N), Lm=Lm, packing=packing, nq=nq,
+                           n_narrow=n_narrow, m_pad=m_pad)
 
     def _resolve_local(self, lcp, kq, lq, rq, d: int):
-        """Bulk RMQ of every valid query against ``lcp``, scattered back."""
-        rmq = build_local_rmq(lcp)
-        valid = kq != self.INF
-        mins = bulk_rmq_local(rmq, lq, rq, valid)
-        (lcp_new,) = route_scatter(kq, (d + mins,), (lcp,), valid)
-        return lcp_new
+        """K6 on the tail's unsorted (m,) buffer: keys are rows (INF = no
+        query), one column, every slot offered."""
+        return rmq_resolve(build_local_rmq(lcp), kq, lq, rq, None, d, Lm=1,
+                           packing="rows", nq=kq.shape[0])
 
     # ---------------- sparse tail ("bucket chaising") ----------------
+    #
+    # The compact tail buffers are (position, bucket) and, in a GSA build,
+    # each record's end-of-string bound as a third.
 
     def _compact(self, mask, vals: tuple, fills: tuple, m: int) -> tuple:
         """The first ``m`` rows where ``mask`` holds, in row order, padded
@@ -283,25 +269,38 @@ class _Builder:
         ok = torch.arange(order.shape[0], device=mask.device) < mask.sum()
         return tuple(torch.where(ok, v[order], f) for v, f in zip(vals, fills))
 
-    def _tail_enter_local(self, sa, brow, active, m_cap: int):
-        """Compact the active rows into (m_cap,) (position, bucket) buffers."""
-        return self._compact(active, (sa, brow), (0, self.INF), m_cap)
+    def _tail_fills(self, count: int) -> tuple:
+        """Padding of the first ``count`` tail buffers."""
+        return (0, self.INF, 0)[:count]
 
-    def _tail_recompact_local(self, cs, cb, m_to: int):
+    def _tail_enter_local(self, sa, brow, active, m_cap: int,
+                          extra: tuple = ()):
+        """Compact the active rows into (m_cap,) tail buffers; ``extra``
+        holds the per-row companions the tail carries (GSA: the row's
+        end-of-string bound)."""
+        vals = (sa, brow) + tuple(extra)
+        return self._compact(active, vals, self._tail_fills(len(vals)), m_cap)
+
+    def _tail_recompact_local(self, cbufs: tuple, m_to: int):
         """Shrink the tail buffers to a smaller capacity."""
-        return self._compact(cb != self.INF, (cs, cb), (0, self.INF), m_to)
+        return self._compact(cbufs[1] != self.INF, cbufs,
+                             self._tail_fills(len(cbufs)), m_to)
 
-    def _tail_step_local(self, cs, cb, isa, sa, lcp, d: int):
+    def _tail_step_local(self, cbufs: tuple, isa, sa, lcp, d: int):
         s, N, INF = self.s, self.N, self.INF
+        cs, cb = cbufs[:2]
+        ce = cbufs[2] if len(cbufs) == 3 else None
         valid = cb != INF
-        # sparse B2 = ISA[pos + d] (0 past the end of the text)
+        # sparse B2 = ISA[pos + d] (0 past the end of the text, or of the
+        # record's own string in GSA mode)
         tgt = cs + d
-        inb = valid & (tgt < N)
+        inb = valid & (tgt < (N if ce is None else ce))
         b2 = isa[torch.where(inb, tgt, 0).clamp(0, s - 1)]
         b2 = torch.where(valid, torch.where(inb, b2, 0), INF)
 
         # sort the compacted records by (bucket, B2, position)
-        cb_s, b2_s, cs_s = dist_sort_local((cb, b2, cs), num_keys=3)
+        ops = (cb, b2, cs) + (() if ce is None else (ce,))
+        cb_s, b2_s, cs_s, *ce_s = dist_sort_local(ops, num_keys=3)
         valid_s = cb_s != INF
         gi = self._gidx(cb.shape[0])
         pcb = prev_of(cb_s)
@@ -315,13 +314,17 @@ class _Builder:
         b_new = global_cummax(torch.where(new_seg, row + 1, 0))
         nseg = torch.cat([new_seg[1:], new_seg.new_ones(1)])
         settled = new_seg & nseg
+        if ce is not None:
+            # GSA: fully-ended suffix groups (B2 == 0) can never split
+            settled = settled | (b2_s == 0)
         ue = (valid_s & ~settled).sum()
 
         (sa_new,) = route_scatter(row, (cs_s,), (sa,), valid_s)
         (isa_new,) = route_scatter(cs_s, (b_new,), (isa,), valid_s)
         cb_out = torch.where(valid_s & ~settled, b_new, INF)
+        cbufs = (cs_s, cb_out) + tuple(ce_s)
         if not self.with_lcp:
-            return cs_s, cb_out, isa_new, sa_new, None, ue
+            return cbufs, isa_new, sa_new, None, ue
 
         # LCP at the new split rows
         split = valid_s & ~new_bkt & (b2_s != pb2)
@@ -332,62 +335,90 @@ class _Builder:
         kq = torch.where(querycase, row, INF)
         lcp = self._resolve_local(lcp, kq, torch.minimum(pb2, b2_s),
                                   torch.maximum(pb2, b2_s) - 1, d)
-        return cs_s, cb_out, isa_new, sa_new, lcp, ue
+        return cbufs, isa_new, sa_new, lcp, ue
 
-    def _tail_loop(self, cs, cb, isa, sa, lcp, d: int, tue: int, stop: int,
+    def _tail_loop(self, cbufs, isa, sa, lcp, d: int, tue: int, stop: int,
                    max_iters: int):
         it = 0
         while tue > stop and it < max_iters:
-            cs, cb, isa, sa, lcp, ue = self._tail_step_local(
-                cs, cb, isa, sa, lcp, d)
+            cbufs, isa, sa, lcp, ue = self._tail_step_local(
+                cbufs, isa, sa, lcp, d)
             d = min(d * 2, self.N)
             it += 1
             (tue,) = _read(ue)
-        return cs, cb, isa, sa, lcp, d, tue
+        return cbufs, isa, sa, lcp, d, tue
 
     # ---------------- fused construction ----------------
 
+    def _dense_resolve(self, lcp, q, counts, d: int, *, m_pad: int, L: int):
+        """Read the step's counters back (with the query counts the resolve
+        needs, in the same readback) and resolve the LCP queries.  Returns
+        (lcp, ub, ue)."""
+        if not self.with_lcp:
+            return (None, *_read(*counts))
+        isq = q["qkey"] != self.INF
+        ub, ue, nq, n_narrow = _read(
+            *counts, isq.sum(), (isq & (q["rq"] - q["lq"] < 8)).sum())
+        lcp = self._resolve_fused_local(lcp, q, d, m_pad=m_pad, L=L, nq=nq,
+                                        n_narrow=n_narrow)
+        return lcp, ub, ue
+
     def fused_full(self, codes, n_real: int, *, m_cap: int, m_cap2: int,
                    factor: int, resolve_div: int):
-        """init -> dense L-pling loop (hands over once the active set fits
-        ``m_cap``) -> two-stage sparse tail: entry at ``m_cap`` and
-        recompaction to ``m_cap2`` once the active count drops, or entry at
-        ``m_cap2`` directly.  Returns (isa, sa, lcp, stats) with stats =
-        (unfinished buckets, unfinished elements, tail_ran)."""
-        N = self.N
+        """init -> dense L-pling loop -> two-stage sparse tail (see
+        ``_fused_drive``).  Returns (isa, sa, lcp, stats)."""
         m_pad = max(8, self.s // resolve_div)
-        isa, sa, lcp, brow, active, (ub, ue) = self._init_local(codes, n_real)
-        ub, ue = _read(ub, ue)
+        isa, sa, lcp, brow, active, counts = self._init_local(codes, n_real)
+
+        def dense_step(isa, lcp, extra, d):
+            isa, sa, lcp, q, brow, active, counts = self._stepL_local(
+                isa, lcp, d, L=factor)
+            lcp, ub, ue = self._dense_resolve(lcp, q, counts, d, m_pad=m_pad,
+                                              L=factor)
+            return isa, sa, lcp, brow, active, (), ub, ue, d * factor
+
+        return self._fused_drive(
+            (isa, sa, lcp, brow, active, (), *_read(*counts)), dense_step,
+            m_cap=m_cap, m_cap2=m_cap2)
+
+    def _fused_drive(self, init_outs, dense_step, *, m_cap: int,
+                     m_cap2: int):
+        """Shared orchestration of the SA and GSA constructions.
+
+        ``init_outs`` = (isa, sa, lcp | None, brow, active, extra, ub, ue)
+        with ``extra`` the per-SA-row companions the tail entry needs (GSA:
+        the row-aligned end-of-string bound) and ub, ue host integers.
+        ``dense_step(isa, lcp, extra, d)`` runs one dense iteration with
+        its LCP resolve and returns (isa, sa, lcp, brow, active, extra, ub,
+        ue, d_next).
+
+        The dense loop hands over once the active set fits ``m_cap``; the
+        tail enters at ``m_cap`` and recompacts to ``m_cap2`` once the
+        active count drops, or enters at ``m_cap2`` directly.  Returns
+        (isa, sa, lcp, stats) with stats = (unfinished buckets, unfinished
+        elements, tail_ran)."""
+        isa, sa, lcp, brow, active, extra, ub, ue = init_outs
         d = sum(self.ks)
-        max_iters = max(4, int(N).bit_length() + 2)
+        max_iters = max(4, int(self.N).bit_length() + 2)
         it = 0
         while ub > 0 and ue > m_cap and it < max_iters:
-            isa, sa, lcp, q, brow, active, (ub, ue) = self._stepL_local(
-                isa, lcp, d, L=factor)
-            if self.with_lcp:
-                isq = q["qkey"] != self.INF
-                ub, ue, nq, n_narrow = _read(
-                    ub, ue, isq.sum(), (isq & (q["rq"] - q["lq"] < 8)).sum())
-                lcp = self._resolve_fused_local(
-                    lcp, q, d, m_pad=m_pad, L=factor, nq=nq,
-                    n_narrow=n_narrow)
-            else:
-                ub, ue = _read(ub, ue)
-            d *= factor
+            isa, sa, lcp, brow, active, extra, ub, ue, d = dense_step(
+                isa, lcp, extra, d)
             it += 1
 
         fits = 0 < ue <= m_cap
         if fits:
             if ue > m_cap2:
-                cs, cb = self._tail_enter_local(sa, brow, active, m_cap)
-                cs, cb, isa, sa, lcp, d, tue = self._tail_loop(
-                    cs, cb, isa, sa, lcp, d, ue, m_cap2, max_iters)
-                cs, cb = self._tail_recompact_local(cs, cb, m_cap2)
+                cbufs = self._tail_enter_local(sa, brow, active, m_cap, extra)
+                cbufs, isa, sa, lcp, d, tue = self._tail_loop(
+                    cbufs, isa, sa, lcp, d, ue, m_cap2, max_iters)
+                cbufs = self._tail_recompact_local(cbufs, m_cap2)
             else:
-                cs, cb = self._tail_enter_local(sa, brow, active, m_cap2)
+                cbufs = self._tail_enter_local(sa, brow, active, m_cap2,
+                                               extra)
                 tue = ue
-            *_, isa, sa, lcp, d, ue = self._tail_loop(
-                cs, cb, isa, sa, lcp, d, tue, 0, max_iters)
+            _, isa, sa, lcp, d, ue = self._tail_loop(
+                cbufs, isa, sa, lcp, d, tue, 0, max_iters)
         return isa, sa, lcp, (ub, ue, fits)
 
 

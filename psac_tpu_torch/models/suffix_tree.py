@@ -10,6 +10,11 @@ reference's ``for_each_parent`` (``include/suffix_tree.hpp:44-223``) from
 one ANSV pass (FURTHEST_EQ left, NEAREST_SM right), then one character
 gather and one (row, slot) scatter into the (N * (sigma+1),) table.
 Padding rows (the first N - n) take LCP -1 and emit no edges.
+
+The generalized suffix tree of a string set (``construct_gst_device``,
+``build_gst``) has sigma+2 slots per node: slots 0-1 hold the (min, max)
+child-id range of the node's ``$``-edges, slot c+1 the char-c edge, and
+edges at root depth are not recorded.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from psac_tpu_torch.models.suffix_array import (DeviceSuffixArray,
 from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_SM
 from psac_tpu_torch.parallel.ansv import (KERNELS, AnsvKernels, ansv_local,
                                           nonsv_for)
-from psac_tpu_torch.parallel.collectives import halo_from_right
+from psac_tpu_torch.parallel.collectives import halo_from_right, prev_of
 from psac_tpu_torch.parallel.route import route_scatter
 
 
@@ -126,6 +131,68 @@ def _st_local(dsa: DeviceSuffixArray, xs,
     return DeviceSuffixTree(nodes=nodes, sigma=sigma, n=n, N=N)
 
 
+def _start_bits(eos, n: int) -> torch.Tensor:
+    """(N,) bool: position g < n is the first of its string.  Position n
+    and the padding beyond carry no bit (their eos is their own index, so
+    eos[n - 1] == n would otherwise read as a start)."""
+    g = torch.arange(eos.shape[0], dtype=eos.dtype, device=eos.device)
+    return (g < n) & ((g == 0) | (prev_of(eos, fill=0) == g))
+
+
+def _gst_local(dgsa, kernels: AnsvKernels) -> DeviceSuffixTree:
+    """Generalized suffix tree node table (reference ``construct_gst``,
+    ``include/suffix_tree.hpp:521-608``) with its ANSV functions given
+    (``parallel.ansv.PLAIN`` builds the plain reference tree)."""
+    if dgsa.lcp is None:
+        raise ValueError("GST construction requires the GLCP array")
+    n, N = dgsa.n, dgsa.N
+    sigma = dgsa.alphabet.sigma
+    idt = dgsa.sa.dtype
+    width = sigma + 2
+    _check_local_table(N, width, idt)
+    inf = torch.iinfo(idt).max
+    parents, childs, elcp, savals, valid = _parent_edges(dgsa.lcp, dgsa.sa, n,
+                                                         kernels)
+    # ``$``-edge test without an eos[SA[i]] gather: every recorded edge has
+    # depth elcp >= 1 and elcp <= eos[SA[i]] - SA[i], so SA[i] + elcp lies
+    # in (SA[i], eos[SA[i]]]: inside SA[i]'s own string unless it IS the
+    # string's end, and a string end below n is the next string's start.
+    # So ``$`` <=> SA[i] + elcp is a string start, or is n.  The start bit
+    # rides on the gathered text: one gather answers char and ``$`` test.
+    xz = dgsa.xs + (sigma + 1) * _start_bits(dgsa.eos, n).to(dgsa.xs.dtype)
+    char_idx = savals + elcp
+    dollar_end = char_idx >= n
+    valid_q = valid & (elcp != 0)  # root-depth edges are not recorded
+    chz = _gather_from(xz, char_idx, valid_q & ~dollar_end)
+    dollar = dollar_end | (chz > sigma)
+
+    # slot 0 accumulates a min: it starts at INF and goes back to 0 where
+    # no ``$``-edge landed
+    nodes = torch.zeros(N, width, dtype=idt, device=dgsa.sa.device)
+    nodes[:, 0] = inf
+    nodes = nodes.view(-1)
+    (nodes,) = route_scatter(parents, (childs,), (nodes,), valid_q & ~dollar,
+                             width=width, slots=chz + 1)
+    # many ``$``-edges may meet at one node, so they go through the reducing
+    # scatter, compacted by mask first (they are few beside the 2N rows)
+    at = torch.nonzero(valid_q & dollar).squeeze(1)
+    rows, kids = parents[at], childs[at]
+    every = torch.ones_like(rows, dtype=torch.bool)
+    for slot, how in ((0, "min"), (1, "max")):
+        (nodes,) = route_scatter(rows, (kids,), (nodes,), every, width=width,
+                                 slots=torch.full_like(rows, slot),
+                                 combine=(how,))
+    table = nodes.view(N, width)
+    table[:, 0] = torch.where(table[:, 0] == inf, 0, table[:, 0])
+    return DeviceSuffixTree(nodes=nodes, sigma=sigma + 1, n=n, N=N)
+
+
+def construct_gst_device(dgsa) -> DeviceSuffixTree:
+    """Generalized suffix tree from a device-resident GSA (+GLCP), a
+    ``models.gsa.DeviceGSA``."""
+    return _gst_local(dgsa, KERNELS)
+
+
 def build_suffix_tree(text, device=None, config=None) -> np.ndarray:
     """SA+LCP construction + suffix tree of ``text`` on ``device`` (None:
     the CUDA card; ``"cpu"`` runs the plain versions); returns the
@@ -134,3 +201,14 @@ def build_suffix_tree(text, device=None, config=None) -> np.ndarray:
     kw = {} if config is None else {"config": config}
     dsa = construct_device(xs, alpha, n, N, **kw)
     return construct_suffix_tree_device(dsa, xs).materialize()
+
+
+def build_gst(strings, device=None, config=None) -> np.ndarray:
+    """GSA construction + generalized suffix tree of a string set on
+    ``device`` (None: the CUDA card; ``"cpu"`` runs the plain versions);
+    returns the (n, sigma+2) int64 node table."""
+    from psac_tpu_torch.models.gsa import build_gsa_device
+
+    kw = {} if config is None else {"config": config}
+    return construct_gst_device(
+        build_gsa_device(strings, device, **kw)).materialize()

@@ -36,6 +36,10 @@ _SIGNATURES = {
     "psac_tansv_tile": [_P] * 8 + [_I64, _I32, _P],
     "psac_block_psv_i32": [_P] * 3 + [_I64, _I32, _P],
     "psac_block_psv_i64": [_P] * 3 + [_I64, _I32, _P],
+    "psac_rmq_resolve_i32": [_P] * 7 + [_I64, _I64, _I32, _I64, _I32, _I32,
+                                        _I64, _P],
+    "psac_rmq_resolve_i64": [_P] * 7 + [_I64, _I64, _I32, _I64, _I32, _I32,
+                                        _I64, _P],
 }
 
 _lib = None

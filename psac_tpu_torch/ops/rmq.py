@@ -6,6 +6,13 @@ A doubling table over fixed-size block minima answers the interior full
 blocks of a query; the two edge blocks are answered by masked reads of
 whole block rows.  At p = 1 the bulk query is this local query with INF
 where the query is not valid.
+
+K6, the LCP resolve (the chunk body of the JAX package's
+``_Builder._resolve_fused_local``), lives here too: ``rmq_resolve`` is a
+hand-written CUDA kernel (``psac_tpu_torch/csrc/rmq_resolve.cu``) with the
+JAX chunk loop in torch beside it as its plain version.  Given CPU tensors
+the wrapper runs the plain version; given CUDA tensors it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -13,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from psac_tpu_torch.ops import cuda_lib
 
 
 def block_size_for(s: int, cap: int = 128) -> int:
@@ -114,6 +123,117 @@ def bulk_rmq_local(rmq: LocalRMQ, l, r, valid):
     lo = torch.where(valid, l, 0).clamp(0, s - 1)
     hi = torch.where(valid, r, 0).clamp(0, s - 1)
     return torch.where(valid, query_local_rmq(rmq, lo, hi), inf)
+
+
+# ---------------------------------------------------------------------------
+# K6: the LCP resolve (decode, range minimum, write back)
+# ---------------------------------------------------------------------------
+
+#: how a resolve packs (row, j) into its sort key: ``narrow`` =
+#: ((wide ? s : 0) + row) * Lm + (j - 1), a class bit above the row so that
+#: ranges under 8 wide sort first; ``packed`` = row * Lm + (j - 1);
+#: ``rows`` = the row itself, j in a tensor of its own (or 1 throughout)
+PACKINGS = ("narrow", "packed", "rows")
+
+
+def rmq_resolve_plain(rmq: LocalRMQ, ks, ls, rs, js, d: int, *, Lm: int,
+                      packing: str, nq: int, n_narrow: int = 0,
+                      m_pad: int | None = None) -> torch.Tensor:
+    """Plain version of K6: the JAX chunk loop.
+
+    ``rmq`` is the table of the PRE-resolve LCP ``rmq.x`` (s,); ``ks``,
+    ``ls``, ``rs`` (and ``js`` for ``rows`` with Lm > 1, else None) are (m,)
+    query buffers in the LCP's dtype: key (INF = no query), inclusive range
+    [ls, rs].  For each valid query among the first ``nq`` slots the new
+    LCP takes ``j * d + min(LCP[ls..rs])`` at its row; every other row keeps
+    its value.  Returns the new (s,) LCP.
+
+    The queries are answered in chunks of ``m_pad`` (default: all slots at
+    once); the last chunk's start is clamped to m - m_pad (as
+    ``lax.dynamic_slice`` clamps), its repeated rows rewrite identical
+    values.  With ``narrow`` the valid keys are sorted, ranges under 8 wide
+    at [0, n_narrow) and the others at [n_narrow, nq): a chunk without a
+    wide one reads two 8-wide rows per query instead of the table."""
+    lcp = rmq.x
+    s = lcp.shape[0]
+    m = ks.shape[0]
+    m_pad = min(m_pad or m, m)
+    inf = _inf(lcp.dtype)
+    narrow = packing == "narrow"
+    lcp_pad = torch.cat([lcp, lcp.new_zeros(1)])
+    c = 0
+    while c * m_pad < nq:
+        off = min(c * m_pad, m - m_pad)
+        sl = slice(off, off + m_pad)
+        kq_c, l_c, r_c = ks[sl], ls[sl], rs[sl]
+        valid = kq_c != inf
+        if packing == "rows":
+            row_loc = torch.where(valid, kq_c, 0)
+            j_c = js[sl] if js is not None else torch.ones_like(kq_c)
+        else:
+            kdec = torch.where(valid, kq_c, 0)
+            if narrow:
+                kdec = torch.where(kdec >= s * Lm, kdec - s * Lm, kdec)
+            row_loc = (kdec // Lm).clamp(0, s - 1)
+            j_c = kdec - row_loc * Lm + 1
+        lo = torch.where(valid, l_c, 0).clamp(0, s - 1)
+        hi = torch.where(valid, torch.maximum(r_c, l_c), 0).clamp(0, s - 1)
+        has_wide = max(off, n_narrow) < min(off + m_pad, nq)
+        if narrow and not has_wide:
+            mins = edge_mins(lcp, 8, lo, hi)
+        else:
+            mins = query_local_rmq(rmq, lo, hi)
+        row = torch.where(valid, row_loc, s)
+        lcp_pad[row] = torch.where(valid, j_c * d + mins, 0)
+        c += 1
+    return lcp_pad[:s]
+
+
+def rmq_resolve(rmq: LocalRMQ, ks, ls, rs, js, d: int, *, Lm: int,
+                packing: str, nq: int, n_narrow: int = 0,
+                m_pad: int | None = None) -> torch.Tensor:
+    """K6 (replaces the chunk body of
+    ``psac_tpu/models/suffix_array.py::_Builder._resolve_fused_local``): see
+    ``rmq_resolve_plain`` for the contract.  The kernel takes all ``nq``
+    slots in one launch and picks the tier per query, so ``m_pad`` and
+    ``n_narrow`` steer the plain version only."""
+    lcp = rmq.x
+    if lcp.device.type == "cpu":
+        return rmq_resolve_plain(rmq, ks, ls, rs, js, d, Lm=Lm,
+                                 packing=packing, nq=nq, n_narrow=n_narrow,
+                                 m_pad=m_pad)
+    if lcp.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"rmq_resolve: expected int32 or int64, got "
+                         f"{lcp.dtype}")
+    if packing not in PACKINGS:
+        raise ValueError(f"rmq_resolve: unknown packing {packing!r}")
+    queries = (ks, ls, rs) + (() if js is None else (js,))
+    cuda_lib.check_cuda("rmq_resolve", lcp.dtype, *queries)
+    cuda_lib.check_cuda("rmq_resolve", lcp.dtype, lcp)
+    table = rmq.table
+    s, block = lcp.shape[0], rmq.block
+    if ks.device != lcp.device:
+        raise ValueError("rmq_resolve: expected CUDA tensors on one device")
+    if table.dtype != lcp.dtype or table.device != lcp.device or \
+            not table.is_contiguous() or table.shape[1] * block != s:
+        raise ValueError("rmq_resolve: the table is not this LCP's")
+    if block & (block - 1):
+        raise ValueError(f"rmq_resolve: block {block} is not a power of two")
+    if not 0 <= nq <= ks.shape[0] or Lm < 1:
+        raise ValueError(f"rmq_resolve: nq {nq} of {ks.shape[0]}, Lm {Lm}")
+    out = lcp.clone()
+    name = "psac_rmq_resolve_i32" if lcp.dtype == torch.int32 else \
+        "psac_rmq_resolve_i64"
+    cuda_lib.launch(name, lcp.data_ptr(), table.data_ptr(), ks.data_ptr(),
+                    ls.data_ptr(), rs.data_ptr(),
+                    None if js is None else js.data_ptr(), out.data_ptr(),
+                    s, table.shape[1], block, nq, Lm,
+                    PACKINGS.index(packing), d)
+    rmq_resolve.launches += 1
+    return out
+
+
+rmq_resolve.launches = 0
 
 
 # ---------------------------------------------------------------------------

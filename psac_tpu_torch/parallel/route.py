@@ -3,8 +3,9 @@
 
 With one shard every record is already at its owner: ``route_apply`` is a
 local call of the answer function, and ``route_scatter`` is an indexed
-write in which invalid records land on one extra drop slot (JAX drops
-out-of-range scatter indices; torch raises, hence the explicit slot).
+write (or, with ``combine``, a reducing scatter) in which invalid records
+land on one extra drop slot (JAX drops out-of-range scatter indices; torch
+raises, hence the explicit slot).
 """
 
 from __future__ import annotations
@@ -22,18 +23,33 @@ def route_apply(payloads: tuple, answer_fn, skip=None) -> tuple:
     return answer_fn(tuple(payloads), valid)
 
 
+_REDUCE = {"min": "amin", "max": "amax"}
+
+
 def route_scatter(dest_idx, values: tuple, targets: tuple, valid,
-                  width: int = 1, slots=None) -> tuple:
+                  width: int = 1, slots=None,
+                  combine: tuple | None = None) -> tuple:
     """targets[k][dest_idx[j] * width + slots[j]] = values[k][j] where
-    ``valid``; returns new target tensors (inputs are left untouched)."""
+    ``valid``; returns new target tensors (inputs are left untouched).
+
+    ``combine`` selects per target how records that meet in one place are
+    merged, with each other and with the value already there: ``"set"``
+    (the default; the places must then be distinct, since an indexed write
+    with repeated indices is unordered on CUDA), ``"min"`` or ``"max"``
+    (a reducing scatter: the GST's ``$``-edge child ranges)."""
     tgt_len = targets[0].shape[0]
     loc = dest_idx.to(torch.int64)
     if width > 1:
         loc = loc * width + slots.to(torch.int64)
     loc = torch.where(valid, loc, tgt_len)
     outs = []
-    for tgt, v in zip(targets, values):
+    for tgt, v, how in zip(targets, values,
+                           combine or ("set",) * len(targets)):
         padded = torch.cat([tgt, tgt.new_zeros(1)])
-        padded[loc] = v.to(tgt.dtype)
+        if how == "set":
+            padded[loc] = v.to(tgt.dtype)
+        else:
+            padded.scatter_reduce_(0, loc, v.to(tgt.dtype), _REDUCE[how],
+                                   include_self=True)
         outs.append(padded[:tgt_len])
     return tuple(outs)

@@ -11,9 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from psac_tpu_torch.ops import bansv, nsv_scan, tansv
+from psac_tpu_torch.ops import bansv, nsv_scan, rmq, tansv
 from psac_tpu_torch.ops.ansv import (FURTHEST_EQ, NEAREST_EQ, NEAREST_SM,
                                      ansv_seq)
+from psac_tpu_torch.verify import cases
 
 pytestmark = pytest.mark.cuda
 
@@ -305,3 +306,108 @@ def test_build_entry_points_default_to_the_card(cuda):
     assert (tansv.tile_side.launches,
             nsv_scan.nsv_scan_spine.launches) == (before[0] + 2,
                                                   before[1] + 1)
+
+
+# ---------------------------------------------------------------------------
+# K6 (the LCP resolve) and the generalized suffix array / tree
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("L", [2, 4])
+@pytest.mark.parametrize("s", [8 * 37, 32 * 9, 128 * 5, 8 * 4099, 128 * 257,
+                               1 << 18])
+def test_rmq_resolve_kernel_vs_plain(cuda, s, L, dtype):
+    """K6 against its plain version and a direct computation, for every
+    key packing, at blocks 8, 32 and 128."""
+    from psac_tpu_torch.models.suffix_array import _Builder
+
+    block = rmq.block_size_for(s)
+    lcp = cases.resolve_lcp(s, seed=s)
+    rows, lo, hi, j = cases.resolve_queries(s, s // 2, block, L, seed=s + L)
+    inf = torch.iinfo(dtype).max
+    q = {k: torch.from_numpy(v).to(cuda).to(dtype) for k, v in
+         cases.resolve_query_arrays(s, rows, lo, hi, j, inf).items()}
+    b = _Builder(s, (4, 4), 3, True, dtype, cuda)
+    r = rmq.build_local_rmq(torch.from_numpy(lcp).to(cuda).to(dtype))
+    assert r.block == block
+    d = 7
+    want = cases.resolve_expected(lcp, rows, lo, hi, j, d)
+    for packing in rmq.PACKINGS:
+        ks, ls, rs, js, Lm, _ = b._pack_queries(q, L, packing)
+        kw = dict(Lm=Lm, packing=packing, nq=len(rows))
+        before = rmq.rmq_resolve.launches
+        got = rmq.rmq_resolve(r, ks, ls, rs, js, d, **kw)
+        assert rmq.rmq_resolve.launches == before + 1
+        assert got.dtype == dtype
+        plain = rmq.rmq_resolve_plain(r, ks, ls, rs, js, d, **kw, m_pad=64,
+                                      n_narrow=int((hi - lo < 8).sum()))
+        _same((got,), (plain,))
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    # the tail's unsorted buffer, through the builder
+    m = 256
+    slots = np.sort(np.random.RandomState(s).permutation(m)[:m // 2])
+    buf = np.stack([np.full(m, inf), np.full(m, -3), np.full(m, 2 * s)])
+    buf[:, slots] = np.stack([rows[:m // 2], lo[:m // 2], hi[:m // 2]])
+    kq, lq, rq = (torch.from_numpy(a).to(cuda).to(dtype) for a in buf)
+    got = b._resolve_local(r.x, kq, lq, rq, d)
+    _same((got,), (rmq.rmq_resolve_plain(r, kq, lq, rq, None, d, Lm=1,
+                                         packing="rows", nq=m),))
+
+
+def test_rmq_resolve_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(256, dtype=torch.int32, device=cuda)
+    r = rmq.build_local_rmq(x)
+    kw = dict(Lm=1, packing="rows", nq=4)
+    with pytest.raises(ValueError):
+        rmq.rmq_resolve(r, x.to(torch.int64), x, x, None, 1, **kw)
+    with pytest.raises(ValueError):
+        rmq.rmq_resolve(r, x.cpu(), x, x, None, 1, **kw)
+    with pytest.raises(ValueError):
+        rmq.rmq_resolve(r, x, x, x, None, 1, Lm=1, packing="wide", nq=4)
+    with pytest.raises(ValueError):
+        rmq.rmq_resolve(r, x, x, x, None, 1, Lm=1, packing="rows", nq=257)
+    with pytest.raises(ValueError):
+        rmq.rmq_resolve(rmq.build_local_rmq(x.to(torch.int16)), x, x, x,
+                        None, 1, **kw)
+
+
+@pytest.mark.parametrize("force_int64", [False, True])
+@pytest.mark.parametrize("kind", ["family", "random", "duplicates"])
+def test_gsa_and_gst_default_to_the_card(cuda, kind, force_int64):
+    """``build_gsa`` / ``build_gst`` with no device run on the card (K6 in
+    the family's dense steps, the ANSV kernels in the tree) and equal the
+    CPU path."""
+    from psac_tpu_torch import SAConfig, build_gsa, build_gst
+    from psac_tpu_torch.models.gsa import build_gsa_device
+    from psac_tpu_torch.ops.alphabet import rand_dna
+
+    parts = {"family": cases.near_identical_family(16, 4096, 4, seed=2),
+             "random": [rand_dna(300 + 17 * i, seed=i) for i in range(40)],
+             "duplicates": [b"banana"] * 5 + [b"ban", b"anana"]}[kind]
+    cfg = SAConfig(force_int64=force_int64)
+    before = (rmq.rmq_resolve.launches, tansv.tile_side.launches)
+    got = build_gsa(parts, config=cfg)
+    assert rmq.rmq_resolve.launches > before[0] or kind == "duplicates"
+    want = build_gsa(parts, "cpu", cfg)
+    np.testing.assert_array_equal(got.sa, want.sa)
+    np.testing.assert_array_equal(got.lcp, want.lcp)
+    dg = build_gsa_device(parts, config=cfg)
+    assert dg.sa.is_cuda and dg.eos.is_cuda and dg.xs.is_cuda
+    assert dg.sa.dtype == (torch.int64 if force_int64 else torch.int32)
+    tree = build_gst(parts, config=cfg)
+    assert tansv.tile_side.launches == before[1] + 2
+    np.testing.assert_array_equal(tree, build_gst(parts, "cpu", cfg))
+
+
+def test_suffix_array_int64_on_gpu(cuda):
+    """The int64 build runs K6's int64 launcher in its dense steps."""
+    from psac_tpu_torch import SAConfig, build_suffix_array, native
+    from psac_tpu_torch.ops.alphabet import rep_dna
+
+    text = rep_dna(1 << 16, unit_len=1024, seed=7, mutations=64)
+    before = rmq.rmq_resolve.launches
+    res = build_suffix_array(text, config=SAConfig(force_int64=True))
+    assert rmq.rmq_resolve.launches > before
+    sa = native.suffix_array(text)
+    np.testing.assert_array_equal(res.sa, sa)
+    np.testing.assert_array_equal(res.lcp, native.lcp_array(text, sa))

@@ -22,10 +22,29 @@ print(len(mods))
 """
 
 
-@pytest.mark.parametrize("entry", ["package", "every_module"])
+_GSA_CHECK = r"""
+import os, shutil, sys
+assert shutil.which("nvcc") is None or os.environ.get("PSAC_ALLOW_NVCC")
+import psac_tpu_torch
+from psac_tpu_torch import build_gsa, build_gst, DeviceGSA
+from psac_tpu_torch.models import gsa
+from psac_tpu_torch.ops import cuda_lib, rmq
+from psac_tpu_torch.verify import gsa_oracle
+assert rmq.rmq_resolve.launches == 0 and cuda_lib._lib is None
+assert {"psac_rmq_resolve_i32", "psac_rmq_resolve_i64"} <= set(
+    cuda_lib._SIGNATURES)
+assert os.path.exists(os.path.join(cuda_lib.CSRC_DIR, "rmq_resolve.cu"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "psac_tpu", "triton"))
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("entry", ["package", "every_module", "gsa_modules"])
 def test_imports_without_jax(entry):
-    code = "import psac_tpu_torch, sys\nassert 'jax' not in sys.modules" \
-        if entry == "package" else _CHECK
+    code = {"package": "import psac_tpu_torch, sys\n"
+                       "assert 'jax' not in sys.modules",
+            "every_module": _CHECK, "gsa_modules": _GSA_CHECK}[entry]
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
