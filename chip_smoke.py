@@ -326,38 +326,32 @@ def check_k3_k5(dev, lcp_adj, log2n: int, ansv_log2n: int, kern: dict):
 
 
 def k6_bound(rmq, ks, ls, rs, js, nq: int) -> dict:
-    """K6's bound from this resolve's data: the bytes it must move at
-    32-byte sector granularity.  Per valid query its three or four query
-    words, the sectors of the LCP under its range (under 8 wide) or under
-    the parts of the range in its two edge blocks (wider), two table words
-    where whole blocks lie between (a sector each), and one written word (a
-    sector); plus one copy of the LCP (read and written).  One comparison
-    per LCP or table word read."""
+    """K6's bound from this resolve's data, each input read once and each
+    output written once: the LCP read and its resolved copy written (the
+    queries' ranges and rows lie inside them), three or four query words
+    per valid query, and two table words per query with whole blocks
+    between its edge blocks, the table once at most.  One comparison per
+    LCP or table word a query reads."""
     import torch
 
     lcp = rmq.x
     s, block, isz = lcp.shape[0], rmq.block, lcp.element_size()
     valid = ks[:nq] != torch.iinfo(lcp.dtype).max
-    lo = ls[:nq].to(torch.int64).clamp(0, s - 1)
-    hi = torch.maximum(rs[:nq], ls[:nq]).to(torch.int64).clamp(0, s - 1)
-
-    def sectors(a, b):  # 32-byte sectors under elements a..b
-        return (b * isz >> 5) - (a * isz >> 5) + 1
-
+    lo = ls[:nq].to(torch.int64).clamp(0, s - 1)[valid]
+    hi = torch.maximum(rs[:nq], ls[:nq]).to(torch.int64).clamp(0, s - 1)[valid]
     bl, bh = lo // block, hi // block
     narrow = hi - lo < 8
     cross = bl != bh
+    between = bh - bl > 1
     lend = torch.where(cross, (bl + 1) * block - 1, hi)
-    wide_sec = sectors(lo, lend) + torch.where(
-        cross, sectors(bh * block, hi), 0) + torch.where(bh - bl > 1, 2, 0)
     wide_words = lend - lo + 1 + torch.where(
-        cross, hi - bh * block + 1, 0) + torch.where(bh - bl > 1, 2, 0)
-    sec = torch.where(narrow, sectors(lo, hi), wide_sec)
+        cross, hi - bh * block + 1, 0) + 2 * between
     words = torch.where(narrow, hi - lo + 1, wide_words)
     nv = int(valid.sum())
-    nbytes = 2 * s * isz + nv * (3 + (js is not None)) * isz + 32 * nv + \
-        32 * int(sec[valid].sum())
-    return bound(nbytes, int(words[valid].sum()))
+    table_words = min(2 * int((between & ~narrow).sum()), rmq.table.numel())
+    nbytes = (2 * s + nv * (3 + (js is not None)) + table_words) * isz
+    return dict(bound(nbytes, int(words.sum())),
+                n_narrow=int(narrow.sum()))
 
 
 def resolve_spy(resolve):
@@ -409,13 +403,11 @@ def check_k6(dev, rep_text: bytes, rep_lcp: np.ndarray, log2n: int,
         q = {k: torch.from_numpy(v).to(dev).to(dt) for k, v in
              resolve_query_arrays(s, rows, lo, hi, j,
                                   torch.iinfo(dt).max).items()}
-        n_narrow = int((hi - lo < 8).sum())
         for packing in PACKINGS:
             ks, ls, rs, js, Lm, _ = b._pack_queries(q, L, packing)
             kw = dict(Lm=Lm, packing=packing, nq=m)
             got = rmq_resolve(rmq, ks, ls, rs, js, d, **kw)
             want = rmq_resolve_plain(rmq, ks, ls, rs, js, d, **kw,
-                                     n_narrow=n_narrow,
                                      m_pad=max(8, s // 32))
             errs.append(max_abs_err((got,), (want,)))
         return rmq.block
@@ -467,18 +459,20 @@ def check_k6(dev, rep_text: bytes, rep_lcp: np.ndarray, log2n: int,
     errs.append(max_abs_err((rmq_resolve(*args, **kw),),
                             (rmq_resolve_plain(*args, **kw),)))
     rmq, ks, ls, rs, js, d = args
+    k6 = k6_bound(rmq, ks, ls, rs, js, kw["nq"])
+    n_narrow = k6.pop("n_narrow")
     kern["rmq_resolve"] = dict(
         route="cuda", source="psac_tpu_torch/csrc/rmq_resolve.cu",
         replaces="psac_tpu/models/suffix_array.py:463-526",
         max_abs_err=max(errs),
         ms=cuda_ms(lambda: rmq_resolve(*args, **kw), 10),
         plain_ms=cuda_ms(lambda: rmq_resolve_plain(*args, **kw), 1),
-        **k6_bound(rmq, ks, ls, rs, js, kw["nq"]),
+        **k6,
         shape=dict(rows=rmq.x.shape[0], nq=kw["nq"],
-                   n_narrow=kw["n_narrow"], packing=kw["packing"],
+                   n_narrow=n_narrow, packing=kw["packing"],
                    Lm=kw["Lm"], d=d, block=rmq.block))
     log(f"[kernel] K6 timed at the largest resolve of the 2^{log2n} rep_dna "
-        f"build: {kw['nq']} queries ({kw['n_narrow']} under 8 wide) of "
+        f"build: {kw['nq']} queries ({n_narrow} under 8 wide) of "
         f"{rmq.x.shape[0]} rows, packing {kw['packing']}, L - 1 = "
         f"{kw['Lm']}, d = {d}; the build's resolves: {steps}; on {card}")
 
@@ -502,15 +496,13 @@ def check_k6(dev, rep_text: bytes, rep_lcp: np.ndarray, log2n: int,
         + f" on {card}")
 
 
-def gsa_phase(label: str, strings: list, want_k6: bool, card: str,
-              tail_stages: int = 0) -> dict:
+def gsa_phase(label: str, strings: list, want_k6: bool, card: str) -> dict:
     """GSA + GLCP (``build_gsa_device``) and GST (``construct_gst_device``)
     of a string set on the card, no device given; first and second run by
     the host clock around synchronized calls, peak memory, launches per
     kernel.  The GSA + GLCP is held against the native host oracle, the GST
     against the plain path on the card.  With ``want_k6`` the build must
-    launch K6 and is repeated with the plain resolve in K6's place, its
-    tail then showing at least ``tail_stages`` buffer capacities."""
+    launch K6 and is repeated with the plain resolve in K6's place."""
     import torch
 
     from psac_tpu_torch.models.gsa import _flatten, build_gsa_device
@@ -588,9 +580,6 @@ def gsa_phase(label: str, strings: list, want_k6: bool, card: str,
             f"place {out['gsa_plain_resolve_s']:.3f} s (with K6 "
             f"{out['gsa_second_s']:.3f} s); resolves: "
             f"{resolve_steps(calls)}; on {card}")
-        if len({c[0] for c in calls if c[0] != c[1]}) < tail_stages:
-            raise AssertionError(f"the GSA of {label} ran fewer than "
-                                 f"{tail_stages} tail stages")
         del calls
     n = len(flat)
     log(f"[gsa] {label} ({len(lens)} strings, {n} characters): GSA + GLCP == "
@@ -638,6 +627,52 @@ def small_gsa_sets(card: str) -> None:
             raise AssertionError(f"GST of {name} differs from gst_oracle")
     log(f"[small] GSA == sorting oracle and GST == gst_oracle for "
         f"{', '.join(sets)} on {card}")
+
+
+def tail_stages_check(card: str) -> None:
+    """The eos-aware two-stage tail on the card, for correctness only: a
+    small set whose tied pairs leave the dense loop one after another, so
+    that a GSA build runs dense steps, the big tail stage, the recompaction
+    and the small stage, K6 in each step.  Held against the native host
+    oracle; the GST against the plain path."""
+    import torch
+    from unittest import mock
+
+    from psac_tpu_torch.models import suffix_array as sa_mod
+    from psac_tpu_torch.models.gsa import _flatten, build_gsa_device
+    from psac_tpu_torch.models.suffix_tree import (_gst_local,
+                                                   construct_gst_device)
+    from psac_tpu_torch.ops.rmq import rmq_resolve
+    from psac_tpu_torch.parallel.ansv import PLAIN
+    from psac_tpu_torch.verify.cases import twin_prefix_set
+    from psac_tpu_torch.verify.gsa_oracle import gsa_oracle_native
+
+    parts = twin_prefix_set()
+    spy, calls = resolve_spy(rmq_resolve)
+    before = rmq_resolve.launches
+    with mock.patch.object(sa_mod, "rmq_resolve", spy):
+        dgsa = build_gsa_device(parts)
+    tails = {c[0] for c in calls if c[0] != c[1]}
+    if len(tails) < 2 or len(tails) == len(calls):
+        raise AssertionError("the twin-prefix set's GSA ran resolves "
+                             f"{resolve_steps(calls)}: no dense step, or "
+                             "fewer than two tail stages")
+    if rmq_resolve.launches - before != sum(c[2] > 0 for c in calls):
+        raise AssertionError("K6's launch count differs from its calls "
+                             "with a query slot")
+    want_sa, want_lcp = gsa_oracle_native(*_flatten(parts))
+    res = dgsa.materialize()
+    if not (np.array_equal(res.sa, want_sa)
+            and np.array_equal(res.lcp, want_lcp)):
+        raise AssertionError("GSA + GLCP of the twin-prefix set differ from "
+                             "the host oracle")
+    if not torch.equal(construct_gst_device(dgsa).nodes,
+                       _gst_local(dgsa, PLAIN).nodes):
+        raise AssertionError("GST of the twin-prefix set differs from the "
+                             "plain path")
+    log(f"[small] twin-prefix set ({len(parts)} strings, {len(want_sa)} "
+        f"characters): GSA + GLCP == host oracle through resolves "
+        f"{resolve_steps(calls)}; GST == plain path; on {card}")
 
 
 def rep_tree_phase(dev, rep_text: bytes, log2n: int, overflows: bool,
@@ -1159,27 +1194,18 @@ def main() -> int:
 
     # ---- 9. generalized suffix array and tree (counted) -------------------
     small_gsa_sets(card)
+    tail_stages_check(card)
     whole = rand_dna(1 << args.gsa_log2n, seed=43)
     gsa_rand = gsa_phase(
         f"2^{args.gsa_log2n} random DNA in 4 KiB strings",
         [whole[i:i + 4096] for i in range(0, len(whole), 4096)], False, card)
     del whole
-    # 64 copies with about 0.1% substitutions each, which separate within
-    # some 20,000 characters.  In strings much longer than that the last
-    # copy differs from the base in two places only: just past a doubling
-    # distance (a step at distance d settles ties shorter than 2d), so that
-    # its ties outlast the dense loop, fill the big tail stage for several
-    # steps and then fit the small one; and in its last character, so that
-    # the suffixes behind the first place do not tie to the very end
+    # one seeded base and 63 copies with about 0.1% substitutions each
     fam_len = (1 << args.fam_log2n) // 64
-    reach = 40 << max(0, int(0.7 * fam_len / 40).bit_length() - 1)
-    twin = (reach + fam_len // 128, fam_len - 1) \
-        if fam_len >= (1 << 17) else ()
     gsa_fam = gsa_phase(
         f"2^{args.fam_log2n} near-identical family",
-        near_identical_family(64, fam_len, max(1, fam_len // 1000),
-                              twin_subs=twin),
-        True, card, tail_stages=2 if twin else 0)
+        near_identical_family(64, fam_len, max(1, fam_len // 1000)),
+        True, card)
 
     # ---- 10. results ------------------------------------------------------
     log(f"[result] SA+LCP 2^{args.log2n} DNA {t_sa:.3f} s "

@@ -36,7 +36,9 @@ class SAConfig:
     ``SAConfig`` for the meaning of each field).  ``tail_threshold_frac``
     and ``tail_capacity_mult`` steer only the JAX package's host-driven
     loop and have no effect here; they are kept so configurations convert
-    one to one."""
+    one to one.  ``resolve_div`` sizes the chunks of the LCP resolve's plain
+    version, which CPU builds run; on the card one kernel launch takes the
+    whole resolve."""
 
     construct_lcp: bool = True
     construct_lc: bool = False

@@ -240,15 +240,16 @@ class _Builder:
         return key2[perm], lq[perm], rq[perm], js, Lm, packing
 
     def _resolve_fused_local(self, lcp, q, d: int, *, m_pad: int, L: int,
-                             nq: int, n_narrow: int,
-                             packing: str | None = None):
+                             nq: int):
         """Hand the step's compacted queries to K6, which answers every one
-        against the PRE-resolve LCP and writes ``j*d + min`` at its row."""
-        ks, ls, rs, js, Lm, packing = self._pack_queries(q, L, packing)
+        against the PRE-resolve LCP and writes ``j*d + min`` at its row
+        (``m_pad``: the chunk of K6's plain version, which CPU tensors
+        take)."""
+        ks, ls, rs, js, Lm, packing = self._pack_queries(q, L)
         # any real answer has j*d <= N
         return rmq_resolve(build_local_rmq(lcp), ks, ls, rs, js,
                            min(d, self.N), Lm=Lm, packing=packing, nq=nq,
-                           n_narrow=n_narrow, m_pad=m_pad)
+                           m_pad=m_pad)
 
     def _resolve_local(self, lcp, kq, lq, rq, d: int):
         """K6 on the tail's unsorted (m,) buffer: keys are rows (INF = no
@@ -351,16 +352,13 @@ class _Builder:
     # ---------------- fused construction ----------------
 
     def _dense_resolve(self, lcp, q, counts, d: int, *, m_pad: int, L: int):
-        """Read the step's counters back (with the query counts the resolve
+        """Read the step's counters back (with the query count the resolve
         needs, in the same readback) and resolve the LCP queries.  Returns
         (lcp, ub, ue)."""
         if not self.with_lcp:
             return (None, *_read(*counts))
-        isq = q["qkey"] != self.INF
-        ub, ue, nq, n_narrow = _read(
-            *counts, isq.sum(), (isq & (q["rq"] - q["lq"] < 8)).sum())
-        lcp = self._resolve_fused_local(lcp, q, d, m_pad=m_pad, L=L, nq=nq,
-                                        n_narrow=n_narrow)
+        ub, ue, nq = _read(*counts, (q["qkey"] != self.INF).sum())
+        lcp = self._resolve_fused_local(lcp, q, d, m_pad=m_pad, L=L, nq=nq)
         return lcp, ub, ue
 
     def fused_full(self, codes, n_real: int, *, m_cap: int, m_cap2: int,

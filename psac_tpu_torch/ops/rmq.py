@@ -1,11 +1,10 @@
 """In-device range-minimum queries (port of ``psac_tpu/ops/rmq.py``: the
 ``with_small=False`` mode of ``LocalRMQ`` and the leftmost-argmin
-``ArgLocalRMQ``, plus ``parallel/par_rmq.py::bulk_rmq_local`` at p = 1).
+``ArgLocalRMQ``).
 
 A doubling table over fixed-size block minima answers the interior full
 blocks of a query; the two edge blocks are answered by masked reads of
-whole block rows.  At p = 1 the bulk query is this local query with INF
-where the query is not valid.
+whole block rows.
 
 K6, the LCP resolve (the chunk body of the JAX package's
 ``_Builder._resolve_fused_local``), lives here too: ``rmq_resolve`` is a
@@ -115,16 +114,6 @@ def edge_mins(x: torch.Tensor, block: int, lo: torch.Tensor,
         torch.where(rmask, xb[bh], inf).amin(dim=1))
 
 
-def bulk_rmq_local(rmq: LocalRMQ, l, r, valid):
-    """Min over [l, r] where ``valid`` (INF elsewhere); p = 1 form of the
-    JAX package's distributed bulk RMQ."""
-    s = rmq.x.shape[0]
-    inf = _inf(rmq.x.dtype)
-    lo = torch.where(valid, l, 0).clamp(0, s - 1)
-    hi = torch.where(valid, r, 0).clamp(0, s - 1)
-    return torch.where(valid, query_local_rmq(rmq, lo, hi), inf)
-
-
 # ---------------------------------------------------------------------------
 # K6: the LCP resolve (decode, range minimum, write back)
 # ---------------------------------------------------------------------------
@@ -137,7 +126,7 @@ PACKINGS = ("narrow", "packed", "rows")
 
 
 def rmq_resolve_plain(rmq: LocalRMQ, ks, ls, rs, js, d: int, *, Lm: int,
-                      packing: str, nq: int, n_narrow: int = 0,
+                      packing: str, nq: int,
                       m_pad: int | None = None) -> torch.Tensor:
     """Plain version of K6: the JAX chunk loop.
 
@@ -152,14 +141,15 @@ def rmq_resolve_plain(rmq: LocalRMQ, ks, ls, rs, js, d: int, *, Lm: int,
     once); the last chunk's start is clamped to m - m_pad (as
     ``lax.dynamic_slice`` clamps), its repeated rows rewrite identical
     values.  With ``narrow`` the valid keys are sorted, ranges under 8 wide
-    at [0, n_narrow) and the others at [n_narrow, nq): a chunk without a
-    wide one reads two 8-wide rows per query instead of the table."""
+    (keys below s * Lm) before the others: a chunk without a wide one reads
+    two 8-wide rows per query instead of the table."""
     lcp = rmq.x
     s = lcp.shape[0]
     m = ks.shape[0]
     m_pad = min(m_pad or m, m)
     inf = _inf(lcp.dtype)
     narrow = packing == "narrow"
+    n_narrow = int((ks[:nq] < s * Lm).sum()) if narrow else 0
     lcp_pad = torch.cat([lcp, lcp.new_zeros(1)])
     c = 0
     while c * m_pad < nq:
@@ -190,18 +180,18 @@ def rmq_resolve_plain(rmq: LocalRMQ, ks, ls, rs, js, d: int, *, Lm: int,
 
 
 def rmq_resolve(rmq: LocalRMQ, ks, ls, rs, js, d: int, *, Lm: int,
-                packing: str, nq: int, n_narrow: int = 0,
+                packing: str, nq: int,
                 m_pad: int | None = None) -> torch.Tensor:
     """K6 (replaces the chunk body of
     ``psac_tpu/models/suffix_array.py::_Builder._resolve_fused_local``): see
     ``rmq_resolve_plain`` for the contract.  The kernel takes all ``nq``
-    slots in one launch and picks the tier per query, so ``m_pad`` and
-    ``n_narrow`` steer the plain version only."""
+    slots in one launch and picks the tier per query; ``m_pad`` is read
+    for CPU tensors only, as the plain version's chunk.  ``launches`` counts
+    the kernel's launches: a resolve without a slot launches nothing."""
     lcp = rmq.x
     if lcp.device.type == "cpu":
         return rmq_resolve_plain(rmq, ks, ls, rs, js, d, Lm=Lm,
-                                 packing=packing, nq=nq, n_narrow=n_narrow,
-                                 m_pad=m_pad)
+                                 packing=packing, nq=nq, m_pad=m_pad)
     if lcp.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"rmq_resolve: expected int32 or int64, got "
                          f"{lcp.dtype}")
@@ -222,6 +212,8 @@ def rmq_resolve(rmq: LocalRMQ, ks, ls, rs, js, d: int, *, Lm: int,
     if not 0 <= nq <= ks.shape[0] or Lm < 1:
         raise ValueError(f"rmq_resolve: nq {nq} of {ks.shape[0]}, Lm {Lm}")
     out = lcp.clone()
+    if nq == 0:
+        return out
     name = "psac_rmq_resolve_i32" if lcp.dtype == torch.int32 else \
         "psac_rmq_resolve_i64"
     cuda_lib.launch(name, lcp.data_ptr(), table.data_ptr(), ks.data_ptr(),

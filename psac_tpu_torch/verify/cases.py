@@ -9,16 +9,13 @@ import numpy as np
 from psac_tpu_torch.ops.alphabet import rand_dna
 
 
-def near_identical_family(count: int, length: int, subs: int, seed: int = 7,
-                          twin_subs: tuple = ()) -> list[bytes]:
+def near_identical_family(count: int, length: int, subs: int,
+                          seed: int = 7) -> list[bytes]:
     """One seeded random DNA sequence and ``count - 1`` copies with ``subs``
     seeded point substitutions each: a collection of near-identical
     genomes.  Nearly every suffix stays active after the k-mer init, so a
     GSA build runs its dense eos-masked loop, K6 in every step, and the
-    tie-fix.  With ``twin_subs`` the last copy differs from the base at
-    those positions only: its suffixes tie with the base's up to the next
-    such position, long after the other copies have separated, which keeps
-    the sparse tail busy for several steps."""
+    tie-fix."""
     base = np.frombuffer(rand_dna(length, seed=seed), np.uint8)
     rng = np.random.RandomState(seed)
     dna = np.frombuffer(b"ACGT", np.uint8)
@@ -27,11 +24,21 @@ def near_identical_family(count: int, length: int, subs: int, seed: int = 7,
         a = base.copy()
         a[rng.randint(0, length, subs)] = dna[rng.randint(0, 4, subs)]
         out.append(a.tobytes())
-    if twin_subs:
-        at = np.asarray(twin_subs)
-        a = base.copy()
-        a[at] = dna[(np.searchsorted(dna, a[at]) + 1) % 4]
-        out[-1] = a.tobytes()
+    return out
+
+
+def twin_prefix_set(prefixes=(700, 300, 150, 90),
+                    seed: int = 1) -> list[bytes]:
+    """Fourteen random 4 KiB strings (unique after the k-mer init) and, for
+    each P, two strings that share their first P characters: the active
+    count then falls step by step (2 * (P - c) suffixes of a pair still tie
+    after c characters), through the dense loop and both tail stages of a
+    GSA build."""
+    out = [rand_dna(4096, seed=seed + i) for i in range(14)]
+    for i, p in enumerate(prefixes):
+        base = rand_dna(p, seed=seed + 100 + i)
+        out += [base + b"A" + rand_dna(20, seed=seed + 200 + i),
+                base + b"C" + rand_dna(20, seed=seed + 300 + i)]
     return out
 
 

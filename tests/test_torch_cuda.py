@@ -339,8 +339,7 @@ def test_rmq_resolve_kernel_vs_plain(cuda, s, L, dtype):
         got = rmq.rmq_resolve(r, ks, ls, rs, js, d, **kw)
         assert rmq.rmq_resolve.launches == before + 1
         assert got.dtype == dtype
-        plain = rmq.rmq_resolve_plain(r, ks, ls, rs, js, d, **kw, m_pad=64,
-                                      n_narrow=int((hi - lo < 8).sum()))
+        plain = rmq.rmq_resolve_plain(r, ks, ls, rs, js, d, **kw, m_pad=64)
         _same((got,), (plain,))
         np.testing.assert_array_equal(got.cpu().numpy(), want)
     # the tail's unsorted buffer, through the builder
@@ -352,6 +351,23 @@ def test_rmq_resolve_kernel_vs_plain(cuda, s, L, dtype):
     got = b._resolve_local(r.x, kq, lq, rq, d)
     _same((got,), (rmq.rmq_resolve_plain(r, kq, lq, rq, None, d, Lm=1,
                                          packing="rows", nq=m),))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_rmq_resolve_without_a_query_launches_nothing(cuda, dtype):
+    """A dense step without a query case: the LCP comes back as a copy and
+    the launch count stays as it was."""
+    x = torch.arange(256, dtype=dtype, device=cuda)
+    r = rmq.build_local_rmq(x)
+    inf = torch.full_like(x, torch.iinfo(dtype).max)
+    before = rmq.rmq_resolve.launches
+    out = rmq.rmq_resolve(r, inf, x, x, None, 5, Lm=1, packing="narrow", nq=0)
+    assert rmq.rmq_resolve.launches == before
+    assert torch.equal(out, x) and out.data_ptr() != x.data_ptr()
+    # one slot more and it launches (all keys INF: nothing is written)
+    out = rmq.rmq_resolve(r, inf, x, x, None, 5, Lm=1, packing="rows", nq=1)
+    assert rmq.rmq_resolve.launches == before + 1
+    assert torch.equal(out, x)
 
 
 def test_rmq_resolve_rejects_what_the_kernel_does_not_take(cuda):

@@ -17,6 +17,7 @@ from psac_tpu_torch.ops.oracle import lcp_kasai, suffix_array_np
 from psac_tpu_torch.parallel.ansv import PLAIN
 from psac_tpu_torch.parallel.route import route_scatter
 from psac_tpu_torch.verify.cases import near_identical_family as family
+from psac_tpu_torch.verify.cases import twin_prefix_set
 from psac_tpu_torch.verify.gsa_oracle import gsa_oracle, gsa_oracle_native
 from psac_tpu_torch.verify.suffix_tree_oracle import gst_oracle
 
@@ -129,19 +130,6 @@ def test_device_state_vs_jax(mesh1, name, cfg):
         np.testing.assert_array_equal(got, want, err_msg=field)
 
 
-def twin_prefix_set(prefixes=(700, 300, 150, 90), seed=1):
-    """Fourteen random 4 KiB strings (unique after the k-mer init) and, for
-    each P, two strings that share their first P characters: the active
-    count then falls step by step (2 * (P - c) suffixes of a pair still tie
-    after c characters), through both tail stages."""
-    out = [rand_dna(4096, seed=seed + i) for i in range(14)]
-    for i, p in enumerate(prefixes):
-        base = rand_dna(p, seed=seed + 100 + i)
-        out += [base + b"A" + rand_dna(20, seed=seed + 200 + i),
-                base + b"C" + rand_dna(20, seed=seed + 300 + i)]
-    return out
-
-
 def test_gsa_stages_reached(monkeypatch):
     """The twin-prefix set runs dense eos-masked steps with K6 in each, the
     big tail stage with its third buffer for several steps, the
@@ -199,14 +187,20 @@ def test_native_oracle_vs_sorting_oracle(name):
     np.testing.assert_array_equal(got_lcp, want_lcp)
 
 
-def test_family_with_a_twin():
-    fam = family(5, 400, 3, seed=4, twin_subs=(250, 399))
+def test_seeded_sets_are_what_they_say():
+    """The family's copies differ from the base in a few places; the
+    twin-prefix pairs share exactly their prefix."""
+    fam = family(5, 400, 3, seed=4)
     assert len(fam) == 5 and {len(x) for x in fam} == {400}
-    diff = [i for i in range(400) if fam[0][i] != fam[-1][i]]
-    assert diff == [250, 399]
-    assert fam[:4] == family(5, 400, 3, seed=4)[:4]
+    assert fam == family(5, 400, 3, seed=4)
     assert all(1 <= sum(a != b for a, b in zip(fam[0], x)) <= 3
-               for x in fam[1:4])
+               for x in fam[1:])
+    prefixes = (700, 300, 150, 90)
+    parts = twin_prefix_set(prefixes)
+    assert [len(x) for x in parts[:14]] == [4096] * 14
+    for p, a, b in zip(prefixes, parts[14::2], parts[15::2]):
+        assert len(a) == len(b) == p + 21
+        assert a[:p] == b[:p] and a[p] != b[p]
 
 
 def test_eos_and_padding():

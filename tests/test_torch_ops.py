@@ -126,10 +126,6 @@ def test_rmq_queries(s, dt):
     np.testing.assert_array_equal(got, want)
     brute = np.array([x[a:b + 1].min() for a, b in zip(lo, hi)])
     np.testing.assert_array_equal(got, brute)
-    valid = rng.rand(q) < 0.7
-    bulk = t_rmq.bulk_rmq_local(rt, _t(lo), _t(hi), _t(valid)).numpy()
-    np.testing.assert_array_equal(bulk, np.where(valid, brute,
-                                                 np.iinfo(dt).max))
 
 
 @pytest.mark.parametrize("s,dt", [(1024, np.int32), (4096, np.int64),

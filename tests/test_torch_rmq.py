@@ -43,6 +43,15 @@ def _builder(s, dt):
     return t_sa._Builder(s, (4, 4), 3, True, dt, torch.device("cpu"))
 
 
+def _resolve_packed(lcp_t, q, d, *, L, nq, packing, m_pad):
+    """A dense step's resolve with the key packing forced."""
+    s = lcp_t.shape[0]
+    ks, ls, rs, js, Lm, _ = _builder(s, lcp_t.dtype)._pack_queries(
+        q, L, packing)
+    return t_rmq.rmq_resolve(t_rmq.build_local_rmq(lcp_t), ks, ls, rs, js, d,
+                             Lm=Lm, packing=packing, nq=nq, m_pad=m_pad)
+
+
 @pytest.mark.parametrize("dt", [torch.int32, torch.int64], ids=["i32", "i64"])
 @pytest.mark.parametrize("L", [2, 4])
 @pytest.mark.parametrize("packing", t_rmq.PACKINGS)
@@ -53,14 +62,11 @@ def test_resolve_plain_every_packing(block, packing, L, dt):
     lcp, rows, lo, hi, j = make_case(s, L, seed=block + L, block=block)
     d = 7
     q = query_dict(s, rows, lo, hi, j, dt)
-    b = _builder(s, dt)
-    n_narrow = int((hi - lo < 8).sum())
     want = expected(lcp, rows, lo, hi, j, d)
     lcp_t = torch.from_numpy(lcp).to(dt)
     for m_pad in (s, 64, 8):
-        got = b._resolve_fused_local(lcp_t, q, d, m_pad=m_pad, L=L,
-                                     nq=len(rows), n_narrow=n_narrow,
-                                     packing=packing)
+        got = _resolve_packed(lcp_t, q, d, L=L, nq=len(rows),
+                              packing=packing, m_pad=m_pad)
         assert got.dtype == dt
         np.testing.assert_array_equal(got.numpy(), want)
     # the input LCP is left as it was
@@ -88,8 +94,7 @@ def test_resolve_vs_jax_builder(mesh1, block, L, dt):
                                      for k in ("qkey", "lq", "rq", "jcol")),
             jnp.asarray(d, jdt), m_pad=m_pad, L=L))
     got = _builder(s, dt)._resolve_fused_local(
-        torch.from_numpy(lcp).to(dt), q, d, m_pad=m_pad, L=L, nq=len(rows),
-        n_narrow=int((hi - lo < 8).sum()))
+        torch.from_numpy(lcp).to(dt), q, d, m_pad=m_pad, L=L, nq=len(rows))
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(want, expected(lcp, rows, lo, hi, j, d))
 
@@ -200,7 +205,7 @@ def test_kernel_model_vs_plain(block, packing, L, dt):
     d = 13
     plain = t_rmq.rmq_resolve_plain(
         rmq, ks, ls, rs, js, d, Lm=Lm, packing=packing, nq=len(rows),
-        n_narrow=int((hi - lo < 8).sum()), m_pad=64)
+        m_pad=64)
     model = _kernel_model(
         lcp, rmq.table.numpy(), block, ks.numpy(), ls.numpy(), rs.numpy(),
         None if js is None else js.numpy(), len(rows), Lm,
@@ -210,8 +215,7 @@ def test_kernel_model_vs_plain(block, packing, L, dt):
     # on a CPU tensor the wrapper is the plain version and counts no launch
     before = t_rmq.rmq_resolve.launches
     via = t_rmq.rmq_resolve(rmq, ks, ls, rs, js, d, Lm=Lm, packing=packing,
-                            nq=len(rows), m_pad=64,
-                            n_narrow=int((hi - lo < 8).sum()))
+                            nq=len(rows), m_pad=64)
     assert torch.equal(via, plain)
     assert t_rmq.rmq_resolve.launches == before
 
@@ -220,8 +224,8 @@ def test_kernel_model_vs_plain(block, packing, L, dt):
 @pytest.mark.parametrize("block", sorted(SIZES))
 def test_tail_resolve_unsorted_buffer(block, dt):
     """The tail's resolve: an unsorted (m,) buffer whose keys are rows with
-    INF between them.  Model, plain version and the bulk-RMQ + scatter
-    formula it replaced agree."""
+    INF between them.  Model, plain version and the range-minimum query +
+    scatter formula it replaced agree."""
     s = SIZES[block]
     lcp, rows, lo, hi, _ = make_case(s, 2, seed=11 * block, block=block)
     inf = _inf(dt)
@@ -238,7 +242,9 @@ def test_tail_resolve_unsorted_buffer(block, dt):
     got = _builder(s, dt)._resolve_local(lcp_t, kq_t, lq_t, rq_t, d)
     rmq = t_rmq.build_local_rmq(lcp_t)
     valid = kq_t != inf
-    mins = t_rmq.bulk_rmq_local(rmq, lq_t, rq_t, valid)
+    mins = t_rmq.query_local_rmq(
+        rmq, *(torch.where(valid, x, 0).clamp(0, s - 1)
+               for x in (lq_t, rq_t)))
     (old,) = route_scatter(kq_t, (d + mins,), (lcp_t,), valid)
     assert torch.equal(got, old)
     model = _kernel_model(lcp, rmq.table.numpy(), block, kq, lq, rq, None, m,
@@ -257,11 +263,8 @@ def test_large_d_on_an_int32_build(packing):
     j = np.ones_like(j)
     d = (1 << 30) - 8
     q = query_dict(s, rows, lo, hi, j, torch.int32)
-    b = _builder(s, torch.int32)
-    b.N = 1 << 30  # the cap on d; the rows still number s
-    got = b._resolve_fused_local(
-        torch.from_numpy(lcp).to(torch.int32), q, d, m_pad=64, L=L,
-        nq=len(rows), n_narrow=int((hi - lo < 8).sum()), packing=packing)
+    got = _resolve_packed(torch.from_numpy(lcp).to(torch.int32), q, d, L=L,
+                          nq=len(rows), packing=packing, m_pad=64)
     np.testing.assert_array_equal(got.numpy(),
                                   expected(lcp, rows, lo, hi, j, d))
 
@@ -278,6 +281,29 @@ def test_large_d_on_an_int32_build(packing):
 ])
 def test_resolve_packing_choice(s, Lm, inf, want):
     assert t_sa.resolve_packing(s, Lm, inf) == want
+
+
+def test_plain_finds_the_narrow_chunks_itself():
+    """With the ``narrow`` packing the plain version reads where the wide
+    queries start from the sorted keys: an all-narrow resolve never touches
+    the table, a resolve with one wide query does."""
+    s, dt = SIZES[32], torch.int32
+    lcp = resolve_lcp(s, seed=2)
+    rows = np.arange(0, 400, 2)
+    lo = np.arange(200) * 5
+    hi = lo + np.arange(200) % 8
+    j = np.ones(200, np.int64)
+    for widen in (False, True):
+        if widen:
+            hi[17] = lo[17] + 300
+        q = query_dict(s, rows, lo, hi, j, dt)
+        ks, ls, rs, js, Lm, _ = _builder(s, dt)._pack_queries(q, 2, "narrow")
+        rmq = t_rmq.build_local_rmq(torch.from_numpy(lcp).to(dt))
+        rmq.table = torch.full_like(rmq.table, -1)  # wrong on purpose
+        got = t_rmq.rmq_resolve_plain(rmq, ks, ls, rs, js, 3, Lm=Lm,
+                                      packing="narrow", nq=200)
+        same = np.array_equal(got.numpy(), expected(lcp, rows, lo, hi, j, 3))
+        assert same != widen
 
 
 def test_wrapper_counts_launches_only_on_the_card():
