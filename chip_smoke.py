@@ -277,12 +277,15 @@ def engine_comparison(x, label: str, card: str) -> dict:
 def check_k3_k5(dev, lcp_adj, log2n: int, ansv_log2n: int, kern: dict):
     """K3 (the block engine's left scan) and K5 (the block engine's previous-smaller
     pass) against their plain versions: the random values of the public
-    ANSV phase and the 2^26 LCP, every match type, int32 and int64."""
+    ANSV phase and the 2^26 LCP, every match type, int32 and int64; K5
+    also on three adversaries that leave its window, with the split of
+    where it found its answers (``k5_split``)."""
     import torch
 
     from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_EQ, NEAREST_SM
     from psac_tpu_torch.ops.bansv import block_psv, block_psv_plain
     from psac_tpu_torch.ops.nsv_scan import nsv_scan_left, nsv_scan_left_plain
+    from psac_tpu_torch.verify.cases import psv_adversaries
 
     rnd = torch.from_numpy(ansv_values(ansv_log2n)).to(dev)
     advs = scan_adversaries(dev)
@@ -304,25 +307,63 @@ def check_k3_k5(dev, lcp_adj, log2n: int, ansv_log2n: int, kern: dict):
 
     wide = torch.from_numpy(
         ansv_values(ansv_log2n - 2).astype(np.int64) << 33).to(dev)
+    advs5 = {k: torch.from_numpy(v.astype(np.int32)).to(dev)
+             for k, v in psv_adversaries(1 << ansv_log2n, seed=5).items()
+             if k in ("decreasing", "far_min", "sparse_tiny")}
     errs = [max_abs_err((block_psv(x, strict),), (block_psv_plain(x, strict),))
-            for x in (rnd, lcp_adj, wide) for strict in (True, False)]
+            for x in (rnd, lcp_adj, wide, *advs5.values())
+            for strict in (True, False)]
     S = lcp_adj.shape[0]
-    # also at the public ANSV's shape, where most of its launches run
+    split = {f"2^{ansv_log2n} random int32": k5_split(block_psv(rnd, True)),
+             f"2^{log2n} LCP": k5_split(block_psv(lcp_adj, True))}
+    for label, sp in split.items():
+        log(f"[k5-split] {label}, strict: " + ", ".join(
+            f"{k} {v} ({100 * v / sp['elements']:.4f}%)"
+            for k, v in sp.items() if k != "elements"))
+    # also at the public ANSV's shape, where most of its launches run, and
+    # on the decreasing adversary, whose every element climbs in vain
     at_ansv = dict(
         shape=f"2^{ansv_log2n} random int32, strict",
         ms=cuda_ms(lambda: block_psv(rnd, True), 10),
         plain_ms=cuda_ms(lambda: block_psv_plain(rnd, True), 1),
         bound_ms=bound(8 * m, m)["bound_ms"])
+    dec = advs5["decreasing"]
+    at_dec = dict(shape=f"2^{ansv_log2n} decreasing int32, strict",
+                  ms=cuda_ms(lambda: block_psv(dec, True), 10))
     kern["block_psv"] = dict(
         route="cuda", source="psac_tpu_torch/csrc/bansv.cu",
         replaces="psac_tpu/ops/bansv.py:76", max_abs_err=max(errs),
         ms=cuda_ms(lambda: block_psv(lcp_adj, True), 10),
         plain_ms=cuda_ms(lambda: block_psv_plain(lcp_adj, True), 1),
-        **bound(8 * S, S), at_ansv_shape=at_ansv)
+        **bound(8 * S, S), at_ansv_shape=at_ansv, at_decreasing=at_dec,
+        split=split)
     log(f"[kernel] K5 block_psv == plain, strict and not, on 2^{ansv_log2n} "
-        f"random int32, the 2^{log2n} LCP and 2^{ansv_log2n - 2} int64; "
-        f"{at_ansv['ms']:.3f} ms at 2^{ansv_log2n} (bound "
-        f"{at_ansv['bound_ms']:.4f} ms, plain {at_ansv['plain_ms']:.3f} ms)")
+        f"random int32, the 2^{log2n} LCP, 2^{ansv_log2n - 2} int64 and "
+        f"2^{ansv_log2n} {', '.join(advs5)}; {at_ansv['ms']:.3f} ms at "
+        f"2^{ansv_log2n} (bound {at_ansv['bound_ms']:.4f} ms, plain "
+        f"{at_ansv['plain_ms']:.3f} ms), {at_dec['ms']:.3f} ms on the "
+        "decreasing array")
+
+
+def k5_split(psv) -> dict:
+    """Where K5 found each answer, from its output alone: inside the
+    element's window (its tile and the one before), one level up the
+    minima hierarchy (in the level-1 block that holds the entry before the
+    window), further up, or nowhere (-1)."""
+    import torch
+
+    from psac_tpu_torch.ops.bansv import KERNEL_BLOCK as B, KERNEL_TILE as T
+
+    i = torch.arange(psv.shape[0], device=psv.device)
+    p = psv.to(torch.int64)
+    none = p < 0
+    ws = (i // T - 1) * T  # window start (negative: the window is all)
+    inwin = ~none & (p >= ws)
+    out = ~none & ~inwin
+    one = out & (p // B >= ws // B // B * B)
+    return dict(elements=int(psv.shape[0]), window=int(inwin.sum()),
+                one_level=int(one.sum()), more_levels=int((out & ~one).sum()),
+                none=int(none.sum()))
 
 
 def k6_bound(rmq, ks, ls, rs, js, nq: int) -> dict:
@@ -383,7 +424,8 @@ def check_k6(dev, rep_text: bytes, rep_lcp: np.ndarray, log2n: int,
     native LCP of the repetitive text with 2^(log2n - 2) seeded queries, L
     in {2, 4}, the three key packings, int32 and int64; on small arrays
     whose block is 8, 32 and 128; and on an unsorted tail-style buffer.
-    Timed at the largest resolve of the repetitive text's SA+LCP build."""
+    Timed at the largest resolve of the repetitive text's SA+LCP build and
+    on a mostly wide resolve of 2^(log2n - 2) queries of the same LCP."""
     import torch
     from unittest import mock
 
@@ -391,7 +433,8 @@ def check_k6(dev, rep_text: bytes, rep_lcp: np.ndarray, log2n: int,
     from psac_tpu_torch.ops.rmq import (PACKINGS, build_local_rmq,
                                         rmq_resolve, rmq_resolve_plain)
     from psac_tpu_torch.verify.cases import (resolve_lcp, resolve_queries,
-                                             resolve_query_arrays)
+                                             resolve_query_arrays,
+                                             wide_resolve_queries)
 
     errs = []
 
@@ -475,6 +518,37 @@ def check_k6(dev, rep_text: bytes, rep_lcp: np.ndarray, log2n: int,
         f"build: {kw['nq']} queries ({n_narrow} under 8 wide) of "
         f"{rmq.x.shape[0]} rows, packing {kw['packing']}, L - 1 = "
         f"{kw['Lm']}, d = {d}; the build's resolves: {steps}; on {card}")
+
+    # a mostly wide resolve at the same length: seven in eight ranges 8 or
+    # more wide, so each warp takes most of its queries in turn
+    s = len(rep_lcp)
+    rmq = build_local_rmq(torch.from_numpy(rep_lcp).to(dev).to(torch.int32))
+    mw = 1 << (log2n - 2)
+    rows, lo, hi, j = wide_resolve_queries(s, mw, rmq.block, 4, seed=8)
+    q = {k: torch.from_numpy(v).to(dev).to(torch.int32) for k, v in
+         resolve_query_arrays(s, rows, lo, hi, j, 2**31 - 1).items()}
+    packing = sa_mod.resolve_packing(s, 3, 2**31 - 1)
+    ks, ls, rs, js, Lm, _ = sa_mod._Builder(
+        s, (10, 10), 3, True, torch.int32, dev)._pack_queries(q, 4, packing)
+    wargs = (rmq, ks, ls, rs, js, 1 << 14)
+    wkw = dict(Lm=Lm, packing=packing, nq=mw)
+    pkw = dict(wkw, m_pad=max(8, s // 32))
+    errs.append(max_abs_err((rmq_resolve(*wargs, **wkw),),
+                            (rmq_resolve_plain(*wargs, **pkw),)))
+    wb = k6_bound(*wargs[:5], mw)
+    kern["rmq_resolve"]["max_abs_err"] = max(errs)
+    kern["rmq_resolve"]["mostly_wide"] = dict(
+        rows=s, nq=mw, n_narrow=wb["n_narrow"], packing=packing,
+        ms=cuda_ms(lambda: rmq_resolve(*wargs, **wkw), 10),
+        plain_ms=cuda_ms(lambda: rmq_resolve_plain(*wargs, **pkw), 1),
+        bound_ms=wb["bound_ms"])
+    mwd = kern["rmq_resolve"]["mostly_wide"]
+    log(f"[kernel] K6 == plain on a mostly wide resolve of the 2^{log2n} "
+        f"rep_dna LCP: {mw} queries ({mwd['n_narrow']} under 8 wide), "
+        f"packing {packing}: {mwd['ms']:.3f} ms, bound "
+        f"{mwd['bound_ms']:.4f} ms ({100 * mwd['bound_ms'] / mwd['ms']:.2f}% "
+        f"of it), plain {mwd['plain_ms']:.3f} ms on {card}")
+    del rows, lo, hi, j, q, ks, ls, rs, js, wargs
 
     # does the build's wall follow K6?  The same construct_device with the
     # plain resolve in K6's place, in turns within this process
@@ -729,7 +803,8 @@ def ansv_values(log2n: int, seed: int = 24) -> np.ndarray:
 def public_ansv_phase(dev, log2n: int, card: str) -> dict:
     """The public ``ansv`` on the card for five match-type pairs, each call
     counted on its own and held against the plain path on the card; the
-    same pairs at 2^16 against ``ansv_seq``; wide int64 values at 2^20."""
+    same pairs at 2^16 against ``ansv_seq``; wide int64 values at 2^20;
+    the device's share of (NSM,NSM) (K5 only) and (FEQ,NSM) (seconds)."""
     import torch
 
     from psac_tpu_torch import ansv
@@ -739,7 +814,8 @@ def public_ansv_phase(dev, log2n: int, card: str) -> dict:
     from psac_tpu_torch.ops.nsv_scan import (nsv_scan_dual, nsv_scan_left,
                                              nsv_scan_spine)
     from psac_tpu_torch.ops.tansv import tile_side
-    from psac_tpu_torch.parallel.ansv import PLAIN
+    from psac_tpu_torch.parallel.ansv import KERNELS, PLAIN, _ansv
+    from psac_tpu_torch.parallel.mesh import padded_size
 
     reset, read = counter((tile_side, nsv_scan_spine, nsv_scan_dual,
                            nsv_scan_left, block_psv))
@@ -812,6 +888,18 @@ def public_ansv_phase(dev, log2n: int, card: str) -> dict:
             raise AssertionError(f"{k} was not launched by the public ansv")
     add_launches(total)
     log(f"[ansv] launches over the public ANSV calls: {total} on {card}")
+
+    # the device's share: the same passes on values already on the card,
+    # padded as ``ansv`` pads them (CUDA-event means over 5 calls)
+    xp = np.full(padded_size(len(vals), 1), 2**31 - 1, np.int32)
+    xp[:len(vals)] = vals
+    xd = torch.from_numpy(xp).to(dev)
+    for lt, rt in ((NSM, NSM), (FEQ, NSM)):
+        key = f"{names[lt]},{names[rt]} on device"
+        times[key] = cuda_ms(lambda: _ansv(xd, lt, rt, KERNELS, xd.dtype),
+                             5) / 1e3
+        log(f"[ansv] 2^{log2n} {names[lt]},{names[rt]} on the device alone: "
+            f"{1e3 * times[key]:.3f} ms on {card}")
     return times
 
 

@@ -11,32 +11,52 @@
 // (non-strict); -1 when there is none.  Values are int32 or int64 (a
 // template); indices are int32 (the wrapper requires s < 2^31).
 //
-// Design:
+// Design: no thread runs a loop whose length depends on the data.
 //   * a minima hierarchy: level 0 is x, level k+1 holds the minima of the
 //     B-entry blocks of level k, built by one small reduction kernel per
 //     level until a level has at most B entries (4 levels at s = 2^26);
-//   * one thread block per B-element block, with that block and the
-//     previous one staged in shared memory; each thread scans backward over
-//     the two blocks from its element;
-//   * an element still unresolved climbs the hierarchy: at each level it
-//     scans backward over the entries of its ancestor's block that lie
-//     before the ancestor, then descends from the first entry whose minimum
-//     matches, scanning each chosen block's row from its end.
+//   * one thread block of TILE threads per TILE-element tile.  It stages
+//     the window (the previous tile, then its own) in shared memory and
+//     builds a doubling min-table over it, tab[k][j] = min(w[j .. j + 2^k)),
+//     one level per step, every thread two entries.  Each thread answers
+//     from its position by binary lifting leftwards, log2(2 TILE) steps:
+//     it skips the longest run of window entries that miss its value;
+//   * the elements whose answer lies before the window (0.3% of a random
+//     DNA LCP, a few in random values, all of a decreasing array) are
+//     found by their warp, by ballot.  Going up, the warp loads the entries
+//     of the level's block that lie before the ancestor (B/32 = 8 per
+//     lane, coalesced, all issued at once), shared by all its climbing
+//     lanes, since they lie in one tile; the region's minimum tells in one
+//     ballot which lanes find their entry at this level, and for each of
+//     those, one ballot per 32 entries from the end gives the last hit (the
+//     lowest set lane).  Going down, the warp loads the chosen block's B
+//     entries the same way, for each found lane in turn.
 //
-// What bounds it: per-thread backward scans (at most 2B shared-memory words,
-// then at most B words per level up and down, read through L1/L2; the
-// levels above 0 hold s/B + s/B^2 + ... entries and stay cached); typical
-// LCP arrays resolve within a few words of the element.  Threads of a warp
-// diverge on scan length; device-memory traffic is one read of x per level
-// plus one int32 write per element.
+// What bounds it: bytes, one read of x and one int32 write per element
+// (0.0401 ms at 2^24 int32, 0.1603 ms at 2^26, at 3.35 TB/s); the window
+// is read twice (the previous tile again from L2) and the levels above 0
+// (s/B + s/B^2 + ... entries) stay in L2.  Per element the table costs
+// two shared-memory entries per level and the lifting log2(2 TILE)
+// dependent shared-memory loads.  No tensor cores: this is comparison
+// work.  The % of the bound it reaches is in PERF.md section 6.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#ifndef PSAC_K5_TILE
+#define PSAC_K5_TILE 256
+#endif
+
 namespace {
 
-constexpr int B = 256;
+constexpr int B = 256;  // width of the minima hierarchy's blocks
+constexpr int TILE = PSAC_K5_TILE;
+constexpr int WIN = 2 * TILE;
+constexpr int LOG_WIN = TILE == 256 ? 9 : TILE == 512 ? 10 : 11;
 constexpr int MAX_LEVELS = 8;
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(TILE % B == 0 && TILE <= 1024 && (1 << LOG_WIN) == WIN,
+              "TILE is 256, 512 or 1024");
 
 template <typename T>
 struct Inf;
@@ -64,7 +84,7 @@ __device__ __forceinline__ bool hit(T a, T v) {
 template <typename T>
 __device__ __forceinline__ T warp_min(T v) {
   for (int off = 16; off > 0; off >>= 1) {
-    const T o = __shfl_down_sync(0xffffffffu, v, off);
+    const T o = __shfl_down_sync(FULL, v, off);
     v = o < v ? o : v;
   }
   return v;
@@ -85,56 +105,166 @@ block_min_kernel(const T* __restrict__ in, long long n, T* __restrict__ out) {
   }
 }
 
-// Last index before the level-1 bound p (exclusive) whose element matches v,
-// found by climbing the hierarchy and descending from the first matching
-// entry; -1 if none.  Every block descended into lies wholly before the
-// element, so it is full.
+constexpr int RUN = B / 32;  // entries of a B-entry block per lane
+
+// Lane `lane` loads a[top - lane - 32 r] for r < RUN, the entries >= lo
+// (INF elsewhere): a block's run from its end, every load issued at once.
+template <typename T>
+__device__ __forceinline__ void load_run(const T* a, long long top,
+                                         long long lo, int lane,
+                                         T (&ent)[RUN]) {
+#pragma unroll
+  for (int r = 0; r < RUN; ++r) {
+    const long long j = top - lane - 32 * r;
+    ent[r] = j >= lo ? a[j] : Inf<T>::v;
+  }
+}
+
+// The last index in [lo, top] of a loaded run whose entry hits v, or -1;
+// one ballot per 32 entries, from the end (lower lanes hold later
+// entries, so the lowest set lane is the last hit).  Warp-uniform.
 template <typename T, bool STRICT>
-__device__ long long climb_descend(const Levels<T>& lv, long long p, T v) {
-  long long e = -1;
-  int k = 1;
-  for (; k < lv.count; ++k) {
-    const T* a = lv.ptr[k];
+__device__ __forceinline__ long long last_hit(const T (&ent)[RUN],
+                                              long long top, long long lo,
+                                              T v, int lane) {
+#pragma unroll
+  for (int r = 0; r < RUN; ++r) {
+    const long long j = top - lane - 32 * r;
+    const unsigned m = __ballot_sync(FULL, j >= lo && hit<T, STRICT>(ent[r], v));
+    if (m) return top - 32 * r - (__ffs(m) - 1);
+  }
+  return -1;
+}
+
+// The answers of the warp's lanes in `todo`, whose own values v miss the
+// whole window: the last index before level-1 entry p (exclusive) whose
+// element hits v, or -1.  The lanes share p (one tile), so the warp
+// climbs once for all of them: at each level it loads the entries of the
+// level's block that lie before the ancestor, and its region minimum tells
+// in one ballot which of the lanes still open find their entry there;
+// those are resolved by `last_hit`, each in turn.  Then each found lane's
+// entry is descended, in turn, one loaded block per level.  Every entry
+// read lies wholly before the window, so every block read is full and
+// every minimum read is exact.
+template <typename T, bool STRICT>
+__device__ long long warp_climb(const Levels<T>& lv, long long p, T v,
+                                unsigned todo, int lane) {
+  long long e = -1;  // this lane's entry once found
+  int kf = 0;        // and its level
+  unsigned open = todo;
+  T ent[RUN];
+  for (int k = 1; k < lv.count && open; ++k) {
     const long long lo = p / B * B;
-    for (long long j = p - 1; j >= lo; --j) {
-      if (hit<T, STRICT>(a[j], v)) {
-        e = j;
-        break;
+    if (p > lo) {
+      load_run(lv.ptr[k], p - 1, lo, lane, ent);
+      T rmin = ent[0];
+#pragma unroll
+      for (int r = 1; r < RUN; ++r) rmin = ent[r] < rmin ? ent[r] : rmin;
+      for (int off = 16; off > 0; off >>= 1) {
+        const T o = __shfl_xor_sync(FULL, rmin, off);
+        rmin = o < rmin ? o : rmin;
       }
+      const unsigned found =
+          __ballot_sync(FULL, ((open >> lane) & 1) && hit<T, STRICT>(rmin, v));
+      for (unsigned f = found; f;) {
+        const int c = __ffs(f) - 1;
+        f &= f - 1;
+        const T vc = __shfl_sync(FULL, v, c);
+        const long long at = last_hit<T, STRICT>(ent, p - 1, lo, vc, lane);
+        if (lane == c) {
+          e = at;
+          kf = k;
+        }
+      }
+      open &= ~found;
     }
-    if (e >= 0) break;
     p /= B;
   }
-  if (e < 0) return -1;
-  for (int l = k - 1; l >= 0; --l) {
-    const T* a = lv.ptr[l];
-    long long j = e * B + B - 1;
-    while (!hit<T, STRICT>(a[j], v)) --j;
-    e = j;
+  // descend: each found lane's entry, one full block per level
+  for (unsigned f = todo & ~open; f;) {
+    const int c = __ffs(f) - 1;
+    f &= f - 1;
+    const T vc = __shfl_sync(FULL, v, c);
+    long long ec = __shfl_sync(FULL, e, c);
+    const int kc = __shfl_sync(FULL, kf, c);
+    for (int l = kc - 1; l >= 0; --l) {
+      const long long first = ec * B;
+      load_run(lv.ptr[l], first + B - 1, first, lane, ent);
+      ec = last_hit<T, STRICT>(ent, first + B - 1, first, vc, lane);
+    }
+    if (lane == c) e = ec;
   }
   return e;
 }
 
 template <typename T, bool STRICT>
-__global__ void __launch_bounds__(B)
-psv_kernel(Levels<T> lv, long long s, int32_t* __restrict__ out) {
-  __shared__ T win[2 * B];  // previous block, then this block
+__global__ void __launch_bounds__(TILE)
+psv_kernel(const __grid_constant__ Levels<T> lv, long long s,
+           int32_t* __restrict__ out) {
+  // tab[k * WIN + j] = min(w[j .. j + 2^k)), defined for j + 2^k <= WIN;
+  // w = the previous tile, then this one
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tab = reinterpret_cast<T*>(smem);
   const T* x = lv.ptr[0];
   const long long b = blockIdx.x;
-  const long long base = b * B;
+  const long long base = b * TILE;
   const int t = threadIdx.x;
+  const int lane = t & 31;
   const long long i = base + t;
-  win[t] = b > 0 ? x[base - B + t] : Inf<T>::v;
-  win[B + t] = i < s ? x[i] : Inf<T>::v;
+  tab[t] = b > 0 ? x[base - TILE + t] : Inf<T>::v;
+  const T v = i < s ? x[i] : Inf<T>::v;
+  tab[TILE + t] = v;
   __syncthreads();
-  if (i >= s) return;
-  const T v = win[B + t];
-  const int lo = b > 0 ? 0 : B;
-  int k = B + t - 1;
-  while (k >= lo && !hit<T, STRICT>(win[k], v)) --k;
-  const long long ans = k >= lo ? base - B + k
-                                : climb_descend<T, STRICT>(lv, b > 0 ? b - 1 : 0, v);
-  out[i] = static_cast<int32_t>(ans);
+#pragma unroll
+  for (int k = 1; k < LOG_WIN; ++k) {
+    const int w = 1 << (k - 1);
+    const T* prev = tab + (k - 1) * WIN;
+    T* cur = tab + k * WIN;
+    const T a0 = prev[t], a1 = prev[t + w];
+    cur[t] = a1 < a0 ? a1 : a0;
+    if (TILE + t + 2 * w <= WIN) {
+      const T c0 = prev[TILE + t], c1 = prev[TILE + t + w];
+      cur[TILE + t] = c1 < c0 ? c1 : c0;
+    }
+    __syncthreads();
+  }
+
+  // skip the longest run of window entries that miss v, ending at p - 1
+  const int p = TILE + t;
+  const int lob = b > 0 ? 0 : TILE;
+  int skip = 0;
+#pragma unroll
+  for (int k = LOG_WIN - 1; k >= 0; --k) {
+    const int lo = p - skip - (1 << k);
+    if (lo >= lob && !hit<T, STRICT>(tab[k * WIN + lo], v)) skip += 1 << k;
+  }
+  const int at = p - skip - 1;
+  long long ans = at >= lob ? base - TILE + at : -1;
+
+  // before the window: the warp climbs once for all such lanes
+  const long long ws = base - TILE;  // window start, a multiple of B
+  const unsigned todo = __ballot_sync(FULL, i < s && at < lob && ws > 0);
+  if (todo) {
+    const long long e = warp_climb<T, STRICT>(lv, ws / B, v, todo, lane);
+    if ((todo >> lane) & 1) ans = e;
+  }
+  if (i < s) out[i] = static_cast<int32_t>(ans);
+}
+
+template <typename T, bool STRICT>
+int launch_psv(const Levels<T>& lv, long long s, int32_t* out,
+               cudaStream_t stream) {
+  const size_t smem = sizeof(T) * LOG_WIN * WIN;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        psv_kernel<T, STRICT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long nt = (s + TILE - 1) / TILE;
+  psv_kernel<T, STRICT><<<static_cast<unsigned>(nt), TILE, smem, stream>>>(
+      lv, s, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // scratch: the levels above 0, sum over k >= 1 of ceil(s / B^k) entries
@@ -158,17 +288,9 @@ int block_psv(const T* x, int32_t* out, T* scratch, long long s, int strict,
     dst += m;
     n = m;
   }
-  const long long nb = (s + B - 1) / B;
-  if (nb > 0) {
-    if (strict) {
-      psv_kernel<T, true><<<static_cast<unsigned>(nb), B, 0, stream>>>(lv, s,
-                                                                      out);
-    } else {
-      psv_kernel<T, false><<<static_cast<unsigned>(nb), B, 0, stream>>>(lv, s,
-                                                                       out);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (s <= 0) return static_cast<int>(cudaGetLastError());
+  return strict ? launch_psv<T, true>(lv, s, out, stream)
+                : launch_psv<T, false>(lv, s, out, stream);
 }
 
 }  // namespace

@@ -13,33 +13,43 @@
 // a copy of the LCP that the wrapper makes before the launch.  Every read
 // is of the old LCP and of the table, which nothing writes.
 //
-// Design: eight lanes per query, four queries per warp.
-//   * a range under 8 wide is read by its group, one element per lane, and
-//     reduced by three shuffles;
+// Design: one query per thread, 32 per warp.
+//   * the query words are read coalesced: a warp reads 32 consecutive keys,
+//     starts and ends (128 bytes each at int32);
+//   * a range under 8 wide is read by its own thread: the aligned 16-byte
+//     words that cover it (at most three at int32, five at int64), every
+//     load issued before any is used, the minimum taken in registers; when
+//     the LCP is not 16-byte aligned or s is not a multiple of the words'
+//     width, eight independent element loads instead;
 //   * the wider ranges of a warp are then taken one at a time by all 32
 //     lanes: the part of [lo, hi] in lo's block and the part in hi's block
 //     are consecutive values (at most `block` each, coalesced reads), the
 //     full blocks between them come from two reads of the doubling table;
 //     a five-step shuffle reduce gives the minimum;
-//   * the group's first lane writes j*d + min at `row`.
+//   * each thread writes j*d + min at its row.  In the sorted packings the
+//     32 rows of a warp increase, so the writes fall into fewer sectors.
 // Invalid queries carry the key INF; they are skipped, so the caller may
 // pass sorted queries with `nq` the count of valid ones, or an unsorted
 // buffer with `nq` its length.
 //
-// What bounds it: bytes, at sector granularity.  Per query three or four
-// query words (coalesced), one or two 32-byte sectors of the LCP (narrow) or
-// up to two `block`-wide rows and two table words (wide), and one scattered
-// word written.  All index arithmetic is 64-bit, so no int32 product of an
-// invalid row can overflow; values are int32 or int64 (a template).
+// What bounds it: bytes.  Each input read once and each output written
+// once: the LCP read and its copy written (2 s words), three or four query
+// words per query and at most two table words per wide query (0.0682 ms
+// for the 7,797,673 queries of the 2^24 `rep_dna` build's largest resolve
+// at 3.35 TB/s).  A narrow query reads one or two 32-byte sectors where it
+// needs 4-32 bytes, so the scattered reads, not the bound's bytes, set the
+// pace.  All index arithmetic is 64-bit, so no int32 product of an invalid
+// row can overflow; values are int32 or int64 (a template).  The % of the
+// bound it reaches is in PERF.md section 6.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int GROUP = 8;                    // lanes per query
-constexpr int PER_BLOCK = THREADS / GROUP;  // queries per thread block
+constexpr int THREADS = 256;  // one query per thread
+constexpr int NARROW = 8;     // ranges under 8 wide are read by one thread
+constexpr unsigned FULL = 0xffffffffu;
 
 // How (row, j) is packed into the sort key: mode 0 (narrow) is
 // ((wide ? s : 0) + row) * Lm + (j - 1), mode 1 (packed) is
@@ -78,19 +88,60 @@ struct Args {
   int mode;
 };
 
-template <typename T>
+// min(lcp[lo..hi]), hi - lo < NARROW, read by one thread.  VEC: the LCP
+// is 16-byte aligned and s a multiple of the 16-byte words' width, so the
+// words that cover [lo, hi] lie inside it.
+template <typename T, bool VEC>
+__device__ __forceinline__ T narrow_min(const T* __restrict__ lcp,
+                                        long long lo, long long hi) {
+  T m = Inf<T>::v;
+  if (VEC) {
+    constexpr int E = 16 / sizeof(T);   // elements per 16-byte word
+    constexpr int NW = NARROW / E + 1;  // words that can cover the range
+    union Word {
+      uint4 u;
+      T e[E];
+    };
+    const uint4* w = reinterpret_cast<const uint4*>(lcp);
+    const long long c0 = lo / E;
+    const long long c1 = hi / E;
+    Word got[NW];
+#pragma unroll
+    for (int c = 0; c < NW; ++c)
+      if (c0 + c <= c1) got[c].u = __ldg(w + c0 + c);
+#pragma unroll
+    for (int c = 0; c < NW; ++c) {
+#pragma unroll
+      for (int u = 0; u < E; ++u) {
+        const long long at = (c0 + c) * E + u;
+        if (c0 + c <= c1 && at >= lo && at <= hi) m = min_of(m, got[c].e[u]);
+      }
+    }
+  } else {
+    T got[NARROW];
+#pragma unroll
+    for (int u = 0; u < NARROW; ++u)
+      if (lo + u <= hi) got[u] = lcp[lo + u];
+#pragma unroll
+    for (int u = 0; u < NARROW; ++u)
+      if (lo + u <= hi) m = min_of(m, got[u]);
+  }
+  return m;
+}
+
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 rmq_resolve_kernel(const __grid_constant__ Args<T> a) {
-  const unsigned FULL = 0xffffffffu;
   const int lane = threadIdx.x & 31;
-  const int sub = lane & (GROUP - 1);
-  const long long q =
-      static_cast<long long>(blockIdx.x) * PER_BLOCK + threadIdx.x / GROUP;
+  const long long q = static_cast<long long>(blockIdx.x) * THREADS +
+                      threadIdx.x;
 
   bool live = false;
   long long row = 0, j = 1, lo = 0, hi = 0;
   if (q < a.nq) {
     const T key = a.ks[q];
+    const long long l = a.ls[q];
+    const long long r = a.rs[q];
     if (key != Inf<T>::v) {
       long long k = key;
       if (a.mode == MODE_ROWS) {
@@ -101,8 +152,6 @@ rmq_resolve_kernel(const __grid_constant__ Args<T> a) {
         row = k / a.Lm;
         j = k - row * a.Lm + 1;
       }
-      const long long l = a.ls[q];
-      const long long r = a.rs[q];
       lo = l < 0 ? 0 : (l > a.s - 1 ? a.s - 1 : l);
       hi = r < l ? l : r;
       hi = hi < 0 ? 0 : (hi > a.s - 1 ? a.s - 1 : hi);
@@ -110,15 +159,13 @@ rmq_resolve_kernel(const __grid_constant__ Args<T> a) {
     }
   }
 
-  // ---- narrow tier: one element per lane of the group
-  const bool wide = live && hi - lo >= GROUP;
+  // ---- narrow tier: the thread reads its own range
+  const bool wide = live && hi - lo >= NARROW;
   T m = Inf<T>::v;
-  if (live && !wide && lo + sub <= hi) m = a.lcp[lo + sub];
-  for (int off = GROUP / 2; off > 0; off >>= 1)
-    m = min_of(m, __shfl_xor_sync(FULL, m, off));
+  if (live && !wide) m = narrow_min<T, VEC>(a.lcp, lo, hi);
 
   // ---- wide tier: the warp takes its wide queries one at a time
-  unsigned todo = __ballot_sync(FULL, wide && sub == 0);
+  unsigned todo = __ballot_sync(FULL, wide);
   while (todo) {
     const int src = __ffs(todo) - 1;
     todo &= todo - 1;
@@ -138,8 +185,7 @@ rmq_resolve_kernel(const __grid_constant__ Args<T> a) {
       const long long len = bh - first;
       if (len > 0 && lane < 2) {
         const int lev = 63 - __clzll(len);
-        const long long at =
-            lane == 0 ? first : bh - (1LL << lev);
+        const long long at = lane == 0 ? first : bh - (1LL << lev);
         w = min_of(w, a.table[lev * a.nb + at]);
       }
     }
@@ -148,7 +194,7 @@ rmq_resolve_kernel(const __grid_constant__ Args<T> a) {
     if (lane == src) m = w;
   }
 
-  if (live && sub == 0) a.out[row] = static_cast<T>(j * a.d + m);
+  if (live) a.out[row] = static_cast<T>(j * a.d + m);
 }
 
 template <typename T>
@@ -176,10 +222,16 @@ int rmq_resolve(const T* lcp, const T* table, const T* ks, const T* ls,
   a.bshift = 0;
   while ((1 << a.bshift) < block) ++a.bshift;
   a.mode = mode;
-  const long long blocks = (nq + PER_BLOCK - 1) / PER_BLOCK;
+  const long long blocks = (nq + THREADS - 1) / THREADS;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  rmq_resolve_kernel<T><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
-      a);
+  constexpr int E = 16 / sizeof(T);
+  const bool vec = reinterpret_cast<uintptr_t>(lcp) % 16 == 0 && s % E == 0;
+  if (vec)
+    rmq_resolve_kernel<T, true>
+        <<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(a);
+  else
+    rmq_resolve_kernel<T, false>
+        <<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

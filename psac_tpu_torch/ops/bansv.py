@@ -31,7 +31,8 @@ B = 256          # block width of the plain version (the JAX ``B``)
 _BC = 512        # blocks per chunk of the plain all-pairs stage
 _QDIV = 64       # distant-block resolve chunk = max(s // _QDIV, _QMIN)
 _QMIN = 2048
-KERNEL_BLOCK = 256  # B of csrc/bansv.cu
+KERNEL_BLOCK = 256  # B of csrc/bansv.cu: the minima hierarchy's width
+KERNEL_TILE = 256   # TILE of csrc/bansv.cu: elements per thread block
 
 
 def _cmp(a, b, strict: bool):

@@ -1,5 +1,5 @@
-"""Seeded inputs for checking the LCP resolve (K6) and the generalized
-suffix array, shared by the CPU tests, the GPU tests and ``chip_smoke.py``
+"""Seeded inputs for checking the previous-smaller pass (K5), the LCP
+resolve (K6) and the generalized suffix array, shared by the CPU tests, the GPU tests and ``chip_smoke.py``
 so that all three drive the same cases."""
 
 from __future__ import annotations
@@ -72,6 +72,28 @@ def resolve_queries(s: int, m: int, block: int, L: int, seed: int):
     return rows, lo, hi, j
 
 
+def wide_resolve_queries(s: int, m: int, block: int, L: int, seed: int):
+    """``m`` seeded LCP-resolve queries on distinct rows, seven in eight of
+    them 8 or more wide: inside a block, across two or three blocks, across
+    up to 64 blocks and up to the whole array; the rest under 8 wide.
+    Returns int64 numpy arrays (rows, lo, hi, j), j in 1..L-1."""
+    rng = np.random.RandomState(seed)
+    rows = rng.permutation(s)[:m]
+    lo = rng.randint(0, s, m)
+    kind = np.arange(m) % 8
+    width = np.select(
+        [kind == 0, kind <= 2, kind <= 4, kind <= 6],
+        [rng.randint(0, 8, m), rng.randint(8, max(9, block), m),
+         rng.randint(block, 3 * block, m), rng.randint(3 * block,
+                                                       64 * block, m)],
+        rng.randint(8, s, m))
+    hi = np.minimum(lo + width, s - 1)
+    lo = np.minimum(lo, np.maximum(hi - 8, 0))  # wide to the end as well
+    lo = np.where(kind == 0, hi - width, lo).clip(0)
+    j = rng.randint(1, L, m) if L > 2 else np.ones(m, np.int64)
+    return rows, lo, hi, j
+
+
 def resolve_lcp(s: int, seed: int) -> np.ndarray:
     """A seeded (s,) int64 LCP-like array: ties within a few values, a level
     that changes every 64 elements (so block minima differ from block to
@@ -102,3 +124,23 @@ def resolve_query_arrays(s: int, rows, lo, hi, j, inf: int) -> dict:
     for k, v in (("qkey", rows), ("lq", lo), ("rq", hi), ("jcol", j)):
         q[k][rows] = v
     return q
+
+
+def psv_adversaries(n: int, seed: int) -> dict:
+    """Length-n int64 inputs for the previous-smaller pass (K5): random
+    values in [0, 2^16), a decreasing array (every element climbs to the
+    top of the minima hierarchy, in vain), a far global minimum (the last
+    elements climb to the top, then descend through every level), sparse
+    tiny values in random data (a few climbers in many warps) and
+    plateaus."""
+    rng = np.random.RandomState(seed)
+    far = rng.randint(10, 1000, n)
+    far[min(3, n - 1)] = 0
+    far[-max(1, n // 50):] = 1
+    sparse = rng.randint(100, 1 << 16, n)
+    hits = rng.randint(0, n, max(1, n // 300))
+    sparse[hits] = rng.randint(0, 5, len(hits))
+    return {"random": rng.randint(0, 1 << 16, n),
+            "decreasing": n - np.arange(n, dtype=np.int64),
+            "far_min": far, "sparse_tiny": sparse,
+            "plateaus": np.repeat(rng.randint(0, 4, n // 7 + 1), 7)[:n]}

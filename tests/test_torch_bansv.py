@@ -18,7 +18,9 @@ import psac_tpu_torch.ops.bansv as t_bansv
 from psac_tpu.models.suffix_array import _x64_ctx
 from psac_tpu_torch.ops.ansv import (FURTHEST_EQ, NEAREST_EQ, NEAREST_SM,
                                      NONSV, ansv_seq)
+from psac_tpu_torch.ops import cuda_lib
 from psac_tpu_torch.ops.nsv_scan import _min_table, _prev_lt
+from psac_tpu_torch.verify.cases import psv_adversaries
 
 torch.set_num_threads(1)
 
@@ -115,3 +117,201 @@ def test_wrapper_rejects_other_dtypes():
     with pytest.raises(ValueError):
         t_bansv.block_psv(torch.zeros(8, dtype=torch.int16, device="meta"),
                           True)
+
+
+# ---------------------------------------------------------------------------
+# numpy model of csrc/bansv.cu: a doubling min-table over each tile's
+# window, binary lifting, then a warp climb by ballot for what lies before
+# ---------------------------------------------------------------------------
+
+def _hit(a, v, strict):
+    return a < v if strict else a <= v
+
+
+def _kernel_model(x, strict, lanes=32):
+    """K5's arithmetic on a numpy array, with the block width, tile and
+    warp width of ``t_bansv.KERNEL_BLOCK``, ``KERNEL_TILE`` and ``lanes``.
+    Every read is asserted to be in bounds (the levels inside the wrapper's
+    scratch, the table entries defined, every block descended into full).
+    Returns (psv, stats): stats counts the in-window answers, the climbers
+    by the level where they found their block, and the levels descended."""
+    B, T = t_bansv.KERNEL_BLOCK, t_bansv.KERNEL_TILE
+    assert T % B == 0
+    s = len(x)
+    inf = np.iinfo(x.dtype).max
+    levels = [x]
+    while len(levels[-1]) > B:
+        a = levels[-1]
+        pad = np.concatenate([a, np.full(-len(a) % B, inf, x.dtype)])
+        levels.append(pad.reshape(-1, B).min(axis=1))
+    assert [len(a) for a in levels[1:]] == cuda_lib.level_sizes(s, B)
+    W, LOG = 2 * T, (2 * T).bit_length() - 1
+    out = np.empty(s, np.int64)
+    stats = {"window": 0, "climbed": 0, "none": 0, "found_at_level": {},
+             "descended": 0}
+
+    def read(k, j):
+        assert 0 <= j < len(levels[k]), (k, j)
+        return levels[k][j]
+
+    def load_run(k, top, lo):
+        """load_run: a block's entries from its end, ``lanes`` a read."""
+        return {j: read(k, j) for j in range(lo, top + 1)}
+
+    def last_hit(ent, top, lo, v):
+        """last_hit: one ballot per ``lanes`` entries from the end."""
+        for r in range(-(-B // lanes)):
+            m = [lo <= j < top + 1 and _hit(ent[j], v, strict)
+                 for j in range(top - lanes * r, top - lanes * (r + 1), -1)]
+            if any(m):
+                return top - lanes * r - m.index(True)
+        return -1
+
+    def warp_climb(p, vals):
+        """warp_climb for the climbing lanes' values ``vals`` (lane order):
+        one region load per level shared by every lane, its minimum picks
+        the lanes found there; then each found lane descends."""
+        e = [-1] * len(vals)
+        kf = [0] * len(vals)
+        open_ = set(range(len(vals)))
+        k = 1
+        while k < len(levels) and open_:
+            lo = p // B * B
+            if p > lo:
+                ent = load_run(k, p - 1, lo)
+                rmin = min(ent.values())
+                found = sorted(c for c in open_ if _hit(rmin, vals[c], strict))
+                for c in found:
+                    e[c] = last_hit(ent, p - 1, lo, vals[c])
+                    assert e[c] >= 0
+                    kf[c] = k
+                    stats["found_at_level"][k] = stats["found_at_level"].get(
+                        k, 0) + 1
+                open_ -= set(found)
+            p //= B
+            k += 1
+        for c in range(len(vals)):
+            if c in open_:
+                continue
+            for lev in range(kf[c] - 1, -1, -1):
+                first = e[c] * B
+                # a full block, wholly before the window
+                assert first + B <= (s if lev == 0 else len(levels[lev]))
+                ent = load_run(lev, first + B - 1, first)
+                e[c] = last_hit(ent, first + B - 1, first, vals[c])
+                assert e[c] >= 0
+                stats["descended"] += 1
+        return e
+
+    for b in range(-(-s // T)):
+        base = b * T
+        win = np.full(W, inf, x.dtype)
+        if b > 0:
+            win[:T] = x[base - T:base]
+        own = x[base:base + T]
+        win[T:T + len(own)] = own
+        # tab[k][j] = min(win[j .. j + 2^k)), defined for j + 2^k <= W
+        tab = [win]
+        for k in range(1, LOG):
+            w = 1 << (k - 1)
+            prev = tab[-1]
+            cur = np.full(W, -1, np.int64)  # -1 marks undefined
+            n_def = W - 2 * w + 1
+            cur[:n_def] = np.minimum(prev[:n_def], prev[w:w + n_def])
+            tab.append(cur)
+        t = np.arange(T)
+        p = T + t
+        v = win[T:]
+        lob = 0 if b > 0 else T
+        skip = np.zeros(T, np.int64)
+        for k in range(LOG - 1, -1, -1):
+            lo = p - skip - (1 << k)
+            ok = lo >= lob
+            assert (lo[ok] + (1 << k) <= W).all()
+            m = tab[k][np.where(ok, lo, 0)]
+            skip = np.where(ok & ~_hit(m, v, strict), skip + (1 << k), skip)
+        at = p - skip - 1
+        ans = np.where(at >= lob, base - T + at, -1)
+        ws = base - T
+        valid = base + t < s
+        need = valid & (at < lob) & (ws > 0)
+        stats["window"] += int((valid & (at >= lob)).sum())
+        stats["climbed"] += int(need.sum())
+        for warp0 in range(0, T, lanes):
+            todo = [t for t in range(warp0, warp0 + lanes) if need[t]]
+            if todo:
+                for t, e in zip(todo, warp_climb(ws // B, v[todo])):
+                    ans[t] = e
+        n = min(T, s - base)
+        out[base:base + n] = ans[:n]
+    stats["none"] = int((out < 0).sum())
+    return out.astype(np.int32), stats
+
+
+def _as(a, dt):
+    a = a.astype(np.int64)
+    if dt == np.int64:
+        a = a * (1 << 33) - (1 << 40)
+    return a.astype(dt)
+
+
+# (B, TILE, lanes): shrunk so that small inputs reach every level, and the
+# kernel's own widths
+_GEOMETRIES = [(4, 4, 4), (4, 8, 2), (8, 16, 4), (256, 256, 32)]
+
+
+@pytest.mark.parametrize("strict", [True, False])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+@pytest.mark.parametrize("geom", _GEOMETRIES, ids=lambda g: "B%d_T%d_w%d" % g)
+def test_kernel_model_vs_plain(geom, dt, strict, monkeypatch):
+    """The model against the plain version at sizes below, at and across
+    TILE, 2 TILE, B^2 and B^3 (capped at the kernel's widths)."""
+    B, T, lanes = geom
+    monkeypatch.setattr(t_bansv, "KERNEL_BLOCK", B)
+    monkeypatch.setattr(t_bansv, "KERNEL_TILE", T)
+    sizes = {1, T - 1, T, T + 1, 2 * T, 2 * T + 1, 3 * T + 5, B * B + 1}
+    if B < 16:  # at the kernel's widths, B^2 is test_kernel_model_vs_jax's
+        sizes |= {B * B - 1, B * B, B**3 - 1, B**3 + 1, B**4 + 3}
+    levels_seen = set()
+    for n in sorted(z for z in sizes if z > 0):
+        for name, a in psv_adversaries(n, seed=n).items():
+            a = _as(a, DTYPES[dt])
+            got, st = _kernel_model(a, strict, lanes)
+            want = t_bansv.block_psv_plain(torch.from_numpy(a), strict)
+            np.testing.assert_array_equal(got, want.numpy(),
+                                          err_msg=f"{name}{n}")
+            levels_seen |= set(st["found_at_level"])
+    if B < 16:  # every level above 0 is where some climb found its block
+        assert levels_seen >= {1, 2, 3}, levels_seen
+
+
+@pytest.mark.parametrize("strict", [True, False])
+@pytest.mark.parametrize("dt", sorted(DTYPES))
+def test_kernel_model_vs_jax(dt, strict):
+    """The model at the kernel's own widths against the JAX ``block_psv``
+    on the adversaries, across two superblocks."""
+    for n in (257, 70000):
+        for name, a in psv_adversaries(n, seed=7 + n).items():
+            a = _as(a, DTYPES[dt])
+            got, st = _kernel_model(a, strict)
+            with _x64_ctx(jnp.int64 if dt == "int64" else jnp.int32):
+                want = np.asarray(_J_PSV(jnp.asarray(a), strict))
+            np.testing.assert_array_equal(got, want, err_msg=f"{name}{n}")
+            if name == "decreasing":
+                # every element past the first two tiles climbs, in vain
+                assert st["climbed"] == max(0, n - 2 * t_bansv.KERNEL_TILE)
+                assert st["none"] == n and st["window"] == 0
+
+
+def test_kernel_model_far_minimum_descends_every_level(monkeypatch):
+    """A far global minimum: the last elements climb to the top level and
+    descend through every level below it."""
+    monkeypatch.setattr(t_bansv, "KERNEL_BLOCK", 4)
+    monkeypatch.setattr(t_bansv, "KERNEL_TILE", 4)
+    a = psv_adversaries(4**4 + 9, seed=3)["far_min"].astype(np.int32)
+    got, st = _kernel_model(a, True, lanes=4)
+    np.testing.assert_array_equal(
+        got, t_bansv.block_psv_plain(torch.from_numpy(a), True).numpy())
+    top = len(cuda_lib.level_sizes(len(a), 4))
+    assert max(st["found_at_level"]) == top
+    assert st["descended"] >= top * st["found_at_level"][top]

@@ -194,6 +194,38 @@ def test_block_psv_kernel_vs_plain(cuda, kind, dtype):
         assert bansv.block_psv.launches == before + 2
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("kind", ["decreasing", "far_min", "sparse_tiny",
+                                  "random"])
+def test_block_psv_kernel_on_adversaries(cuda, kind, dtype):
+    """K5 at 2^20 on the inputs that leave the window: every element climbs
+    to the top in vain (decreasing), the last ones climb and descend
+    through every level (far_min), a few climbers in many warps
+    (sparse_tiny)."""
+    a = cases.psv_adversaries(1 << 20, seed=20)[kind]
+    if dtype == torch.int64:
+        a = a * (1 << 33) - (1 << 40)
+    x = torch.from_numpy(a).to(dtype).to(cuda)
+    before = bansv.block_psv.launches
+    for strict in (True, False):
+        _same((bansv.block_psv(x, strict),),
+              (bansv.block_psv_plain(x, strict),))
+    assert bansv.block_psv.launches == before + 2
+
+
+@pytest.mark.parametrize("n", [511, 512, 513, 65535, 65537, (1 << 24) - 1,
+                               (1 << 24) + 1])
+def test_block_psv_kernel_around_tiles_and_levels(cuda, n):
+    """Lengths around one and two tiles and B^2 and B^3 (B = 256), where the
+    hierarchy gains a level."""
+    for kind in ("far_min", "sparse_tiny"):
+        a = cases.psv_adversaries(n, seed=n)[kind]
+        x = torch.from_numpy(a.astype(np.int32)).to(cuda)
+        for strict in (True, False):
+            _same((bansv.block_psv(x, strict),),
+                  (bansv.block_psv_plain(x, strict),))
+
+
 def test_public_ansv_runs_on_the_card_by_default(cuda):
     from psac_tpu_torch import ansv
 
@@ -351,6 +383,39 @@ def test_rmq_resolve_kernel_vs_plain(cuda, s, L, dtype):
     got = b._resolve_local(r.x, kq, lq, rq, d)
     _same((got,), (rmq.rmq_resolve_plain(r, kq, lq, rq, None, d, Lm=1,
                                          packing="rows", nq=m),))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("s", [8 * 4099, 128 * 257, 1 << 18])
+def test_rmq_resolve_kernel_mostly_wide(cuda, s, dtype):
+    """K6 on a resolve whose ranges are mostly 8 or more wide (each warp
+    takes its wide queries in turn), every packing; and on an LCP that
+    starts 4 bytes past a 16-byte boundary, where narrow ranges are read
+    element by element."""
+    from psac_tpu_torch.models.suffix_array import _Builder
+
+    block = rmq.block_size_for(s)
+    lcp = cases.resolve_lcp(s, seed=s + 1)
+    rows, lo, hi, j = cases.wide_resolve_queries(s, s // 2, block, 4, seed=s)
+    inf = torch.iinfo(dtype).max
+    q = {k: torch.from_numpy(v).to(cuda).to(dtype) for k, v in
+         cases.resolve_query_arrays(s, rows, lo, hi, j, inf).items()}
+    b = _Builder(s, (4, 4), 3, True, dtype, cuda)
+    host = torch.from_numpy(lcp).to(dtype)
+    shifted = torch.cat([host[:1], host]).to(cuda)[1:]  # unaligned view
+    assert shifted.data_ptr() % 16 != 0
+    want = cases.resolve_expected(lcp, rows, lo, hi, j, 9)
+    for x in (host.to(cuda), shifted):
+        r = rmq.build_local_rmq(x)
+        for packing in rmq.PACKINGS:
+            ks, ls, rs, js, Lm, _ = b._pack_queries(q, 4, packing)
+            kw = dict(Lm=Lm, packing=packing, nq=len(rows))
+            before = rmq.rmq_resolve.launches
+            got = rmq.rmq_resolve(r, ks, ls, rs, js, 9, **kw)
+            assert rmq.rmq_resolve.launches == before + 1
+            _same((got,), (rmq.rmq_resolve_plain(r, ks, ls, rs, js, 9, **kw,
+                                                 m_pad=4096),))
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])

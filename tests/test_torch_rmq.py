@@ -16,7 +16,8 @@ from psac_tpu_torch.ops import rmq as t_rmq
 from psac_tpu_torch.parallel.route import route_scatter
 from psac_tpu_torch.verify.cases import (resolve_expected as expected,
                                          resolve_lcp, resolve_queries,
-                                         resolve_query_arrays)
+                                         resolve_query_arrays,
+                                         wide_resolve_queries)
 
 torch.set_num_threads(1)
 
@@ -124,67 +125,100 @@ def test_query_local_rmq_vs_jax(block, dt):
 
 
 # ---------------------------------------------------------------------------
-# numpy model of csrc/rmq_resolve.cu: eight lanes per query, a warp of four
+# numpy model of csrc/rmq_resolve.cu: one query per thread, 32 per warp
 # ---------------------------------------------------------------------------
 
-GROUP = 8
+NARROW = 8
+WARP = 32
 
 
-def _kernel_model(lcp, table, block, ks, ls, rs, js, nq, Lm, mode, d, inf):
-    """The kernel's arithmetic, query by query and lane by lane, on numpy
-    arrays; every read is asserted to be in bounds."""
+def _kernel_model(lcp, table, block, ks, ls, rs, js, nq, Lm, mode, d, inf,
+                  vec=None, stats=None):
+    """The kernel's arithmetic, warp by warp and thread by thread, on numpy
+    arrays; every read is asserted to be in bounds.  ``vec``: whether a
+    narrow range is read as the 16-byte words that cover it (the launcher's
+    choice when the LCP is aligned and s a multiple of the words' width;
+    default: that rule with an aligned LCP).  ``stats`` (a dict) counts the
+    narrow and wide queries and the warps holding both."""
     s = len(lcp)
     nb = table.shape[1]
     flat = table.reshape(-1)
     bshift = block.bit_length() - 1
+    E = 16 // table.dtype.itemsize  # elements per 16-byte word
+    if vec is None:
+        vec = s % E == 0
     out = lcp.copy()
 
     def read(i):
         assert 0 <= i < s
         return int(lcp[i])
 
-    for q in range(nq):
-        key = int(ks[q])
-        if key == inf:
-            continue
-        k, j = key, 1
-        if mode == 2:
-            row = k
-            if js is not None:
-                j = int(js[q])
-        else:
-            if mode == 0 and k >= s * Lm:
-                k -= s * Lm
-            row = k // Lm
-            j = k - row * Lm + 1
-        l, r = int(ls[q]), int(rs[q])
-        lo = min(max(l, 0), s - 1)
-        hi = min(max(max(r, l), 0), s - 1)
-        if not 0 <= row < s:
-            continue
-        if hi - lo < GROUP:
-            m = min(read(lo + sub) for sub in range(GROUP) if lo + sub <= hi)
-        else:
-            bl, bh = lo >> bshift, hi >> bshift
-            lanes = [inf] * 32
-            lend = hi if bl == bh else ((bl + 1) << bshift) - 1
-            for lane in range(32):
-                for i in range(lo + lane, lend + 1, 32):
+    def narrow_min(lo, hi):
+        if not vec:
+            return min(read(lo + u) for u in range(NARROW) if lo + u <= hi)
+        c0, c1 = lo // E, hi // E
+        assert c1 - c0 < NARROW // E + 1  # the words a thread may load
+        words = {c: [read(c * E + u) for u in range(E)]
+                 for c in range(c0, c1 + 1)}  # whole words, all in bounds
+        return min(words[at // E][at % E] for at in range(lo, hi + 1))
+
+    def wide_min(lo, hi):
+        bl, bh = lo >> bshift, hi >> bshift
+        lanes = [inf] * WARP
+        lend = hi if bl == bh else ((bl + 1) << bshift) - 1
+        for lane in range(WARP):
+            for i in range(lo + lane, lend + 1, WARP):
+                lanes[lane] = min(lanes[lane], read(i))
+        if bl != bh:
+            for lane in range(WARP):
+                for i in range((bh << bshift) + lane, hi + 1, WARP):
                     lanes[lane] = min(lanes[lane], read(i))
-            if bl != bh:
-                for lane in range(32):
-                    for i in range((bh << bshift) + lane, hi + 1, 32):
-                        lanes[lane] = min(lanes[lane], read(i))
-                first = bl + 1
-                length = bh - first
-                if length > 0:
-                    lev = length.bit_length() - 1
-                    for lane, at in ((0, first), (1, bh - (1 << lev))):
-                        idx = lev * nb + at
-                        assert 0 <= at < nb and idx < len(flat)
-                        lanes[lane] = min(lanes[lane], int(flat[idx]))
-            m = min(lanes)
-        out[row] = j * d + m
+            first = bl + 1
+            length = bh - first
+            if length > 0:
+                lev = length.bit_length() - 1
+                for lane, at in ((0, first), (1, bh - (1 << lev))):
+                    idx = lev * nb + at
+                    assert 0 <= at < nb and idx < len(flat)
+                    lanes[lane] = min(lanes[lane], int(flat[idx]))
+        return min(lanes)
+
+    for w0 in range(0, nq, WARP):
+        live, wide = {}, []
+        for q in range(w0, min(w0 + WARP, nq)):  # one thread each
+            key = int(ks[q])
+            if key == inf:
+                continue
+            k, j = key, 1
+            if mode == 2:
+                row = k
+                if js is not None:
+                    j = int(js[q])
+            else:
+                if mode == 0 and k >= s * Lm:
+                    k -= s * Lm
+                row = k // Lm
+                j = k - row * Lm + 1
+            l, r = int(ls[q]), int(rs[q])
+            lo = min(max(l, 0), s - 1)
+            hi = min(max(max(r, l), 0), s - 1)
+            if not 0 <= row < s:
+                continue
+            if hi - lo < NARROW:
+                live[q] = (row, j, narrow_min(lo, hi))
+            else:
+                live[q] = (row, j, None)
+                wide.append((q, lo, hi))
+        for q, lo, hi in wide:  # the warp takes them in lane order
+            row, j, _ = live[q]
+            live[q] = (row, j, wide_min(lo, hi))
+        for row, j, m in live.values():
+            out[row] = j * d + m
+        if stats is not None:
+            stats["wide"] = stats.get("wide", 0) + len(wide)
+            stats["narrow"] = stats.get("narrow", 0) + len(live) - len(wide)
+            stats["mixed_warps"] = stats.get("mixed_warps", 0) + int(
+                0 < len(wide) < len(live))
     return out
 
 
@@ -218,6 +252,67 @@ def test_kernel_model_vs_plain(block, packing, L, dt):
                             nq=len(rows), m_pad=64)
     assert torch.equal(via, plain)
     assert t_rmq.rmq_resolve.launches == before
+
+
+@pytest.mark.parametrize("vec", [True, False], ids=["words", "elements"])
+@pytest.mark.parametrize("dt", [torch.int32, torch.int64], ids=["i32", "i64"])
+@pytest.mark.parametrize("packing", t_rmq.PACKINGS)
+@pytest.mark.parametrize("block", sorted(SIZES))
+def test_kernel_model_mostly_wide(block, packing, dt, vec):
+    """A resolve whose ranges are mostly 8 or more wide: nearly every warp
+    takes 28 wide queries in turn, beside its narrow ones.  Model, plain
+    version and the direct computation agree."""
+    s, L = SIZES[block], 4
+    lcp = resolve_lcp(s, seed=block + 5)
+    rows, lo, hi, j = wide_resolve_queries(s, s // 2, block, L, seed=block)
+    q = query_dict(s, rows, lo, hi, j, dt)
+    ks, ls, rs, js, Lm, _ = _builder(s, dt)._pack_queries(q, L, packing)
+    rmq = t_rmq.build_local_rmq(torch.from_numpy(lcp).to(dt))
+    d = 17
+    st = {}
+    model = _kernel_model(
+        lcp, rmq.table.numpy(), block, ks.numpy(), ls.numpy(), rs.numpy(),
+        None if js is None else js.numpy(), len(rows), Lm,
+        t_rmq.PACKINGS.index(packing), d, _inf(dt), vec=vec, stats=st)
+    want = expected(lcp, rows, lo, hi, j, d)
+    np.testing.assert_array_equal(model, want)
+    plain = t_rmq.rmq_resolve_plain(rmq, ks, ls, rs, js, d, Lm=Lm,
+                                    packing=packing, nq=len(rows), m_pad=64)
+    np.testing.assert_array_equal(plain.numpy(), want)
+    assert st["wide"] > 6 * st["narrow"]
+
+
+@pytest.mark.parametrize("dt", [torch.int32, torch.int64], ids=["i32", "i64"])
+def test_kernel_model_narrow_and_wide_in_one_warp(dt):
+    """One warp of 32 rows-packed queries: narrow ranges at every offset
+    from a 16-byte word's start (so a range covers one to three words at
+    int32, up to five at int64), wide ones between them, an INF key and a
+    range past the end; plus a length that is no multiple of the word
+    width, read element by element."""
+    for s in (32 * 33, 32 * 33 + 2):
+        lcp = resolve_lcp(s, seed=s)
+        rmq = t_rmq.build_local_rmq(torch.from_numpy(lcp).to(dt),
+                                    block=2 if s % 32 else 32)
+        inf = _inf(dt)
+        rng = np.random.RandomState(s)
+        rows = rng.permutation(s)[:WARP]
+        lo = 64 + np.arange(WARP) * 9 % 16 + np.arange(WARP) * 20
+        width = np.where(np.arange(WARP) % 3 == 2, 40 + 9 * np.arange(WARP),
+                         np.arange(WARP) % NARROW)
+        hi = lo + width
+        ks = rows.copy()
+        ks[5] = inf
+        hi[7] = 10 * s  # clamped to s - 1
+        t = {k: torch.from_numpy(v).to(dt) for k, v in
+             (("ks", ks), ("ls", lo), ("rs", hi))}
+        vec = s % (16 // torch.tensor([], dtype=dt).element_size()) == 0
+        st = {}
+        model = _kernel_model(lcp, rmq.table.numpy(), rmq.block, ks, lo, hi,
+                              None, WARP, 1, 2, 5, inf, vec=vec, stats=st)
+        plain = t_rmq.rmq_resolve_plain(rmq, t["ks"], t["ls"], t["rs"], None,
+                                        5, Lm=1, packing="rows", nq=WARP)
+        np.testing.assert_array_equal(model, plain.numpy())
+        assert st["mixed_warps"] == 1 and st["narrow"] > st["wide"] > 5
 
 
 @pytest.mark.parametrize("dt", [torch.int32, torch.int64], ids=["i32", "i64"])
