@@ -15,30 +15,40 @@
 //   * a minima hierarchy: level 0 is x, level k+1 holds the minima of the
 //     B-entry blocks of level k, built by one small reduction kernel per
 //     level until a level has at most B entries (4 levels at s = 2^26);
-//   * one thread block of TILE threads per TILE-element tile.  It stages
-//     the window (the previous tile, then its own) in shared memory and
-//     builds a doubling min-table over it, tab[k][j] = min(w[j .. j + 2^k)),
-//     one level per step, every thread two entries.  Each thread answers
-//     from its position by binary lifting leftwards, log2(2 TILE) steps:
-//     it skips the longest run of window entries that miss its value;
+//   * one resident wave of thread blocks; each answers a run of
+//     consecutive TILE-element tiles, THREADS threads taking TILE / THREADS
+//     elements of each tile (four by default, so that their liftings
+//     interleave).  A tile's window is the tile before and the tile
+//     itself, with a doubling min-table over it in shared memory,
+//     tab[k][j] = min(w[j .. j + 2^k)), kept as a ring of two tiles per
+//     level: when the window moves on by a tile, the entries inside the
+//     older tile stay, and per level the TILE entries that reach into the
+//     new tile are computed, one level per step.  So each element
+//     is read from device memory once and costs one table entry per level.
+//     Each element is answered by binary lifting leftwards from its
+//     position, log2(2 TILE) steps without a branch: it skips the longest
+//     run of window entries that miss its value;
 //   * the elements whose answer lies before the window (0.3% of a random
-//     DNA LCP, a few in random values, all of a decreasing array) are
-//     found by their warp, by ballot.  Going up, the warp loads the entries
-//     of the level's block that lie before the ancestor (B/32 = 8 per
-//     lane, coalesced, all issued at once), shared by all its climbing
-//     lanes, since they lie in one tile; the region's minimum tells in one
-//     ballot which lanes find their entry at this level, and for each of
-//     those, one ballot per 32 entries from the end gives the last hit (the
-//     lowest set lane).  Going down, the warp loads the chosen block's B
-//     entries the same way, for each found lane in turn.
+//     DNA LCP and of random values, all of a decreasing array) are found by
+//     their warp, by ballot.  Going up, the warp loads the entries of the
+//     level's block that lie before the ancestor (B/32 = 8 per lane,
+//     coalesced, all issued at once), shared by all its climbing lanes,
+//     since they lie in one tile; the region's minimum tells in one ballot
+//     which lanes find their entry at this level, and for each of those,
+//     one ballot per 32 entries from the end gives the last hit (the lowest
+//     set lane).  Going down, the warp loads the chosen block's B entries
+//     the same way, for each found lane in turn.
 //
-// What bounds it: bytes, one read of x and one int32 write per element
-// (0.0401 ms at 2^24 int32, 0.1603 ms at 2^26, at 3.35 TB/s); the window
-// is read twice (the previous tile again from L2) and the levels above 0
-// (s/B + s/B^2 + ... entries) stay in L2.  Per element the table costs
-// two shared-memory entries per level and the lifting log2(2 TILE)
-// dependent shared-memory loads.  No tensor cores: this is comparison
-// work.  The % of the bound it reaches is in PERF.md section 6.
+// What bounds it: compulsory bytes, one read of x and one int32 write per
+// element (0.0401 ms at 2^24 int32, 0.1603 ms at 2^26, at 3.35 TB/s); the
+// levels above 0 (s/B + s/B^2 + ... entries) stay in L2.  It reaches about
+// 17% of that bound on the 2^24 random values and 18% on the 2^26 LCP of
+// random DNA (PERF.md section 6).  What it spends instead is the window's
+// shared-memory work, about 165 instructions per element: one table entry
+// per level (two loads and a store), behind one barrier per level, and the
+// lifting's log2(2 TILE) dependent loads, seven instructions a step.  An
+// increasing array, where no element leaves its window, takes over 80% of
+// the random values' time.  No tensor cores: this is comparison work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,17 +56,24 @@
 #ifndef PSAC_K5_TILE
 #define PSAC_K5_TILE 256
 #endif
+#ifndef PSAC_K5_THREADS
+#define PSAC_K5_THREADS (PSAC_K5_TILE / 4)
+#endif
 
 namespace {
 
 constexpr int B = 256;  // width of the minima hierarchy's blocks
 constexpr int TILE = PSAC_K5_TILE;
+constexpr int THREADS = PSAC_K5_THREADS;  // per block
+constexpr int ELEMS = TILE / THREADS;     // tile elements per thread
 constexpr int WIN = 2 * TILE;
 constexpr int LOG_WIN = TILE == 256 ? 9 : TILE == 512 ? 10 : 11;
 constexpr int MAX_LEVELS = 8;
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(TILE % B == 0 && TILE <= 1024 && (1 << LOG_WIN) == WIN,
               "TILE is 256, 512 or 1024");
+static_assert(TILE % THREADS == 0 && THREADS % 32 == 0 && ELEMS <= 4,
+              "a thread takes 1, 2 or 4 elements of each tile");
 
 template <typename T>
 struct Inf;
@@ -130,7 +147,8 @@ __device__ __forceinline__ long long last_hit(const T (&ent)[RUN],
 #pragma unroll
   for (int r = 0; r < RUN; ++r) {
     const long long j = top - lane - 32 * r;
-    const unsigned m = __ballot_sync(FULL, j >= lo && hit<T, STRICT>(ent[r], v));
+    const unsigned m =
+        __ballot_sync(FULL, j >= lo && hit<T, STRICT>(ent[r], v));
     if (m) return top - 32 * r - (__ffs(m) - 1);
   }
   return -1;
@@ -197,73 +215,157 @@ __device__ long long warp_climb(const Levels<T>& lv, long long p, T v,
   return e;
 }
 
+// Slot of window position j (0 = the first element of the tile before
+// tile b) in the ring: tile q's elements sit in slots (q & 1) * TILE + ...
+__device__ __forceinline__ int slot(long long b, int j) {
+  return (j + static_cast<int>((b - 1) & 1) * TILE) & (WIN - 1);
+}
+
 template <typename T, bool STRICT>
-__global__ void __launch_bounds__(TILE)
-psv_kernel(const __grid_constant__ Levels<T> lv, long long s,
-           int32_t* __restrict__ out) {
-  // tab[k * WIN + j] = min(w[j .. j + 2^k)), defined for j + 2^k <= WIN;
-  // w = the previous tile, then this one
+__global__ void __launch_bounds__(THREADS)
+psv_kernel(const __grid_constant__ Levels<T> lv, long long s, long long nt,
+           long long per_block, int32_t* __restrict__ out) {
+  // tab[k * WIN + slot(b, j)] = min(w[j .. j + 2^k)), defined for
+  // j + 2^k <= WIN; w = tile b - 1, then tile b.  Thread t takes the
+  // tile's elements t + THREADS * e, e < ELEMS.
   extern __shared__ __align__(16) unsigned char smem[];
   T* tab = reinterpret_cast<T*>(smem);
   const T* x = lv.ptr[0];
-  const long long b = blockIdx.x;
-  const long long base = b * TILE;
+  const long long c0 = static_cast<long long>(blockIdx.x) * per_block;
+  const long long c1 = c0 + per_block < nt ? c0 + per_block : nt;
   const int t = threadIdx.x;
   const int lane = t & 31;
-  const long long i = base + t;
-  tab[t] = b > 0 ? x[base - TILE + t] : Inf<T>::v;
-  const T v = i < s ? x[i] : Inf<T>::v;
-  tab[TILE + t] = v;
-  __syncthreads();
+
+  // the first tile of the run: stage and build the whole window
+  {
+    const long long base = c0 * TILE;
 #pragma unroll
-  for (int k = 1; k < LOG_WIN; ++k) {
-    const int w = 1 << (k - 1);
-    const T* prev = tab + (k - 1) * WIN;
-    T* cur = tab + k * WIN;
-    const T a0 = prev[t], a1 = prev[t + w];
-    cur[t] = a1 < a0 ? a1 : a0;
-    if (TILE + t + 2 * w <= WIN) {
-      const T c0 = prev[TILE + t], c1 = prev[TILE + t + w];
-      cur[TILE + t] = c1 < c0 ? c1 : c0;
+    for (int e = 0; e < ELEMS; ++e) {
+      const int u = t + THREADS * e;
+      tab[slot(c0, u)] = c0 > 0 ? x[base - TILE + u] : Inf<T>::v;
+      tab[slot(c0, TILE + u)] = base + u < s ? x[base + u] : Inf<T>::v;
     }
     __syncthreads();
-  }
-
-  // skip the longest run of window entries that miss v, ending at p - 1
-  const int p = TILE + t;
-  const int lob = b > 0 ? 0 : TILE;
-  int skip = 0;
 #pragma unroll
-  for (int k = LOG_WIN - 1; k >= 0; --k) {
-    const int lo = p - skip - (1 << k);
-    if (lo >= lob && !hit<T, STRICT>(tab[k * WIN + lo], v)) skip += 1 << k;
+    for (int k = 1; k < LOG_WIN; ++k) {
+      const int w = 1 << (k - 1);
+      const T* prev = tab + (k - 1) * WIN;
+      T* cur = tab + k * WIN;
+#pragma unroll
+      for (int e = 0; e < 2 * ELEMS; ++e) {
+        const int j = t + THREADS * e;
+        if (j + 2 * w <= WIN) {
+          const T a0 = prev[slot(c0, j)], a1 = prev[slot(c0, j + w)];
+          cur[slot(c0, j)] = a1 < a0 ? a1 : a0;
+        }
+      }
+      __syncthreads();
+    }
   }
-  const int at = p - skip - 1;
-  long long ans = at >= lob ? base - TILE + at : -1;
 
-  // before the window: the warp climbs once for all such lanes
-  const long long ws = base - TILE;  // window start, a multiple of B
-  const unsigned todo = __ballot_sync(FULL, i < s && at < lob && ws > 0);
-  if (todo) {
-    const long long e = warp_climb<T, STRICT>(lv, ws / B, v, todo, lane);
-    if ((todo >> lane) & 1) ans = e;
+  T v[ELEMS];
+#pragma unroll
+  for (int e = 0; e < ELEMS; ++e) {
+    const long long i = c0 * TILE + t + THREADS * e;
+    v[e] = i < s ? x[i] : Inf<T>::v;
   }
-  if (i < s) out[i] = static_cast<int32_t>(ans);
+  for (long long b = c0; b < c1; ++b) {
+    const long long base = b * TILE;
+    // the next tile's elements, loaded while these are answered
+    T vn[ELEMS];
+#pragma unroll
+    for (int e = 0; e < ELEMS; ++e) {
+      const long long i = base + TILE + t + THREADS * e;
+      vn[e] = b + 1 < c1 && i < s ? x[i] : Inf<T>::v;
+    }
+    if (b > c0) {
+      // the window moves by one tile: tile b - 1's entries stay; stage
+      // tile b over tile b - 2 and compute, per level, the TILE entries
+      // that reach into tile b
+      __syncthreads();  // tile b - 1's liftings are done
+#pragma unroll
+      for (int e = 0; e < ELEMS; ++e)
+        tab[slot(b, TILE + t + THREADS * e)] = v[e];
+      __syncthreads();
+#pragma unroll
+      for (int k = 1; k < LOG_WIN; ++k) {
+        const int w = 1 << (k - 1);
+#pragma unroll
+        for (int e = 0; e < ELEMS; ++e) {
+          const int j = TILE - (1 << k) + 1 + t + THREADS * e;
+          const T a0 = tab[(k - 1) * WIN + slot(b, j)];
+          const T a1 = tab[(k - 1) * WIN + slot(b, j + w)];
+          tab[k * WIN + slot(b, j)] = a1 < a0 ? a1 : a0;
+        }
+        __syncthreads();
+      }
+    }
+
+    // skip the longest run of window entries that miss v, ending at p - 1.
+    // r is p's ring position, p + off, unmasked; a step may not start
+    // before the window's first position lob.  Branch free: every step
+    // loads its entry (the ring's mask keeps the load inside the table)
+    // and is kept only where it is allowed and misses.
+    const int lob = b > 0 ? 0 : TILE;
+    const int off = static_cast<int>((b - 1) & 1) * TILE;
+    int at[ELEMS];
+#pragma unroll
+    for (int e = 0; e < ELEMS; ++e) {
+      int r = TILE + t + THREADS * e + off;
+#pragma unroll
+      for (int k = LOG_WIN - 1; k >= 0; --k) {
+        const int c = r - (1 << k);
+        const T m = tab[k * WIN + (c & (WIN - 1))];
+        r = (c >= lob + off) & !hit<T, STRICT>(m, v[e]) ? c : r;
+      }
+      at[e] = r - off - 1;
+    }
+
+    const long long ws = base - TILE;  // window start, a multiple of B
+#pragma unroll
+    for (int e = 0; e < ELEMS; ++e) {
+      const long long i = base + t + THREADS * e;
+      long long ans = at[e] >= lob ? ws + at[e] : -1;
+      // before the window: the warp climbs once for all such lanes
+      const unsigned todo =
+          __ballot_sync(FULL, i < s && at[e] < lob && ws > 0);
+      if (todo) {
+        const long long f = warp_climb<T, STRICT>(lv, ws / B, v[e], todo, lane);
+        if ((todo >> lane) & 1) ans = f;
+      }
+      if (i < s) out[i] = static_cast<int32_t>(ans);
+      v[e] = vn[e];
+    }
+  }
 }
 
+// One resident wave of blocks, each answering a run of consecutive tiles.
 template <typename T, bool STRICT>
 int launch_psv(const Levels<T>& lv, long long s, int32_t* out,
                cudaStream_t stream) {
   const size_t smem = sizeof(T) * LOG_WIN * WIN;
+  cudaError_t err;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        psv_kernel<T, STRICT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    err = cudaFuncSetAttribute(psv_kernel<T, STRICT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, psv_kernel<T, STRICT>, THREADS, smem)) != cudaSuccess)
+    return static_cast<int>(err);
   const long long nt = (s + TILE - 1) / TILE;
-  psv_kernel<T, STRICT><<<static_cast<unsigned>(nt), TILE, smem, stream>>>(
-      lv, s, out);
+  const long long wave =
+      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  const long long per_block = (nt + wave - 1) / wave;
+  const long long blocks = (nt + per_block - 1) / per_block;
+  psv_kernel<T, STRICT>
+      <<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
+          lv, s, nt, per_block, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,15 +32,17 @@
 // pass sorted queries with `nq` the count of valid ones, or an unsorted
 // buffer with `nq` its length.
 //
-// What bounds it: bytes.  Each input read once and each output written
-// once: the LCP read and its copy written (2 s words), three or four query
-// words per query and at most two table words per wide query (0.0682 ms
-// for the 7,797,673 queries of the 2^24 `rep_dna` build's largest resolve
-// at 3.35 TB/s).  A narrow query reads one or two 32-byte sectors where it
+// What bounds it: compulsory bytes.  Each input read once and each output
+// written once: the LCP read and its copy written (2 s words), three or
+// four query words per query and at most two table words per wide query
+// (0.0682 ms for the 7,797,673 queries of the 2^24 `rep_dna` build's
+// largest resolve at 3.35 TB/s).  It reaches about 32% of that bound there
+// (96% of the queries narrow), and about 6% on a resolve whose queries are
+// seven in eight wide, where each warp takes 28 queries in turn (PERF.md
+// section 6).  A narrow query reads one or two 32-byte sectors where it
 // needs 4-32 bytes, so the scattered reads, not the bound's bytes, set the
 // pace.  All index arithmetic is 64-bit, so no int32 product of an invalid
-// row can overflow; values are int32 or int64 (a template).  The % of the
-// bound it reaches is in PERF.md section 6.
+// row can overflow; values are int32 or int64 (a template).
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -32,7 +32,7 @@ _BC = 512        # blocks per chunk of the plain all-pairs stage
 _QDIV = 64       # distant-block resolve chunk = max(s // _QDIV, _QMIN)
 _QMIN = 2048
 KERNEL_BLOCK = 256  # B of csrc/bansv.cu: the minima hierarchy's width
-KERNEL_TILE = 256   # TILE of csrc/bansv.cu: elements per thread block
+KERNEL_TILE = 256   # TILE of csrc/bansv.cu: a window is two such tiles
 
 
 def _cmp(a, b, strict: bool):

@@ -1,15 +1,21 @@
 """Time K5 (``csrc/bansv.cu``, the previous-smaller pass) at each tile
-width it takes, on one NVIDIA GPU.
+width and block size it takes, on one NVIDIA GPU.
 
-The kernel's tile (elements per thread block, the window being two tiles)
-is fixed when it is compiled (``PSAC_K5_TILE``, 256 by default).  This
-script compiles ``bansv.cu`` once for each of 256, 512 and 1024 into
-``psac_tpu_torch/_build/``, holds each against the plain version on the
-inputs below, and times them in turns (256, 512, 1024, 1024, 512, 256;
-CUDA-event means over 10 launches after a warm-up): the LCP of 2^26
-random DNA (the DESA's TLDT build), 2^24 random values in [0, 2^16) (the
-public ANSV), the 2^24 decreasing array and 2^22 int64 values.  It prints
-one JSON line and, before it, the card's name and power limit.
+The kernel's tile (elements per tile, the window being two tiles) and its
+threads per block are fixed when it is compiled (``PSAC_K5_TILE``, 256 by
+default; ``PSAC_K5_THREADS``, the tile by default, so one element per
+thread; 128 or 64 give a thread two or four elements of each tile).  This
+script compiles ``bansv.cu`` once for each (tile, threads) of ``VARIANTS``
+into ``psac_tpu_torch/_build/`` (one ``nvcc`` each, all started
+together), holds each against the plain version on the inputs below, and
+times them in turns (the variants in order, then in reverse; CUDA-event
+means over 10 launches after a warm-up; ``--against`` adds other
+``bansv.cu`` files to the turns): the LCP of 2^26 random DNA (the DESA's
+TLDT build), 2^24 random values in [0, 2^16) (the public ANSV), the 2^24
+decreasing array (every element climbs the minima hierarchy), the 2^24
+increasing array (no element leaves its window, and no lifting step
+skips) and 2^22 int64 values.  It prints one JSON line and,
+before it, the card's name and power limit.
 
 Run from the repository root:  python3 -m psac_tpu_torch.tools.k5_tile_sweep
 (``--log2n`` sets the LCP's length.)
@@ -26,19 +32,30 @@ import sys
 
 import numpy as np
 
-TILES = (256, 512, 1024)
+# (tile, threads per block)
+VARIANTS = ((256, 256), (256, 128), (256, 64), (512, 256), (1024, 256))
 
 
-def build_variant(tile: int) -> ctypes.CDLL:
+def start_build(tag: str, src: str, defs: dict) -> tuple:
+    """Start compiling ``src`` (a ``bansv.cu``) with the macros ``defs``
+    into ``_build/libpsac_k5_<tag>.so``; returns (process, path)."""
     from psac_tpu_torch.ops import cuda_lib
 
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
-    so = os.path.join(cuda_lib.BUILD_DIR, f"libpsac_k5_tile{tile}.so")
-    subprocess.run(
+    so = os.path.join(cuda_lib.BUILD_DIR, f"libpsac_k5_{tag}.so")
+    proc = subprocess.Popen(
         [cuda_lib._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-         "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
-         f"-DPSAC_K5_TILE={tile}", "-o", so,
-         os.path.join(cuda_lib.CSRC_DIR, "bansv.cu")], check=True)
+         "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared"]
+        + [f"-D{k}={v}" for k, v in defs.items()] + ["-o", so, src])
+    return proc, so
+
+
+def load(proc, so: str) -> ctypes.CDLL:
+    """The library of a build started by ``start_build``."""
+    from psac_tpu_torch.ops import cuda_lib
+
+    if proc.wait() != 0:
+        raise RuntimeError(f"nvcc failed for {so}")
     lib = ctypes.CDLL(so)
     for name in ("psac_block_psv_i32", "psac_block_psv_i64"):
         fn = getattr(lib, name)
@@ -71,6 +88,10 @@ def psv(lib, x, strict: bool):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log2n", type=int, default=26)
+    ap.add_argument("--against", action="append", default=[],
+                    help="another bansv.cu (e.g. an earlier commit's, "
+                    "unpacked under scratch/), timed in the same turns; "
+                    "may be repeated")
     args = ap.parse_args()
 
     import torch
@@ -94,19 +115,29 @@ def main() -> int:
         f"2^{args.log2n} LCP": lcp.astype(np.int32),
         "2^24 random int32": rng.randint(0, 1 << 16, 1 << 24).astype(np.int32),
         "2^24 decreasing int32": np.arange(1 << 24, 0, -1).astype(np.int32),
+        "2^24 increasing int32": np.arange(1 << 24).astype(np.int32),
         "2^22 int64": rng.randint(0, 1 << 16, 1 << 22).astype(np.int64) << 33,
     }
     inputs = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
-    libs = {t: build_variant(t) for t in TILES}
+    from psac_tpu_torch.ops import cuda_lib
+
+    src = os.path.join(cuda_lib.CSRC_DIR, "bansv.cu")
+    builds = {f"tile {t} x {n}": start_build(
+        f"t{t}x{n}", src, {"PSAC_K5_TILE": t, "PSAC_K5_THREADS": n})
+        for t, n in VARIANTS}
+    for n, path in enumerate(args.against):
+        builds[path] = start_build(f"against{n}", path, {})
+    libs = {k: load(*b) for k, b in builds.items()}
     for label, x in inputs.items():
         for strict in (True, False):
             want = block_psv_plain(x, strict)
             for t, lib in libs.items():
                 if not torch.equal(psv(lib, x, strict), want):
-                    raise AssertionError(f"tile {t} differs from the plain "
+                    raise AssertionError(f"{t} differs from the plain "
                                          f"version on {label}")
-    times = {label: {t: [] for t in TILES} for label in inputs}
-    for t in TILES + TILES[::-1]:
+    names = list(libs)
+    times = {label: {t: [] for t in names} for label in inputs}
+    for t in names + names[::-1]:
         for label, x in inputs.items():
             fn = lambda: psv(libs[t], x, True)  # noqa: E731
             fn()
@@ -120,11 +151,10 @@ def main() -> int:
             times[label][t].append(start.elapsed_time(end) / 10)
     for label, row in times.items():
         print(f"[k5-tile] {label}, strict: " + ", ".join(
-            f"tile {t} {' / '.join(f'{v:.4f}' for v in row[t])} ms"
-            for t in TILES) + f" on {card}", flush=True)
+            f"{t} {' / '.join(f'{v:.4f}' for v in row[t])} ms"
+            for t in names) + f" on {card}", flush=True)
     print(card)
-    print(json.dumps({"k5_tile_ms": {label: {str(t): v for t, v in row.items()}
-                                     for label, row in times.items()},
+    print(json.dumps({"k5_ms": times,
                       "device": torch.cuda.get_device_name(0)}))
     return 0
 

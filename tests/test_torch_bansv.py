@@ -128,11 +128,13 @@ def _hit(a, v, strict):
     return a < v if strict else a <= v
 
 
-def _kernel_model(x, strict, lanes=32):
+def _kernel_model(x, strict, lanes=32, wave=3):
     """K5's arithmetic on a numpy array, with the block width, tile and
-    warp width of ``t_bansv.KERNEL_BLOCK``, ``KERNEL_TILE`` and ``lanes``.
-    Every read is asserted to be in bounds (the levels inside the wrapper's
-    scratch, the table entries defined, every block descended into full).
+    warp width of ``t_bansv.KERNEL_BLOCK``, ``KERNEL_TILE`` and ``lanes``,
+    the tiles split into at most ``wave`` runs of consecutive tiles (one
+    thread block each).  Every read is asserted to be in bounds (the levels
+    inside the wrapper's scratch, every table entry holding the range of
+    the window position it is read for, every block descended into full).
     Returns (psv, stats): stats counts the in-window answers, the climbers
     by the level where they found their block, and the levels descended."""
     B, T = t_bansv.KERNEL_BLOCK, t_bansv.KERNEL_TILE
@@ -203,47 +205,76 @@ def _kernel_model(x, strict, lanes=32):
                 stats["descended"] += 1
         return e
 
-    for b in range(-(-s // T)):
-        base = b * T
-        win = np.full(W, inf, x.dtype)
-        if b > 0:
-            win[:T] = x[base - T:base]
-        own = x[base:base + T]
-        win[T:T + len(own)] = own
-        # tab[k][j] = min(win[j .. j + 2^k)), defined for j + 2^k <= W
-        tab = [win]
-        for k in range(1, LOG):
-            w = 1 << (k - 1)
-            prev = tab[-1]
-            cur = np.full(W, -1, np.int64)  # -1 marks undefined
-            n_def = W - 2 * w + 1
-            cur[:n_def] = np.minimum(prev[:n_def], prev[w:w + n_def])
-            tab.append(cur)
-        t = np.arange(T)
-        p = T + t
-        v = win[T:]
-        lob = 0 if b > 0 else T
-        skip = np.zeros(T, np.int64)
-        for k in range(LOG - 1, -1, -1):
-            lo = p - skip - (1 << k)
-            ok = lo >= lob
-            assert (lo[ok] + (1 << k) <= W).all()
-            m = tab[k][np.where(ok, lo, 0)]
-            skip = np.where(ok & ~_hit(m, v, strict), skip + (1 << k), skip)
-        at = p - skip - 1
-        ans = np.where(at >= lob, base - T + at, -1)
-        ws = base - T
-        valid = base + t < s
-        need = valid & (at < lob) & (ws > 0)
-        stats["window"] += int((valid & (at >= lob)).sum())
-        stats["climbed"] += int(need.sum())
-        for warp0 in range(0, T, lanes):
-            todo = [t for t in range(warp0, warp0 + lanes) if need[t]]
-            if todo:
-                for t, e in zip(todo, warp_climb(ws // B, v[todo])):
-                    ans[t] = e
-        n = min(T, s - base)
-        out[base:base + n] = ans[:n]
+    # the table: a ring of two tiles per level, tile q in slots (q & 1) * T
+    # onwards; every entry carries the global index where its range starts
+    tab = np.zeros((LOG, W), np.int64)
+    tag = np.full((LOG, W), -(1 << 62), np.int64)  # never a real start
+
+    def slot(b, j):
+        return (j + ((b - 1) & 1) * T) & (W - 1)
+
+    def entry(b, k, j):
+        """tab[k][slot(b, j)], asserted to hold min(w[j .. j + 2^k))."""
+        assert ((0 <= j) & (j + (1 << k) <= W)).all()
+        sl = slot(b, j)
+        assert (tag[k, sl] == b * T - T + j).all(), (b, k, j)
+        return tab[k, sl]
+
+    def put(b, k, j, val):
+        sl = slot(b, j)
+        tab[k, sl], tag[k, sl] = val, b * T - T + j
+
+    def elem(i):
+        return np.where((i >= 0) & (i < s), x[np.clip(i, 0, s - 1)], inf)
+
+    nt = -(-s // T)
+    per_block = -(-nt // wave)
+    t = np.arange(T)
+    for c0 in range(0, nt, per_block):  # one thread block each
+        for b in range(c0, min(c0 + per_block, nt)):
+            base = b * T
+            if b == c0:  # stage and build the whole window
+                j = np.arange(W)
+                put(b, 0, j, elem(base - T + j))
+                for k in range(1, LOG):
+                    w = 1 << (k - 1)
+                    j = np.arange(W - (1 << k) + 1)
+                    put(b, k, j, np.minimum(entry(b, k - 1, j),
+                                            entry(b, k - 1, j + w)))
+            else:  # stage tile b; per level the T entries reaching into it
+                put(b, 0, T + t, elem(base + t))
+                for k in range(1, LOG):
+                    w = 1 << (k - 1)
+                    j = T - (1 << k) + 1 + t
+                    put(b, k, j, np.minimum(entry(b, k - 1, j),
+                                            entry(b, k - 1, j + w)))
+            v = elem(base + t)
+            lob = 0 if b > 0 else T
+            # the lifting on ring positions r = p + off, unmasked: every
+            # step loads (masked into the table); a kept step's entry
+            # must hold its range
+            off = ((b - 1) & 1) * T
+            r = T + t + off
+            for k in range(LOG - 1, -1, -1):
+                c = r - (1 << k)
+                m = tab[k, c & (W - 1)]
+                ok = c >= lob + off
+                assert (m[ok] == entry(b, k, c[ok] - off)).all()
+                r = np.where(ok & ~_hit(m, v, strict), c, r)
+            at = r - off - 1
+            ans = np.where(at >= lob, base - T + at, -1)
+            ws = base - T
+            valid = base + t < s
+            need = valid & (at < lob) & (ws > 0)
+            stats["window"] += int((valid & (at >= lob)).sum())
+            stats["climbed"] += int(need.sum())
+            for warp0 in range(0, T, lanes):
+                todo = [u for u in range(warp0, warp0 + lanes) if need[u]]
+                if todo:
+                    for u, e in zip(todo, warp_climb(ws // B, v[todo])):
+                        ans[u] = e
+            n = min(T, s - base)
+            out[base:base + n] = ans[:n]
     stats["none"] = int((out < 0).sum())
     return out.astype(np.int32), stats
 
@@ -255,18 +286,20 @@ def _as(a, dt):
     return a.astype(dt)
 
 
-# (B, TILE, lanes): shrunk so that small inputs reach every level, and the
-# kernel's own widths
-_GEOMETRIES = [(4, 4, 4), (4, 8, 2), (8, 16, 4), (256, 256, 32)]
+# (B, TILE, lanes, wave): shrunk so that small inputs reach every level,
+# and the kernel's own widths; one run of tiles for all, a few, one per tile
+_GEOMETRIES = [(4, 4, 4, 1), (4, 8, 2, 3), (8, 16, 4, 10**9),
+               (256, 256, 32, 3)]
 
 
 @pytest.mark.parametrize("strict", [True, False])
 @pytest.mark.parametrize("dt", sorted(DTYPES))
-@pytest.mark.parametrize("geom", _GEOMETRIES, ids=lambda g: "B%d_T%d_w%d" % g)
+@pytest.mark.parametrize("geom", _GEOMETRIES,
+                         ids=lambda g: "B%d_T%d_w%d_runs%d" % g)
 def test_kernel_model_vs_plain(geom, dt, strict, monkeypatch):
     """The model against the plain version at sizes below, at and across
     TILE, 2 TILE, B^2 and B^3 (capped at the kernel's widths)."""
-    B, T, lanes = geom
+    B, T, lanes, wave = geom
     monkeypatch.setattr(t_bansv, "KERNEL_BLOCK", B)
     monkeypatch.setattr(t_bansv, "KERNEL_TILE", T)
     sizes = {1, T - 1, T, T + 1, 2 * T, 2 * T + 1, 3 * T + 5, B * B + 1}
@@ -276,7 +309,7 @@ def test_kernel_model_vs_plain(geom, dt, strict, monkeypatch):
     for n in sorted(z for z in sizes if z > 0):
         for name, a in psv_adversaries(n, seed=n).items():
             a = _as(a, DTYPES[dt])
-            got, st = _kernel_model(a, strict, lanes)
+            got, st = _kernel_model(a, strict, lanes, wave)
             want = t_bansv.block_psv_plain(torch.from_numpy(a), strict)
             np.testing.assert_array_equal(got, want.numpy(),
                                           err_msg=f"{name}{n}")
@@ -315,3 +348,29 @@ def test_kernel_model_far_minimum_descends_every_level(monkeypatch):
     top = len(cuda_lib.level_sizes(len(a), 4))
     assert max(st["found_at_level"]) == top
     assert st["descended"] >= top * st["found_at_level"][top]
+
+
+def test_k5_sass_walks_one_tile_loop_without_climbs(tmp_path):
+    """``tools/k5_sass.py`` on a made-up listing: it picks the int32 strict
+    kernel, follows its tile loop and jumps over the climb after the
+    loop's first vote."""
+    from psac_tpu_torch.tools import k5_sass
+
+    def fn(name, body):
+        return [f"\t\tFunction : _ZN7psv{name}EEv"] + [
+            f"        /*{16 * i:04x}*/                   {t} ;"
+            for i, t in enumerate(body)]
+
+    head, tail = 2, 67
+    body = (["MOV R1, c[0x0][0x28]", "S2R R0, SR_TID.X", "LDS R2, [R3]",
+             "VOTE.ANY R4, PT, P0", f"@!P0 BRA 0x{16 * 66:x}"]
+            + ["SHFL.IDX PT, R5, R5, R6, 0x1f"] * 61
+            + ["STG.E desc[UR4][R6.64], R7", f"@P1 BRA 0x{16 * head:x}",
+               "EXIT", f"BRA 0x{16 * (tail + 2):x}"])
+    other = fn("_kernelIlLb1E", ["MOV R1, R2", "EXIT"])
+    path = tmp_path / "listing.txt"
+    path.write_text("\n".join(other + fn("_kernelIiLb1E", body)))
+    ins = k5_sass.kernel_listing(path.read_text())
+    assert k5_sass.no_climb_path(ins) == [
+        "LDS R2, [R3]", "VOTE.ANY R4, PT, P0", f"@!P0 BRA 0x{16 * 66:x}",
+        "STG.E desc[UR4][R6.64], R7", f"@P1 BRA 0x{16 * head:x}"]
