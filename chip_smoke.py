@@ -11,9 +11,13 @@ is the default): SA+LCP of 2^26 random DNA, SA+LCP of 2^24 repetitive DNA
 2^26 text and that of the 2^24 repetitive text (its ANSV pass runs on K2);
 the public ANSV of 2^24 values for five match-type pairs; the DESA of the
 2^26 text with both top-level indexes, answering batches of 65,536
-patterns of lengths 8, 20 and 64; the generalized suffix array + LCP and
-the generalized suffix tree of 16,384 random 4 KiB strings (2^26
-characters) and of a family of 64 near-identical 256 KiB strings (2^24).
+patterns of lengths 8, 20 and 64 (the blind search K7, held against its
+plain version on those batches' inputs); the generalized suffix array +
+LCP and the generalized suffix tree of 16,384 random 4 KiB strings (2^26
+characters) and of a family of 64 near-identical 256 KiB strings (2^24);
+then the command-line tools in processes of their own (``psac -f``,
+``gsac -f``, ``mkpattern``, ``desa -q`` building, saving and loading the
+index) on the same inputs, and ``d_check_sa`` on the file build.
 Every result is held against the native SA-IS + Kasai oracle, the
 sequential ANSV oracle, the sorting oracles or the plain path; the script
 prints the kernel table (each kernel's time beside its bound: the bytes it
@@ -29,6 +33,7 @@ Run from the repository root:  python3 chip_smoke.py
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -576,7 +581,8 @@ def gsa_phase(label: str, strings: list, want_k6: bool, card: str) -> dict:
     the host clock around synchronized calls, peak memory, launches per
     kernel.  The GSA + GLCP is held against the native host oracle, the GST
     against the plain path on the card.  With ``want_k6`` the build must
-    launch K6 and is repeated with the plain resolve in K6's place."""
+    launch K6 and is repeated with the plain resolve in K6's place.  The
+    host oracle's (GSA, GLCP) is returned as ``out["oracle"]``."""
     import torch
 
     from psac_tpu_torch.models.gsa import _flatten, build_gsa_device
@@ -632,6 +638,7 @@ def gsa_phase(label: str, strings: list, want_k6: bool, card: str) -> dict:
                              "oracle")
     rem = np.repeat(np.cumsum(lens), lens)[want_sa] - want_sa
     ties = int(((want_lcp[1:] == rem[1:]) & (want_lcp[1:] == rem[:-1])).sum())
+    out["oracle"] = (want_sa, want_lcp)
     del res, want_sa, want_lcp, rem
     plain = _gst_local(dgsa, PLAIN)
     if not torch.equal(tree.nodes, plain.nodes):
@@ -928,24 +935,32 @@ def sa_bounds(tpad: np.ndarray, sa: np.ndarray, pats: np.ndarray,
 
 
 def desa_phase(dev, text: bytes, sa_ref: np.ndarray, batch: int,
-               card: str) -> dict:
+               card: str, kern: dict) -> dict:
     """DESA of the text on the card (``build_desa`` with no device) with
     the TLLT and the TLDT; batches of ``batch`` patterns (half text
     substrings, half random DNA) of lengths 8, 20 and 64; every range
-    checked against the native SA."""
+    checked against the native SA.  K7's launches on the timed batches
+    count as the main path's; the inputs of the length-20 and -64 batches'
+    blind searches are recorded and K7 is checked on them
+    (``check_k7``, which adds its row to ``kern``)."""
     import torch
 
+    from unittest import mock
+
     from psac_tpu_torch import build_desa
+    from psac_tpu_torch.models import desa as desa_mod
     from psac_tpu_torch.models.desa import _sample_mask_local
     from psac_tpu_torch.models.suffix_array import (construct_device,
                                                     encode_and_shard)
     from psac_tpu_torch.ops.bansv import block_psv
+    from psac_tpu_torch.ops.blind_search import blind_search
     from psac_tpu_torch.ops.nsv_scan import nsv_scan_left
     from psac_tpu_torch.parallel.ansv import PLAIN
     from psac_tpu_torch.seq import SAIndex
 
     n = len(text)
     reset, read = counter((block_psv, nsv_scan_left))
+    reset_k7, read_k7 = counter((blind_search,))
     out = {}
     idx = {}
     for tli in ("tllt", "tldt"):
@@ -978,6 +993,7 @@ def desa_phase(dev, text: bytes, sa_ref: np.ndarray, batch: int,
     tarr = np.frombuffer(text, np.uint8)
     dna = np.frombuffer(b"ACGT", np.uint8)
     oracle = SAIndex(text, sa_ref)
+    k7_calls = {}
     for L in (8, 20, 64):
         half = batch // 2
         starts = rng.randint(0, n - L, half)
@@ -986,17 +1002,39 @@ def desa_phase(dev, text: bytes, sa_ref: np.ndarray, batch: int,
         mat = np.concatenate([sub, rnd])
         pats = [row.tobytes() for row in mat]
         res = {}
+        t0 = time.perf_counter()
+        idx["tllt"].encode_patterns(pats)
+        log(f"[desa] host encoding of {batch} x len {L} patterns "
+            f"(DESA.encode_patterns): {time.perf_counter() - t0:.3f} s")
         for tli, d in idx.items():
             d.bulk_locate(pats)  # warm-up at this shape
+            reset_k7()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res[tli] = d.bulk_locate(pats)
             dt = time.perf_counter() - t0
+            k7_counts = read_k7()
+            add_launches(k7_counts)
             out[f"qps_{tli}_L{L}"] = batch / dt
             log(f"[desa] {tli} bulk_locate {batch} x len {L}: {dt:.3f} s, "
                 f"{batch / dt:,.0f} patterns/s, blind-search steps "
                 f"{d.last_stats['steps']}, readbacks "
-                f"{d.last_stats['readbacks']}")
+                f"{d.last_stats['readbacks']}, launches {k7_counts}")
+            if (L > idx["tllt"].k or tli == "tldt") and \
+                    k7_counts["blind_search"] == 0:
+                raise AssertionError(f"K7 was not launched by {tli} "
+                                     f"bulk_locate at len {L}")
+            if L in (20, 64):
+                # the blind searches' inputs, for K7's check (not counted)
+                calls = []
+
+                def record(*args, calls=calls):
+                    calls.append(args)
+                    return blind_search(*args)
+
+                with mock.patch.object(desa_mod, "blind_search", record):
+                    d.bulk_locate(pats)
+                k7_calls[(tli, L)] = calls
         if not np.array_equal(res["tllt"], res["tldt"]):
             raise AssertionError(f"tllt and tldt ranges differ at len {L}")
         tpad = np.concatenate([tarr, np.zeros(L, np.uint8)])
@@ -1019,6 +1057,298 @@ def desa_phase(dev, text: bytes, sa_ref: np.ndarray, batch: int,
             f"({int((hi - lo).sum())} rows); every range == the native SA, "
             f"{min(batch, 1024)} == SAIndex")
     log(f"[desa] on {card}")
+    check_k7(k7_calls, card, kern)
+    return out
+
+
+def k7_reads(args, got) -> dict:
+    """What K7's walks read on this batch, each word of an input counted
+    once over the whole batch: a lockstep replay of the kernel's walk,
+    branch for branch, that marks the pattern codes and the Lc words of
+    each inner step, every LCP word read, the LCP words of each argmin's
+    edge scans and the table entries of each argmin that spans a full
+    block.  Its final (l, r, q, steps) must equal the kernel's ``got``.
+    ``scanned`` sums the edge words over the argmins (their comparisons)."""
+    import torch
+
+    from psac_tpu_torch.ops.blind_search import max_steps_for
+    from psac_tpu_torch.ops.rmq import _floor_log2, query_arg_rmq
+
+    pat, lens, l0, r0, need, lcp, lc, rmq, cap = args[:9]
+    B, Lmax = pat.shape
+    dev, block, nb = lcp.device, rmq.block, rmq.nb
+    i64 = torch.int64
+
+    def flags(size):  # one spare slot at the end takes unselected rows
+        return torch.zeros(size + 1, dtype=torch.bool, device=dev)
+
+    codes, lcp_w, lc_w = flags(B * Lmax), flags(cap), flags(cap)
+    tab_w = flags(rmq.tab_v.numel())
+    runs = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
+    scanned = torch.zeros((), dtype=i64, device=dev)
+
+    def mark(w, sel, idx):
+        w[torch.where(sel, idx, w.shape[0] - 1)] = True
+
+    def at(sel, i):
+        i = i.clamp(0, cap - 1)
+        mark(lcp_w, sel, i)
+        return lcp[i]
+
+    def argmin(sel, lo, hi):
+        nonlocal scanned
+        lo = lo.clamp(0, cap - 1)
+        hi = torch.maximum(hi, lo).clamp(0, cap - 1)
+        bl, bh = lo // block, hi // block
+        for a, b, s in ((lo, torch.where(bl == bh, hi, bl * block + block - 1),
+                         sel),
+                        (bh * block, hi, sel & (bl != bh))):
+            one = s.to(torch.int32)
+            runs.index_add_(0, torch.where(s, a, cap), one)
+            runs.index_add_(0, torch.where(s, b + 1, cap), -one)
+            scanned = scanned + torch.where(s, b - a + 1, 0).sum()
+        span = bh - bl - 1
+        full = sel & (span > 0)
+        lev = _floor_log2(span)
+        mark(tab_w, full, lev * nb + bl + 1)
+        mark(tab_w, full, lev * nb + bh - (1 << lev))
+        return query_arg_rmq(rmq, lo, hi).to(i64)
+
+    l, r, m = l0.to(i64), r0.to(i64), lens.to(i64)
+    rows = torch.arange(B, device=dev, dtype=i64) * Lmax
+    every = torch.ones(B, dtype=torch.bool, device=dev)
+    i = argmin(every, l + 1, r)
+    q = at(every, i)
+    done = ~need | ~((q < m) & (l < r) & (l < i))
+    fixing = torch.zeros_like(done)
+    steps = torch.zeros(B, dtype=i64, device=dev)
+    for _ in range(max_steps_for(cap)):
+        walk = ~done
+        if not bool(walk.any()):
+            break
+        inner, fix = walk & ~fixing, walk & fixing
+        code = rows + q.to(i64).clamp(0, Lmax - 1)
+        mark(codes, inner, code)
+        ic = i.clamp(0, cap - 1)
+        mark(lc_w, inner, ic)
+        hit = inner & (lc[ic] == pat.view(-1)[code])
+        last = inner & ~hit & (i == r)
+        go = inner & ~hit & (i != r)
+        below = i < r
+        r = torch.where(hit, i - 1, r)
+        l = torch.where(last | go, i, l)
+        i_go = argmin(go, l + 1, r)
+        stay = go & below & (at(go, i_go) == q)
+        i = torch.where(go, i_go, i)
+        lcpi = at(fix, i)
+        down = fix & (lcpi == q) & (l < r)
+        back = fix & (lcpi == q) & ~(l < r)
+        i_dn = argmin(down, l + 1, r)
+        q_fx = torch.where(down, at(down, i_dn),
+                           torch.where(back, at(back, l), lcpi))
+        i = torch.where(down, i_dn, torch.where(back, l, i))
+        q = torch.where(fix, q_fx, q)
+        done = done | (fix & ~((q < m) & (l < r) & (l < i)))
+        fixing = torch.where(fix, False, fixing | hit | last | (go & ~stay))
+        steps += walk
+    if not (torch.equal(l.to(torch.int32), got[0])
+            and torch.equal(r.to(torch.int32), got[1])
+            and torch.equal(q, got[2])
+            and torch.equal(steps.to(torch.int32), got[3])):
+        raise AssertionError("K7's read count replays another walk than the "
+                             "kernel's")
+    edge = runs[:cap].cumsum(0, dtype=torch.int32) > 0
+    return dict(codes=int(codes[:-1].sum()),
+                lcp=int((edge | lcp_w[:-1]).sum()), lc=int(lc_w[:-1].sum()),
+                tab=int(tab_w[:-1].sum()), scanned=int(scanned),
+                steps=int(steps.sum()))
+
+
+def k7_bound(args, got) -> dict:
+    """K7's bound from this batch's data, each input read once and each
+    output written once: the lengths, start ranges and flags, the
+    outputs, and the words of the pattern codes, the LCP, Lc and the table
+    (value and index) that the walks read (``k7_reads``).  One comparison
+    per edge word scanned and four per step."""
+    B, sz = args[0].shape[0], args[5].element_size()
+    w = k7_reads(args, got)
+    nbytes = (B * (3 * 4 + 1) + B * (3 * 4 + sz) + w["codes"] * 4
+              + w["lcp"] * sz + w["lc"] * 4 + w["tab"] * (sz + 4))
+    return dict(bound(nbytes, w["scanned"] + 4 * (B + w["steps"])), reads=w)
+
+
+def check_k7(k7_calls: dict, card: str, kern: dict) -> None:
+    """K7 against its plain version on the inputs of the main path's blind
+    searches (the 65,536-pattern batches of lengths 20 and 64: the TLLT's
+    slab search, the TLDT's sample and slab searches), timed both ways;
+    the kernel table's row is the TLLT slab search at length 20."""
+    from psac_tpu_torch.ops.blind_search import (blind_search,
+                                                 blind_search_plain)
+
+    for (tli, L), calls in sorted(k7_calls.items()):
+        for where, args in zip(("sample", "slab") if tli == "tldt"
+                               else ("slab",), calls):
+            got = blind_search(*args)
+            stats = {"readbacks": 0}
+            want = blind_search_plain(*args[:-1], stats)
+            err = max_abs_err(got, want)
+            b = k7_bound(args, got)
+            w = b.pop("reads")
+            ms = cuda_ms(lambda: blind_search(*args), 10)
+            plain_ms = cuda_ms(lambda: blind_search_plain(
+                *args[:-1], {"readbacks": 0}), 1)
+            log(f"[k7] {tli} {where} search, {args[0].shape[0]} x len {L} "
+                f"({args[5].shape[0]} rows): == plain (max abs err {err}); "
+                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                f"{b['bound_ms']:.4f} ms ({100 * b['bound_ms'] / ms:.2f}% "
+                f"reached), longest walk {int(got[3].max())} steps, "
+                f"{w['steps']} steps in all; words read once: {w['lcp']} LCP, "
+                f"{w['lc']} Lc, {w['tab']} table, {w['codes']} pattern; "
+                f"{w['scanned']} edge words scanned; {stats['readbacks']} "
+                f"plain readbacks on {card}")
+            if (tli, L, where) == ("tllt", 20, "slab"):
+                kern["blind_search"] = dict(
+                    route="cuda", source="psac_tpu_torch/csrc/blind_search.cu",
+                    replaces="psac_tpu/models/desa.py:609", max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, **b)
+
+
+def run_cli(args: list, label: str) -> str:
+    """``python -m psac_tpu_torch.cli`` with ``args`` and no ``--device``
+    (the card is the default) in a process of its own; returns its stderr.
+    A non-zero exit raises; the process is killed at its time limit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "psac_tpu_torch.cli"] + args, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
+        text=True, timeout=300)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exit {proc.returncode}\n"
+                             f"{proc.stderr[-4000:]}")
+    log(f"[cli] {label}: {dt:.2f} s of process wall; "
+        + (" | ".join(proc.stderr.strip().splitlines()) or "no stderr"))
+    return proc.stderr
+
+
+def cli_phase(text: bytes, sa_ref: np.ndarray, lcp_ref: np.ndarray,
+              gsa_strings: list, gsa_oracle: tuple, batch: int,
+              card: str) -> dict:
+    """The command-line tools at full size, each in a process of its own
+    with no device given, their outputs held against the oracles the
+    script already has: ``psac -f -l -o`` of the text (read back == native
+    SA + LCP) and ``psac -f -t``; ``gsac -f -o`` of the string set written
+    as lines (== the GSA phase's oracle); ``mkpattern`` of ``batch``
+    length-20 patterns, ``desa -q --reps 3`` with each top-level index
+    (saving the index), then ``--load`` (matched counts, and the saved
+    index's ranges loaded in this process, == the native SA's).  Also
+    ``d_check_sa`` on the file build: true, and false with two SA rows
+    swapped.  The files live in ``_smoke/`` of the checkout, removed at the
+    end."""
+    import re
+    import shutil
+
+    import torch
+
+    from psac_tpu_torch.io import read_u64
+    from psac_tpu_torch.models.desa import read_desa_from_file
+    from psac_tpu_torch.models.suffix_array import construct_from_file
+    from psac_tpu_torch.verify.check_sa import d_check_sa
+
+    out = {}
+    n = len(text)
+    work = os.path.join(ROOT, "_smoke")
+    os.makedirs(work, exist_ok=True)
+    torch.cuda.empty_cache()
+    try:
+        tpath = os.path.join(work, "text.txt")
+        with open(tpath, "wb") as f:
+            f.write(text)
+        pre = os.path.join(work, "sa")
+        run_cli(["psac", "-f", tpath, "-l", "-o", pre], "psac -f -l -o")
+        if not (np.array_equal(read_u64(pre + ".sa64"), sa_ref)
+                and np.array_equal(read_u64(pre + ".lcp64"), lcp_ref)):
+            raise AssertionError("psac -f -l -o wrote another SA or LCP")
+        with open(pre + ".alpha", "rb") as f:
+            if f.read() != b"ACGT":
+                raise AssertionError("psac -f -l -o wrote another alphabet")
+        for ext in (".sa64", ".lcp64", ".alpha"):
+            os.remove(pre + ext)
+        log("[cli] psac -f -l -o: .sa64 / .lcp64 == native SA-IS + Kasai")
+        err = run_cli(["psac", "-f", tpath, "-t"], "psac -f -t")
+        if f"({n} nodes x 5 slots)" not in err:
+            raise AssertionError("psac -f -t printed no tree of the text")
+
+        # the check that needs no host oracle, on the file build
+        dsa, xs = construct_from_file(tpath)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = d_check_sa(dsa, xs)
+        out["d_check_sa_s"] = time.perf_counter() - t0
+        off = dsa.N - dsa.n
+        sa = dsa.sa.clone()
+        sa[off + 7], sa[off + 8] = dsa.sa[off + 8], dsa.sa[off + 7]
+        bad = d_check_sa(dataclasses.replace(dsa, sa=sa), xs)
+        if not ok or bad:
+            raise AssertionError(f"d_check_sa gave {ok} on the file build "
+                                 f"and {bad} with two rows swapped")
+        log(f"[cli] d_check_sa of construct_from_file (2^"
+            f"{n.bit_length() - 1}): True in {out['d_check_sa_s']:.3f} s; "
+            f"False with two SA rows swapped; on {card}")
+        del dsa, xs, sa
+        torch.cuda.empty_cache()
+
+        gpath = os.path.join(work, "set.txt")
+        with open(gpath, "wb") as f:
+            f.write(b"\n".join(gsa_strings) + b"\n")
+        gpre = os.path.join(work, "g")
+        run_cli(["gsac", "-f", gpath, "-o", gpre], "gsac -f -o")
+        if not (np.array_equal(read_u64(gpre + ".gsa64"), gsa_oracle[0])
+                and np.array_equal(read_u64(gpre + ".glcp64"),
+                                   gsa_oracle[1])):
+            raise AssertionError("gsac -f -o differs from the host oracle")
+        for f in (gpath, gpre + ".gsa64", gpre + ".glcp64"):
+            os.remove(f)
+        log(f"[cli] gsac -f -o of {len(gsa_strings)} lines: .gsa64 / "
+            ".glcp64 == host oracle")
+
+        ppath = os.path.join(work, "patterns.txt")
+        run_cli(["mkpattern", "-f", tpath, "-n", str(batch), "-l", "20",
+                 "-o", ppath], "mkpattern")
+        with open(ppath, "rb") as f:
+            pats = [x for x in f.read().split(b"\n") if x]
+        mat = np.frombuffer(b"".join(pats), np.uint8).reshape(len(pats), 20)
+        tpad = np.concatenate([np.frombuffer(text, np.uint8),
+                               np.zeros(20, np.uint8)])
+        lo = sa_bounds(tpad, sa_ref, mat, False)
+        hi = sa_bounds(tpad, sa_ref, mat, True)
+        found = int((hi > lo).sum())
+        ipre = os.path.join(work, "idx")
+        matched = re.compile(r"bulk_locate: (\d+) patterns, (\d+) matched, "
+                             r"([0-9.]+) ms/rep")
+        for label, extra in (("tllt", ["--tli", "tllt", "-o", ipre]),
+                             ("tldt", ["--tli", "tldt"]),
+                             ("load", ["--load", ipre])):
+            err = run_cli(["desa", "-f", tpath, "-q", ppath, "--reps", "3"]
+                          + extra, f"desa -q {' '.join(extra)}")
+            m = matched.search(err)
+            if not m or int(m.group(1)) != len(pats) or \
+                    int(m.group(2)) != found:
+                raise AssertionError(f"desa {label}: matched counts differ "
+                                     f"from the native SA's {found}")
+            out[f"desa_{label}_ms"] = float(m.group(3))
+            out[f"desa_{label}_qps"] = len(pats) / float(m.group(3)) * 1e3
+        for tli in ("tllt", "tldt"):
+            got = read_desa_from_file(tpath, ipre, tli=tli).bulk_locate(pats)
+            if not (np.array_equal(got[:, 0], lo)
+                    and np.array_equal(got[:, 1], hi)):
+                raise AssertionError(f"the saved index ({tli}) gives other "
+                                     "ranges than the native SA")
+        log(f"[cli] desa: {found} of {len(pats)} patterns matched in every "
+            "run; the saved index read back with each top-level index "
+            f"answers every range == the native SA; on {card}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -1276,17 +1606,16 @@ def main() -> int:
     ansv_times = public_ansv_phase(dev, args.ansv_log2n, card)
 
     # ---- 8. DESA of the 2^26 text: both top-level indexes, bulk_locate ---
-    desa = desa_phase(dev, text, sa_ref, args.batch, card)
-
-    del text, sa_ref, lcp_ref
+    desa = desa_phase(dev, text, sa_ref, args.batch, card, kern)
 
     # ---- 9. generalized suffix array and tree (counted) -------------------
     small_gsa_sets(card)
     tail_stages_check(card)
     whole = rand_dna(1 << args.gsa_log2n, seed=43)
+    gsa_set = [whole[i:i + 4096] for i in range(0, len(whole), 4096)]
     gsa_rand = gsa_phase(
-        f"2^{args.gsa_log2n} random DNA in 4 KiB strings",
-        [whole[i:i + 4096] for i in range(0, len(whole), 4096)], False, card)
+        f"2^{args.gsa_log2n} random DNA in 4 KiB strings", gsa_set, False,
+        card)
     del whole
     # one seeded base and 63 copies with about 0.1% substitutions each
     fam_len = (1 << args.fam_log2n) // 64
@@ -1294,8 +1623,14 @@ def main() -> int:
         f"2^{args.fam_log2n} near-identical family",
         near_identical_family(64, fam_len, max(1, fam_len // 1000)),
         True, card)
+    del gsa_fam["oracle"]
 
-    # ---- 10. results ------------------------------------------------------
+    # ---- 10. the command-line tools at full size --------------------------
+    cli = cli_phase(text, sa_ref, lcp_ref, gsa_set, gsa_rand.pop("oracle"),
+                    args.batch, card)
+    del text, sa_ref, lcp_ref, gsa_set
+
+    # ---- 11. results ------------------------------------------------------
     log(f"[result] SA+LCP 2^{args.log2n} DNA {t_sa:.3f} s "
         f"({n / t_sa / 1e6:.1f} MB/s; warm {t_sa_warm:.3f} s), rep_dna "
         f"2^{args.rep_log2n} {t_rep:.3f} s, ST {t_st:.3f} s (warm "
@@ -1316,6 +1651,10 @@ def main() -> int:
         log(f"[result] engines on the {k}: tile-spine pass "
             f"{e['tile_spine_ms']:.3f} ms vs K2 {e['dual_ms']:.3f} ms "
             f"(spine {100 * e['spine_share']:.3f}% of the rows)")
+    log(f"[result] CLI: desa -q ms/rep " + ", ".join(
+        f"{k} {cli[f'desa_{k}_ms']:.2f} ({cli[f'desa_{k}_qps']:,.0f} "
+        "patterns/s)" for k in ("tllt", "tldt", "load"))
+        + f"; d_check_sa {cli['d_check_sa_s']:.3f} s")
     log(f"[result] launches over the main-path phases: {LAUNCHES}")
     for k, v in kern.items():
         v["launches"] = LAUNCHES.get(k, 0)

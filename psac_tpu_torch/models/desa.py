@@ -10,18 +10,19 @@
     capacity (the JAX package's subtree-aligned layout with one shard).
   * **Blind search**: per pattern, walk the virtual suffix-tree intervals
     using only the leftmost-argmin RMQ over LCP and the left-branching
-    characters Lc, vectorized over the pattern batch.  The JAX
-    ``lax.while_loop`` becomes a host loop that reads its exit and
-    compaction tests back once every ``_CHECK_EVERY`` steps: a step on rows
-    that are already done changes nothing, so reading late only costs a few
-    idle steps.  The active set is compacted to narrower widths (rungs
-    ``_COMPACT_RUNGS``) as the batch finishes.
+    characters Lc (``ops/blind_search.py``: kernel K7 on the card, one
+    launch that walks each pattern to its end; the batched torch walk on
+    the CPU).
   * **bulk_locate**: TLLT or TLDT lookup, blind search, then verification
     of one candidate row per pattern against the text.  Returns the exact
     half-open SA range of each pattern's matches.
+  * **Persistence**: ``write_desa`` / ``read_desa`` keep SA/LCP/Lc as the
+    JAX package's flat ``.sa64/.lcp64/.lc64/.alpha`` files (byte-identical;
+    either package loads the other's); the top-level index, the partition
+    and the RMQ are rebuilt on load.  ``build_desa_from_file`` and
+    ``read_desa_from_file`` stage the text from a file.
 
-Left out of this port: the artifact IO (``build_desa_from_file``,
-``write_desa``, ``read_desa`` and their distributed forms), the
+Left out of this port: the per-process distributed writes and reads, the
 multi-process fetch, the timer statistics and the ``PSAC_DESA_RUNGS``
 switch.
 """
@@ -34,28 +35,22 @@ import numpy as np
 import torch
 
 from psac_tpu_torch import config as cfg_mod
+from psac_tpu_torch import io as io_mod
 from psac_tpu_torch.models.suffix_array import (compute_lc_device,
                                                 construct_device,
-                                                encode_and_shard)
+                                                encode_and_shard,
+                                                encode_and_shard_file)
 from psac_tpu_torch.ops.alphabet import Alphabet
 from psac_tpu_torch.ops.ansv import NEAREST_SM
-from psac_tpu_torch.ops.rmq import ArgLocalRMQ, build_arg_rmq, query_arg_rmq
+from psac_tpu_torch.ops.bitops import pow2ceil
+from psac_tpu_torch.ops.blind_search import blind_search
+from psac_tpu_torch.ops.rmq import ArgLocalRMQ, build_arg_rmq
 from psac_tpu_torch.parallel.ansv import (KERNELS, AnsvKernels, ansv_local,
                                           nonsv_for)
 from psac_tpu_torch.parallel.collectives import halo_from_right
 from psac_tpu_torch.parallel.route import route_apply, route_scatter
 
-I32_MAX = torch.iinfo(torch.int32).max
-
 _MAX_LEN_GROUPS = 3
-#: Active-set compaction rungs of the blind search: batch-width divisors.
-_COMPACT_RUNGS = (2, 8, 64)
-#: Blind-search steps between readbacks of the exit and compaction tests.
-_CHECK_EVERY = 4
-
-
-def _pow2ceil(x: int) -> int:
-    return 1 << max(0, int(x - 1).bit_length())
 
 
 def _length_groups(lens: np.ndarray,
@@ -200,7 +195,8 @@ class DESA:
     tli: str = "tllt"         # top-level index kind: "tllt" or "tldt"
     samp: dict | None = None  # tldt: sampled-LCP search structure
     idt: torch.dtype = torch.int32  # index dtype
-    #: blind-search steps and host readbacks of the last query batch
+    #: the last query batch's blind-search steps (each search's longest
+    #: walk, summed over the searches) and the plain walk's host readbacks
     last_stats: dict = dataclasses.field(default_factory=dict)
 
     # ---------------- queries ----------------
@@ -209,7 +205,7 @@ class DESA:
         """Host: encode byte patterns to a padded (B, Lmax) code matrix."""
         B = len(patterns)
         lens = np.fromiter((len(pt) for pt in patterns), np.int64, B)
-        Lmax = _pow2ceil(max(2, int(lens.max()) if B else 2))
+        Lmax = pow2ceil(max(2, int(lens.max()) if B else 2))
         flat = np.frombuffer(b"".join(bytes(pt) for pt in patterns), np.uint8)
         codes = self.alphabet.mapping[flat].astype(np.int32)
         ends = np.cumsum(lens)
@@ -247,18 +243,25 @@ class DESA:
         """Length-bucketed dispatch: ragged batches are split into at most
         ``_MAX_LEN_GROUPS`` Lmax tiers before padding, so one long pattern
         cannot inflate the whole (B, Lmax) code matrix."""
-        self.last_stats = {"steps": 0, "readbacks": 0}
+        stats = self.last_stats = {"steps": 0, "readbacks": 0,
+                                   "step_max": []}
         if len(patterns) == 0:
-            return np.zeros((0, 2), np.int64)
-        lens = np.fromiter((len(pt) for pt in patterns), np.int64,
-                           len(patterns))
-        groups = _length_groups(lens)
-        if len(groups) == 1:
-            return self._run_query_group(patterns, verify)
-        out = np.zeros((len(patterns), 2), np.int64)
-        for idx in groups:
-            out[idx] = self._run_query_group([patterns[i] for i in idx],
-                                             verify)
+            out = np.zeros((0, 2), np.int64)
+        else:
+            lens = np.fromiter((len(pt) for pt in patterns), np.int64,
+                               len(patterns))
+            groups = _length_groups(lens)
+            if len(groups) == 1:
+                out = self._run_query_group(patterns, verify)
+            else:
+                out = np.zeros((len(patterns), 2), np.int64)
+                for idx in groups:
+                    out[idx] = self._run_query_group(
+                        [patterns[i] for i in idx], verify)
+        # steps: the longest walk of each blind search, summed over them
+        step_max = stats.pop("step_max")
+        if step_max:
+            stats["steps"] = int(torch.stack(step_max).sum())
         return out
 
     def _run_query_group(self, patterns, verify: bool) -> np.ndarray:
@@ -289,6 +292,21 @@ def build_desa(text, device=None,
                          "(bytes or uint8 array); got dtype "
                          f"{np.asarray(text).dtype}")
     xs, alpha, n, N = encode_and_shard(text, device)
+    return _build_from_codes(xs, alpha, n, N, config, tli_bits, tli, maxsize)
+
+
+def build_desa_from_file(path: str, device=None,
+                         config: cfg_mod.SAConfig = cfg_mod.DEFAULT,
+                         tli_bits: int = 24, tli: str = "tllt",
+                         maxsize: int | None = None) -> DESA:
+    """``build_desa`` of a file's bytes: the file is staged raw on
+    ``device`` (None: the CUDA card) and its alphabet counted there."""
+    xs, alpha, n, N = encode_and_shard_file(path, device)
+    return _build_from_codes(xs, alpha, n, N, config, tli_bits, tli, maxsize)
+
+
+def _build_from_codes(xs, alpha, n: int, N: int, config, tli_bits: int,
+                      tli: str, maxsize: int | None) -> DESA:
     dsa = construct_device(xs, alpha, n, N, config)
     lc = dsa.lc if dsa.lc is not None else compute_lc_device(dsa, xs)
     return _assemble_desa(xs, alpha, n, N, dsa.lcp, dsa.sa, lc, tli_bits,
@@ -328,7 +346,7 @@ def _assemble_desa(xs, alpha, n: int, N: int, lcp, sa, lc, tli_bits: int,
         m = offs.shape[0]
         if m < 2:
             raise ValueError("tldt sampling produced < 2 rows; lower maxsize")
-        M = max(8, _pow2ceil(m))
+        M = max(8, pow2ceil(m))
         samp_lcp = torch.full((M,), torch.iinfo(idt).max, dtype=idt,
                               device=xs.device)
         samp_lcp[:m] = s_lcp
@@ -358,6 +376,60 @@ def desa_arrays(desa: DESA):
                  for slab in (desa.sa, desa.lcp, desa.lc))
 
 
+def write_desa(desa: DESA, prefix: str) -> None:
+    """Persist the index as ``.sa64/.lcp64/.lc64/.alpha`` (the top-level
+    index, the partition and the RMQ are rebuilt on load, as the
+    reference's ``dist_desa::write``, ``include/desa.hpp:366-397``)."""
+    sa, lcp, lc = desa_arrays(desa)
+    io_mod.write_u64(prefix + ".sa64", sa)
+    io_mod.write_u64(prefix + ".lcp64", lcp)
+    io_mod.write_u64(prefix + ".lc64", lc)
+    io_mod.write_alphabet(prefix, desa.alphabet)
+
+
+def _load_index(xs, alpha, n: int, N: int, prefix: str, tli_bits: int,
+                tli: str, maxsize: int | None, force_int64: bool) -> DESA:
+    """The persisted SA/LCP/Lc, front-padded to the (N,) construction
+    layout on the codes' device, assembled with a top-level index chosen
+    now."""
+    sa = io_mod.read_u64(prefix + ".sa64")
+    if len(sa) != n:
+        raise ValueError(f"index built for n={len(sa)}, text has n={n}")
+    idt = torch.int64 if force_int64 else cfg_mod.index_dtype(N)
+
+    def pad_block(a, dt):
+        full = torch.zeros(N, dtype=dt)
+        full[N - n:] = torch.from_numpy(a).to(dt)
+        return full.to(xs.device)
+
+    return _assemble_desa(
+        xs, alpha, n, N, pad_block(io_mod.read_u64(prefix + ".lcp64"), idt),
+        pad_block(sa, idt),
+        pad_block(io_mod.read_u64(prefix + ".lc64"), torch.int32), tli_bits,
+        tli, maxsize, force_int64=force_int64)
+
+
+def read_desa(text, prefix: str, device=None, tli_bits: int = 24,
+              tli: str = "tllt", maxsize: int | None = None,
+              force_int64: bool = False) -> DESA:
+    """Load a persisted DESA (it needs the original text, as the
+    reference's ``desa-main -l`` does) on ``device`` (None: the CUDA card);
+    ``tli``/``maxsize`` select the top-level index rebuilt on load."""
+    xs, alpha, n, N = encode_and_shard(text, device)
+    return _load_index(xs, alpha, n, N, prefix, tli_bits, tli, maxsize,
+                       force_int64)
+
+
+def read_desa_from_file(text_path: str, prefix: str, device=None,
+                        tli_bits: int = 24, tli: str = "tllt",
+                        maxsize: int | None = None,
+                        force_int64: bool = False) -> DESA:
+    """``read_desa`` with the text staged from a file."""
+    xs, alpha, n, N = encode_and_shard_file(text_path, device)
+    return _load_index(xs, alpha, n, N, prefix, tli_bits, tli, maxsize,
+                       force_int64)
+
+
 # --------------------------------------------------------------------------
 # queries
 # --------------------------------------------------------------------------
@@ -383,113 +455,14 @@ def _tli_lookup(mat, lens, table, k: int, bits: int):
     return lo, hi
 
 
-def _blind_search(pat, lens, l0, r0, need, lcp_slab, lc_slab,
-                  rmq: ArgLocalRMQ, cap: int, stats: dict):
-    """Vectorized blind search (reference desa.hpp:402-527 ``find_child`` /
-    ``local_locate_possible``) in inclusive in-slab coordinates, one batched
-    RMQ per step.  Returns the final (l, r) ranges and the matched depth q.
-
-    The walk is lockstep over the batch.  Once the active count drops to a
-    rung's width the state is compacted to that width (a 1-key sort) and
-    the walk continues there; results are scattered back through one drop
-    slot.  ``stats`` counts steps and readbacks."""
-    M = l0.shape[0]
-
-    def lcp_at(i):
-        return lcp_slab[i.clamp(0, cap - 1)]
-
-    def lc_at(i):
-        return lc_slab[i.clamp(0, cap - 1)]
-
-    def rmq_q(lo, hi):
-        """Leftmost argmin index in [lo, hi] (the reference's ``minq``)."""
-        lo = lo.clamp(0, cap - 1)
-        hi = torch.maximum(hi, lo).clamp(0, cap - 1)
-        return query_arg_rmq(rmq, lo, hi)
-
-    def step(pat_, m, st):
-        l, r, i, q, phase, done = st
-        active = ~done
-        inner = active & (phase == 0)
-        fix = active & (phase == 1)
-
-        c = pat_.gather(1, q.clamp(0, pat_.shape[1] - 1).long()[:, None])[:, 0]
-        lcpi = lcp_at(i)
-        hit = inner & (lc_at(i) == c)
-        adv = inner & ~hit
-        l_adv = torch.where(adv, i, l)
-        r_hit = torch.where(hit, i - 1, r)
-        stop2 = adv & (l_adv == r)
-        cont = adv & ~stop2
-
-        # NB: the reference descends with minq only when l+1 < r
-        # (desa.hpp:505), losing the split of 2-row intervals; l < r is the
-        # correct condition (minq(l+1, r) with l+1 == r is just r).
-        fixq = fix & (lcpi == q)
-        fix_rmq = fixq & (l < r)
-
-        im = rmq_q(torch.where(cont, l_adv, l) + 1,
-                   torch.where(inner, r_hit, r))
-        lcp_im = lcp_at(im)
-        stay = cont & (l_adv < r) & (lcp_im == q)
-        i_in = torch.where(cont, im, i)
-        exit_inner = hit | stop2 | (cont & ~stay)
-
-        i_fx = torch.where(fix_rmq, im, torch.where(fixq, l, i))
-        q_fx = torch.where(fix_rmq, lcp_im,
-                           torch.where(fixq, lcp_at(l), lcpi))
-        done_fx = ~((q_fx < m) & (l < r) & (l < i_fx))
-
-        return (torch.where(inner, l_adv, l),
-                torch.where(inner, r_hit, r),
-                torch.where(inner, i_in, torch.where(fix, i_fx, i)),
-                torch.where(fix, q_fx, q),
-                torch.where(exit_inner, 1, torch.where(fix, 0, phase)),
-                done | (fix & done_fx))
-
-    # every inner step strictly shrinks [l, r], so 2*cap + 64 bounds the
-    # walk; the counter is a hang guard, not the expected exit
-    max_steps = 2 * cap + 64
-    steps = 0
-
-    def n_active(st) -> int:
-        stats["readbacks"] += 1
-        return int((~st[5]).sum())
-
-    def run(pat_, m, st, widths):
-        nonlocal steps
-        nxt = widths[0] if widths else 0
-        na = n_active(st)
-        while na > nxt and steps < max_steps:
-            for _ in range(min(_CHECK_EVERY, max_steps - steps)):
-                st = step(pat_, m, st)
-                steps += 1
-            na = n_active(st)
-        if not widths or na == 0 or na > nxt:
-            return st
-        Mw = pat_.shape[0]
-        key = torch.where(st[5], I32_MAX,
-                          torch.arange(Mw, dtype=torch.int32,
-                                       device=pat_.device))
-        ks, perm = torch.sort(key)
-        ks, perm = ks[:nxt], perm[:nxt]
-        valid = ks != I32_MAX
-        idxc = torch.where(valid, ks, 0).long()
-        stc = run(pat_[idxc], m[idxc],
-                  tuple(a[perm] for a in st[:5]) + (~valid,), widths[1:])
-        return route_scatter(idxc, stc, st, valid)
-
-    widths = []
-    for dv in _COMPACT_RUNGS:
-        w = max(256, _pow2ceil(-(-M // dv)))
-        if w < M and (not widths or w < widths[-1]):
-            widths.append(w)
-    i0 = rmq_q(l0 + 1, r0)
-    q0 = lcp_at(i0)
-    done0 = (~need) | ~((q0 < lens) & (l0 < r0) & (l0 < i0))
-    l, r, _, q, _, _ = run(pat, lens, (l0, r0, i0, q0, torch.zeros_like(l0),
-                                       done0), widths)
-    stats["steps"] += steps
+def _search(pat, lens, l0, r0, need, lcp, lc, rmq: ArgLocalRMQ, cap: int,
+            stats: dict):
+    """The blind search (K7 on the card, its plain version on the CPU);
+    each pattern's step count stays on the device until the batch's
+    results are read back (``DESA._run_query``)."""
+    l, r, q, nsteps = blind_search(pat, lens, l0, r0, need, lcp, lc, rmq, cap,
+                                   stats)
+    stats["step_max"].append(nsteps.max())
     return l, r, q
 
 
@@ -527,8 +500,8 @@ def _locate_in_slab(rp, rlen, rlo, rhi, need_q, search, desa: DESA,
     l_loc = (rlo - begin).clamp(0, cap - 1).to(torch.int32)
     r_loc = (rhi - 1 - begin).clamp(0, cap - 1).to(torch.int32)
     search = search & (l_loc < r_loc)
-    fl, fr, _ = _blind_search(rp, rlen, l_loc, r_loc, search, desa.lcp,
-                              desa.lc, desa.rmq, cap, stats)
+    fl, fr, _ = _search(rp, rlen, l_loc, r_loc, search, desa.lcp, desa.lc,
+                        desa.rmq, cap, stats)
     fl = torch.where(search, fl, l_loc)
     fr = torch.where(search, fr, r_loc)
     if verify:
@@ -572,9 +545,8 @@ def _bulk_locate_tldt_local(mat, lens, desa: DESA, verify: bool,
     M_samp = samp["M"]
     zero = torch.zeros_like(lens)
     need0 = lens > 0
-    ls, rs, qf = _blind_search(mat, lens, zero, zero + (samp["m"] - 1), need0,
-                               samp["lcp"], samp["lc"], samp["rmq"], M_samp,
-                               stats)
+    ls, rs, qf = _search(mat, lens, zero, zero + (samp["m"] - 1), need0,
+                         samp["lcp"], samp["lc"], samp["rmq"], M_samp, stats)
     glo = samp["off_ext"][ls.clamp(0, M_samp)]
     ghi = samp["off_ext"][(rs + 1).clamp(0, M_samp)]
     finished = (qf >= lens) | (ghi <= glo)

@@ -21,9 +21,9 @@ of the string that holds position i:
                       suffix length.
 
 The dense loop's LCP resolve and the tail's run K6
-(``ops.rmq.rmq_resolve``) as the suffix array's do.  Not ported: the
-staged file input (``build_gsa_from_file``) and the host-driven
-``fused=False`` loop.
+(``ops.rmq.rmq_resolve``) as the suffix array's do.  The in-memory and the
+file input (``build_gsa_from_file``) share one build from staged bytes.
+Not ported: the host-driven ``fused=False`` loop.
 """
 
 from __future__ import annotations
@@ -35,16 +35,19 @@ import numpy as np
 import torch
 
 from psac_tpu_torch import config as cfg_mod
-from psac_tpu_torch.models.suffix_array import (_Builder, _pow2ceil, _read,
-                                                encode_and_shard,
-                                                index_dtype_for,
+from psac_tpu_torch.models.suffix_array import (_Builder, _decode_staged,
+                                                _read, index_dtype_for,
                                                 kmer_words_for)
 from psac_tpu_torch.ops.alphabet import Alphabet
-from psac_tpu_torch.ops.bitops import lcp_bitwise_words
+from psac_tpu_torch.ops.bitops import lcp_bitwise_words, pow2ceil
 from psac_tpu_torch.parallel.collectives import (global_cummax,
                                                  global_shift_left_dyn,
                                                  halo_from_right, prev_of)
+from psac_tpu_torch.parallel.mesh import padded_size
 from psac_tpu_torch.parallel.sort import lex_perm
+from psac_tpu_torch.parallel.staging import (stage_bytes_block,
+                                             stage_file_block,
+                                             staged_histogram)
 
 
 @dataclasses.dataclass
@@ -240,25 +243,21 @@ def _lcp_tiefix_local(lcp, sa, eos, N: int) -> torch.Tensor:
     return torch.where(need & (eos_at_sa > 0), eos_at_sa - sa, lcp)
 
 
-def build_gsa_device(strings, device=None,
-                     config: cfg_mod.SAConfig = cfg_mod.DEFAULT) -> DeviceGSA:
-    """GSA (+GLCP) of a string set (a list of byte strings, or one
-    newline-separated flat byte string as the reference's ``gsac -f``) on
-    ``device`` (None: the CUDA card; ``"cpu"`` runs the plain versions);
-    the result stays on the device."""
+def _build_gsa_staged(xb: torch.Tensor, alpha: Alphabet, lens: np.ndarray,
+                      n: int, N: int, config: cfg_mod.SAConfig) -> DeviceGSA:
+    """The device-side GSA build shared by the in-memory and the file
+    inputs: from the staged (N,) uint8 separator-free flat text and the
+    host string lengths, decode the codes and expand eos on the device, then
+    run the construction."""
     config.check_supported()
-    flat, lens = _flatten(strings)
-    if len(flat) == 0:
-        raise ValueError("build_gsa_device: no string content")
-    # raw bytes go up; codes, the histogram and eos are made on the device
-    xs, alpha, n, N = encode_and_shard(flat, device)
+    xs = _decode_staged(xb, alpha)
     idt = index_dtype_for(N, config)
     eos = _eos_device(lens, n, N, idt, xs.device)
     ks = kmer_words_for(alpha.bits_per_char, config)
     b = _GsaBuilder(N, ks, alpha.bits_per_char, config.construct_lcp, idt,
                     xs.device)
-    m_cap2 = max(8, min(N, _pow2ceil(max(256, N // 1024))))
-    m_cap = max(m_cap2, min(N, _pow2ceil(N // 32)))
+    m_cap2 = max(8, min(N, pow2ceil(max(256, N // 1024))))
+    m_cap = max(m_cap2, min(N, pow2ceil(N // 32)))
     _, sa, lcp, (ub, ue, _) = b.gfused_full(
         xs, eos, m_cap=m_cap, m_cap2=m_cap2, resolve_div=config.resolve_div)
     if ue != 0:
@@ -266,6 +265,61 @@ def build_gsa_device(strings, device=None,
                            f"elements ({ub} buckets)")
     return DeviceGSA(sa=sa, lcp=lcp, eos=eos, xs=xs, alphabet=alpha,
                      lens=lens, n=n, N=N)
+
+
+def _build_gsa_flat(flat: bytes, lens: np.ndarray, device,
+                    config: cfg_mod.SAConfig) -> DeviceGSA:
+    """Stage the flat text raw (the histogram counted on the device) and
+    build."""
+    if len(flat) == 0:
+        raise ValueError("build_gsa_device: no string content")
+    xb, n, N = stage_bytes_block(flat, cfg_mod.resolve_device(device))
+    alpha = Alphabet.from_hist(staged_histogram(xb), pad_zeros=N - n)
+    return _build_gsa_staged(xb, alpha, lens, n, N, config)
+
+
+def build_gsa_device(strings, device=None,
+                     config: cfg_mod.SAConfig = cfg_mod.DEFAULT) -> DeviceGSA:
+    """GSA (+GLCP) of a string set (a list of byte strings, or one
+    newline-separated flat byte string as the reference's ``gsac -f``) on
+    ``device`` (None: the CUDA card; ``"cpu"`` runs the plain versions);
+    the result stays on the device."""
+    return _build_gsa_flat(*_flatten(strings), device, config)
+
+
+def build_gsa_from_file(path: str, device=None,
+                        config: cfg_mod.SAConfig = cfg_mod.DEFAULT,
+                        sep: int = 0x0A) -> DeviceGSA:
+    """GSA (+GLCP) of a ``sep``-delimited file (the reference's ``gsac
+    -f``) on ``device`` (None: the CUDA card).  The file is staged raw and
+    counted on the device; the separators are dropped there by a mask and
+    one compaction, and only their positions (O(m) metadata) come back, to
+    make the string lengths on the host.  Empty strings are dropped; a
+    trailing separator is optional."""
+    xbf, n_file, N_file = stage_file_block(path,
+                                           cfg_mod.resolve_device(device))
+    hist = staged_histogram(xbf)
+    nsep = int(hist[sep])
+    n_flat = n_file - nsep
+    if n_flat <= 0:
+        raise ValueError(f"{path}: no string content")
+    N_flat = padded_size(n_flat, multiple=8)
+    hist2 = hist.copy()
+    hist2[sep] = 0
+    # the histogram ran over the file's padded staging, so its zero count
+    # is the file padding (genuine NULs still raise)
+    alpha = Alphabet.from_hist(hist2, pad_zeros=N_file - n_file)
+    is_sep = xbf[:n_file] == sep
+    xb = torch.zeros(N_flat, dtype=torch.uint8, device=xbf.device)
+    xb[:n_flat] = xbf[:n_file][~is_sep]
+    sep_pos = torch.nonzero(is_sep).squeeze(1).cpu().numpy().astype(np.int64)
+    del xbf, is_sep  # the file's staging is not needed by the build
+    ends_flat = sep_pos - np.arange(nsep, dtype=np.int64)
+    if nsep == 0 or sep_pos[-1] != n_file - 1:
+        ends_flat = np.concatenate([ends_flat, [n_flat]])
+    lens = np.diff(np.concatenate([[0], ends_flat]))
+    lens = lens[lens > 0]
+    return _build_gsa_staged(xb, alpha, lens, n_flat, N_flat, config)
 
 
 def build_gsa(strings, device=None,
@@ -279,4 +333,4 @@ def build_gsa(strings, device=None,
             sa=np.zeros(0, np.int64),
             lcp=np.zeros(0, np.int64) if config.construct_lcp else None,
             alphabet=Alphabet.from_bytes(flat), lens=lens, n=0)
-    return build_gsa_device(strings, device, config).materialize()
+    return _build_gsa_flat(flat, lens, device, config).materialize()

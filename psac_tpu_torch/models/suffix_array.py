@@ -25,7 +25,7 @@ import torch
 
 from psac_tpu_torch import config as cfg_mod
 from psac_tpu_torch.ops.alphabet import Alphabet, IntAlphabet
-from psac_tpu_torch.ops.bitops import lcp_bitwise_words
+from psac_tpu_torch.ops.bitops import lcp_bitwise_words, pow2ceil
 from psac_tpu_torch.ops.kmer import optimal_k, pack_kmers_local
 from psac_tpu_torch.ops.rmq import build_local_rmq, rmq_resolve
 from psac_tpu_torch.parallel.collectives import (global_cummax,
@@ -36,6 +36,9 @@ from psac_tpu_torch.parallel.mesh import padded_size
 from psac_tpu_torch.parallel.route import route_apply, route_scatter
 from psac_tpu_torch.parallel.sort import (dist_sort_local, lex_perm,
                                           scatter_by_index_local)
+from psac_tpu_torch.parallel.staging import (stage_bytes_block,
+                                             stage_file_block,
+                                             staged_histogram)
 
 
 @dataclasses.dataclass
@@ -85,10 +88,6 @@ class DeviceSuffixArray:
             if self.n > 0:
                 lcp[0] = 0
         return SuffixArray(sa=sa, lcp=lcp, alphabet=self.alphabet, n=self.n)
-
-
-def _pow2ceil(x: int) -> int:
-    return 1 << max(0, int(x - 1).bit_length())
 
 
 def resolve_packing(s: int, Lm: int, inf: int) -> str:
@@ -446,30 +445,29 @@ def kmer_words_for(bits_per_char: int,
     return tuple(ks)
 
 
+def _decode_staged(xb: torch.Tensor, alpha: Alphabet) -> torch.Tensor:
+    """Staged uint8 bytes -> (N,) int32 codes through the alphabet's
+    mapping, on the bytes' device (padding bytes map to 0)."""
+    mapping = torch.from_numpy(alpha.mapping.astype(np.int32)).to(xb.device)
+    return mapping[xb.to(torch.int32)]
+
+
 def encode_and_shard(text, device=None):
     """Alphabet detection and encoding onto ``device`` (None: the CUDA
     card, ``config.resolve_device``): returns (xs, alpha, n, N) with xs the
     (N,) int32 codes (1..sigma), zero-padded.
 
-    Bytes use the dense histogram alphabet (NUL is the sentinel and
-    raises); wider integer arrays use the min/max ``IntAlphabet``."""
+    Bytes are staged raw and counted on the device
+    (``parallel.staging``; NUL is the sentinel and raises); wider integer
+    arrays use the min/max ``IntAlphabet``."""
     device = cfg_mod.resolve_device(device)
     if len(text) >= (1 << 40):
         raise ValueError(f"text too large: {len(text)} (2^40 char ceiling)")
     if isinstance(text, (bytes, bytearray)) or \
             np.asarray(text).dtype == np.uint8:
-        buf = np.frombuffer(bytes(text), np.uint8) \
-            if isinstance(text, (bytes, bytearray)) else np.asarray(text)
-        n = len(buf)
-        N = padded_size(max(n, 1))
-        # ship raw bytes and count them on the device: a host bincount
-        # widens every byte to int64 first
-        raw = torch.from_numpy(buf.copy()).to(device).to(torch.int32)
-        hist = torch.bincount(raw, minlength=256).cpu().numpy()
-        alpha = Alphabet.from_hist(hist)
-        mapping = torch.from_numpy(alpha.mapping.astype(np.int32)).to(device)
-        xs = torch.zeros(N, dtype=torch.int32, device=device)
-        xs[:n] = mapping[raw]
+        xb, n, N = stage_bytes_block(text, device)
+        alpha = Alphabet.from_hist(staged_histogram(xb), pad_zeros=N - n)
+        xs = _decode_staged(xb, alpha)
     else:
         alpha = IntAlphabet.from_array(text)
         codes = alpha.encode(text)
@@ -481,6 +479,15 @@ def encode_and_shard(text, device=None):
     return xs, alpha, n, N
 
 
+def encode_and_shard_file(path: str, device=None):
+    """``encode_and_shard`` of a file's bytes: the file is read once
+    (``np.fromfile``), staged raw on ``device`` and its alphabet counted
+    there.  Returns (xs, alpha, n, N)."""
+    xb, n, N = stage_file_block(path, cfg_mod.resolve_device(device))
+    alpha = Alphabet.from_hist(staged_histogram(xb), pad_zeros=N - n)
+    return _decode_staged(xb, alpha), alpha, n, N
+
+
 def construct_device(xs, alpha, n: int, N: int,
                      config: cfg_mod.SAConfig = cfg_mod.DEFAULT
                      ) -> DeviceSuffixArray:
@@ -490,8 +497,8 @@ def construct_device(xs, alpha, n: int, N: int,
     idt = index_dtype_for(N, config)
     b = _Builder(N, ks, alpha.bits_per_char, config.construct_lcp, idt,
                  xs.device)
-    m_cap2 = max(8, min(N, _pow2ceil(max(256, N // 1024))))
-    m_cap = max(m_cap2, min(N, _pow2ceil(N // max(1, config.fused_tail_div))))
+    m_cap2 = max(8, min(N, pow2ceil(max(256, N // 1024))))
+    m_cap = max(m_cap2, min(N, pow2ceil(N // max(1, config.fused_tail_div))))
     factor = config.dense_factor if config.construct_lcp else config.factor
     isa, sa, lcp, (ub, ue, tail_ran) = b.fused_full(
         xs, n, m_cap=m_cap, m_cap2=m_cap2, factor=factor,
@@ -534,6 +541,16 @@ def compute_lc_device(dsa: DeviceSuffixArray, xs) -> torch.Tensor:
     if dsa.lcp is None:
         raise ValueError("Lc requires the LCP array")
     return _lc_local(dsa.lcp, dsa.sa, xs, dsa.n)
+
+
+def construct_from_file(path: str, device=None,
+                        config: cfg_mod.SAConfig = cfg_mod.DEFAULT):
+    """Build SA(+LCP) of a file's bytes on ``device`` (None: the CUDA
+    card); returns the device-resident result and the staged codes, which
+    ``verify.check_sa.d_check_sa(dsa, xs)`` checks without a host
+    oracle."""
+    xs, alpha, n, N = encode_and_shard_file(path, device)
+    return construct_device(xs, alpha, n, N, config), xs
 
 
 def build_suffix_array(text, device=None,

@@ -16,6 +16,11 @@ def ceillog2(x: int) -> int:
     return max(0, int(x - 1).bit_length())
 
 
+def pow2ceil(x: int) -> int:
+    """Smallest power of two >= x (1 for x <= 1; host-side)."""
+    return 1 << ceillog2(x)
+
+
 def clz32(x: torch.Tensor) -> torch.Tensor:
     """Leading zeros of each 32-bit word of int32 ``x`` (32 for 0)."""
     v = x.to(torch.int64) & 0xFFFFFFFF

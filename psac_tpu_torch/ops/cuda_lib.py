@@ -40,6 +40,10 @@ _SIGNATURES = {
                                         _I64, _P],
     "psac_rmq_resolve_i64": [_P] * 7 + [_I64, _I64, _I32, _I64, _I32, _I32,
                                         _I64, _P],
+    "psac_blind_search_i32": [_P] * 13 + [_I64, _I32, _I64, _I64, _I32, _I32,
+                                          _I64, _P],
+    "psac_blind_search_i64": [_P] * 13 + [_I64, _I32, _I64, _I64, _I32, _I32,
+                                          _I64, _P],
 }
 
 _lib = None

@@ -492,3 +492,176 @@ def test_suffix_array_int64_on_gpu(cuda):
     sa = native.suffix_array(text)
     np.testing.assert_array_equal(res.sa, sa)
     np.testing.assert_array_equal(res.lcp, native.lcp_array(text, sa))
+
+
+# ---------------------------------------------------------------------------
+# K7 (the DESA's blind search) and the command-line tools
+# ---------------------------------------------------------------------------
+
+def _k7_spy(monkeypatch):
+    """Route every blind search of ``bulk_locate`` through K7 and its plain
+    version on the same inputs, hold them equal, and record the batch
+    widths; returns the list of widths."""
+    from psac_tpu_torch.models import desa as t_desa
+    from psac_tpu_torch.ops import blind_search as k7
+
+    widths = []
+
+    def spy(pat, lens, l0, r0, need, lcp, lc, rmq, cap, stats):
+        before = k7.blind_search.launches
+        got = k7.blind_search(pat, lens, l0, r0, need, lcp, lc, rmq, cap,
+                              stats)
+        assert k7.blind_search.launches == before + 1
+        want = k7.blind_search_plain(pat, lens, l0, r0, need, lcp, lc, rmq,
+                                     cap, {"readbacks": 0})
+        assert got[2].dtype == lcp.dtype
+        _same(got, want)
+        widths.append(pat.shape[0])
+        return got
+
+    monkeypatch.setattr(t_desa, "blind_search", spy)
+    return widths
+
+
+def _k7_patterns(text: bytes, B: int, seed: int) -> list:
+    """``B`` patterns: text substrings of lengths 12, 20 and 64 and random
+    DNA of the same lengths, mixed."""
+    rng = np.random.RandomState(seed)
+    t = np.frombuffer(text, np.uint8)
+    dna = np.frombuffer(b"ACGT", np.uint8)
+    out = []
+    for j in range(B):
+        ln = (12, 20, 64)[j % 3]
+        if j % 2:
+            out.append(dna[rng.randint(0, 4, ln)].tobytes())
+        else:
+            st = rng.randint(0, len(t) - ln)
+            out.append(t[st:st + ln].tobytes())
+    return out
+
+
+@pytest.mark.parametrize("B", [1, 255, 65536])
+@pytest.mark.parametrize("tli", ["tllt", "tldt"])
+@pytest.mark.parametrize("force_int64", [False, True])
+def test_blind_search_kernel_vs_plain(cuda, monkeypatch, force_int64, tli,
+                                      B):
+    from psac_tpu_torch import SAConfig, build_desa
+    from psac_tpu_torch.ops.alphabet import rand_dna
+    from psac_tpu_torch.seq import SAIndex
+
+    text = rand_dna(1 << 16, seed=B)
+    d = build_desa(text, cuda, config=SAConfig(force_int64=force_int64),
+                   tli=tli)
+    assert d.lcp.dtype == (torch.int64 if force_int64 else torch.int32)
+    widths = _k7_spy(monkeypatch)
+    pats = _k7_patterns(text, B, seed=B + 1)
+    got = d.bulk_locate(pats)
+    assert widths and d.last_stats["readbacks"] == 0
+    assert d.last_stats["steps"] > 0 or B == 1
+    idx = SAIndex(text)
+    for i in range(0, B, max(1, B // 300)):
+        want = idx.locate(pats[i])
+        assert tuple(got[i]) == want or (got[i, 0] == got[i, 1]
+                                         and want[0] == want[1]), i
+
+
+@pytest.mark.parametrize("tli", ["tllt", "tldt"])
+def test_blind_search_kernel_on_a_homopolymer(cuda, monkeypatch, tli):
+    """A^n: every interval is a chain, so the walks are as deep as the
+    patterns are long."""
+    from psac_tpu_torch import build_desa
+
+    n = 4096
+    d = build_desa(b"A" * n, cuda, tli=tli, maxsize=8)
+    _k7_spy(monkeypatch)
+    pats = [b"A" * ln for ln in (1, 2, 13, 100, 1000, n - 1, n, n + 1)]
+    got = d.bulk_locate(pats)
+    for pat, (l, r) in zip(pats, got):
+        occ = n - len(pat) + 1 if len(pat) <= n else 0
+        assert r - l == occ, (len(pat), l, r)
+    assert d.last_stats["steps"] >= 100
+
+
+def test_blind_search_rejects_what_the_kernel_does_not_take(cuda):
+    from psac_tpu_torch.ops.blind_search import blind_search
+    from psac_tpu_torch.ops.rmq import build_arg_rmq
+
+    cap, B = 256, 4
+    lcp = torch.zeros(cap, dtype=torch.int32, device=cuda)
+    lc = torch.zeros(cap, dtype=torch.int32, device=cuda)
+    rmq = build_arg_rmq(lcp)
+    pat = torch.ones((B, 8), dtype=torch.int32, device=cuda)
+    v = torch.zeros(B, dtype=torch.int32, device=cuda)
+    need = torch.ones(B, dtype=torch.bool, device=cuda)
+    args = (pat, v + 8, v, v + 9, need, lcp, lc, rmq, cap, {})
+    before = blind_search.launches
+    blind_search(*args)
+    assert blind_search.launches == before + 1
+    bad = [
+        (pat, v + 8, v, v + 9, need, lcp.to(torch.int16), lc, rmq, cap, {}),
+        (pat, v + 8, v, v + 9, need, lcp, lc.to(torch.int64), rmq, cap, {}),
+        (pat.t().contiguous().t(), v + 8, v, v + 9, need, lcp, lc, rmq, cap,
+         {}),
+        (pat.to(torch.int64), v + 8, v, v + 9, need, lcp, lc, rmq, cap, {}),
+        (pat, v + 8, v, v + 9, need.to(torch.int32), lcp, lc, rmq, cap, {}),
+        (pat, v + 8, v, v + 9, need, lcp, lc, rmq, cap - 8, {}),
+        (pat, v + 8, v, v + 9, need, lcp, lc, build_arg_rmq(lcp.clone()),
+         cap, {}),
+        (pat, v + 8, v, v + 9, need, lcp, lc, build_arg_rmq(lcp, 256), cap,
+         {}),
+        (pat.cpu(), v + 8, v, v + 9, need, lcp, lc, rmq, cap, {}),
+    ]
+    for a in bad:
+        with pytest.raises(ValueError):
+            blind_search(*a)
+    assert blind_search.launches == before + 1
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    out = blind_search(pat[:0], empty, empty, empty, need[:0], lcp, lc, rmq,
+                       cap, {})
+    assert all(o.shape == (0,) for o in out)
+    assert blind_search.launches == before + 1
+
+
+def test_psac_cli_on_the_card_writes_what_the_cpu_writes(cuda, tmp_path):
+    """``psac -f`` with no ``--device`` runs on the card and writes the
+    same ``.sa64/.lcp64/.alpha`` files as ``--device cpu``; so does
+    ``gsac -f``."""
+    from psac_tpu_torch.cli import main
+    from psac_tpu_torch.ops.alphabet import rand_dna, rep_dna
+
+    f = tmp_path / "t.txt"
+    # repetitive: the build resolves its LCP with K6
+    f.write_bytes(rep_dna(1 << 15, unit_len=500, seed=6))
+    before = rmq.rmq_resolve.launches
+    assert main(["psac", "-f", str(f), "-l", "-c",
+                 "-o", str(tmp_path / "gpu")]) == 0
+    assert rmq.rmq_resolve.launches > before
+    assert main(["psac", "-f", str(f), "-l", "--device", "cpu",
+                 "-o", str(tmp_path / "cpu")]) == 0
+    for ext in (".sa64", ".lcp64", ".alpha"):
+        assert (tmp_path / ("gpu" + ext)).read_bytes() == \
+            (tmp_path / ("cpu" + ext)).read_bytes(), ext
+    g = tmp_path / "ss.txt"
+    g.write_bytes(b"\n".join(rand_dna(300, seed=s) for s in range(40)))
+    assert main(["gsac", "-f", str(g), "-c", "-o", str(tmp_path / "g")]) == 0
+    assert main(["gsac", "-f", str(g), "--device", "cpu",
+                 "-o", str(tmp_path / "c")]) == 0
+    for ext in (".gsa64", ".glcp64"):
+        assert (tmp_path / ("g" + ext)).read_bytes() == \
+            (tmp_path / ("c" + ext)).read_bytes(), ext
+
+
+def test_d_check_sa_on_gpu(cuda):
+    from psac_tpu_torch.models.suffix_array import (construct_device,
+                                                    encode_and_shard)
+    from psac_tpu_torch.ops.alphabet import rep_dna
+    from psac_tpu_torch.verify.check_sa import d_check_sa
+
+    xs, alpha, n, N = encode_and_shard(rep_dna(1 << 15, unit_len=500), cuda)
+    dsa = construct_device(xs, alpha, n, N)
+    assert d_check_sa(dsa, xs)
+    sa = dsa.sa.clone()
+    off = N - n
+    sa[off + 10], sa[off + 11] = dsa.sa[off + 11], dsa.sa[off + 10]
+    import dataclasses
+    assert not d_check_sa(dataclasses.replace(dsa, sa=sa), xs)

@@ -199,3 +199,168 @@ def test_construct_lc_vs_compute_lc_device(mesh1):
     with pytest.raises(ValueError):
         t_sa.construct_device(xs, alpha, n, N, SAConfig(
             construct_lc=True, construct_lcp=False))
+
+
+# ---------------------------------------------------------------------------
+# K7, the blind search: a numpy model of the kernel's per-pattern walk
+# ---------------------------------------------------------------------------
+
+def _k7_model(pat, lens, l0, r0, need, lcp, lc, tab_v, tab_a, block: int,
+              cap: int, events: dict):
+    """What ``csrc/blind_search.cu`` computes, one pattern at a time: the
+    walk of the JAX ``body`` with the argmin as the least (value, index)
+    pair over the in-range edge-block entries, each edge seeded with (INF,
+    its block's first index), and two doubling-table entries (value INF
+    where no full block lies between).  ``events`` counts the descents
+    into two-row intervals, the argmin ranges with tied minima and the
+    patterns that ran out of pattern or of range."""
+    INF = int(np.iinfo(lcp.dtype).max)
+    levels, nb = tab_v.shape
+    last = levels * nb - 1
+    fv, fa = tab_v.reshape(-1), tab_a.reshape(-1)
+    B, Lmax = pat.shape
+
+    def clamp(v, lo, hi):
+        return min(max(int(v), lo), hi)
+
+    def arg_rmq(lo, hi):
+        lo = clamp(lo, 0, cap - 1)
+        hi = clamp(max(hi, lo), 0, cap - 1)
+        bl, bh = lo // block, hi // block
+        lend = hi if bl == bh else (bl + 1) * block - 1
+        best = min([(INF, bl * block)] +
+                   [(int(lcp[j]), j) for j in range(lo, lend + 1)])
+        ln = bh - bl - 1
+        lev = ln.bit_length() - 1 if ln > 0 else 0
+        for t in (clamp(lev * nb + bl + 1, 0, last),
+                  clamp(lev * nb + bh - 1 - (1 << lev) + 1, 0, last)):
+            best = min(best, (int(fv[t]) if ln > 0 else INF, int(fa[t])))
+        if bl != bh:
+            best = min(best, min([(INF, bh * block)] + [
+                (int(lcp[j]), j) for j in range(bh * block, hi + 1)]))
+        vals = lcp[lo:hi + 1]
+        events["tie"] += int((vals == vals.min()).sum() > 1)
+        return best[1]
+
+    def lcp_at(i):
+        return int(lcp[clamp(i, 0, cap - 1)])
+
+    out = np.zeros((4, B), np.int64)
+    for b in range(B):
+        m = int(lens[b])
+        l, r = int(l0[b]), int(r0[b])
+        i = arg_rmq(l + 1, r)
+        q = lcp_at(i)
+        done = not need[b] or not (q < m and l < r and l < i)
+        phase = steps = 0
+        while not done and steps < 2 * cap + 64:
+            if phase == 0:
+                c = int(pat[b, clamp(q, 0, Lmax - 1)])
+                if int(lc[clamp(i, 0, cap - 1)]) == c:
+                    r, phase = i - 1, 1
+                elif i == r:
+                    l, phase = i, 1
+                else:
+                    below = i < r
+                    l = i
+                    i = arg_rmq(l + 1, r)
+                    if not (below and lcp_at(i) == q):
+                        phase = 1
+            else:
+                lcpi = lcp_at(i)
+                if lcpi == q and l < r:
+                    events["two_row"] += int(r == l + 1)
+                    i = arg_rmq(l + 1, r)
+                    q = lcp_at(i)
+                elif lcpi == q:
+                    i, q = l, lcp_at(l)
+                else:
+                    q = lcpi
+                done = not (q < m and l < r and l < i)
+                events["ran_out"] += int(done and q < m)
+                phase = 0
+            steps += 1
+        out[:, b] = (l, r, q, steps)
+    return out
+
+
+K7_CASES = {
+    # "ab" is the second row of the two-row interval of "a"
+    "two_rows": (b"aab" * 3 + b"ab" + b"aab", dict(tli_bits=2)),
+    # nodes of three or four children: tied minima in the argmin ranges
+    "ties": (rand_dna(1500, seed=7), dict(tli_bits=6)),
+    "periodic": (b"abab" * 250, dict(tli_bits=8)),
+    "mississippi": (b"mississippi", dict(tli_bits=6)),
+    "rep_dna": (rep_dna(3000, unit_len=400, seed=5, mutations=6), {}),
+    "tldt_dna": (rand_dna(3000, seed=3001), dict(tli="tldt", maxsize=8)),
+    "tldt_repeats": (b"abab" * 200 + b"bba" * 100,
+                     dict(tli="tldt", maxsize=4)),
+    "int64_tllt": (rand_dna(1700, seed=41),
+                   dict(config=SAConfig(force_int64=True))),
+    "int64_tldt": (rep_dna(2000, unit_len=300, seed=2, mutations=4),
+                   dict(tli="tldt", maxsize=8,
+                        config=SAConfig(force_int64=True))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(K7_CASES))
+def test_blind_search_model_vs_plain(monkeypatch, name):
+    from psac_tpu_torch.ops import blind_search as k7
+
+    text, kw = K7_CASES[name]
+    d = t_desa.build_desa(text, "cpu", **kw)
+    events = {"tie": 0, "two_row": 0, "ran_out": 0, "calls": 0}
+
+    def checked(pat, lens, l0, r0, need, lcp, lc, rmq, cap, stats):
+        got = k7.blind_search_plain(pat, lens, l0, r0, need, lcp, lc, rmq,
+                                    cap, stats)
+        assert got[2].dtype == lcp.dtype and got[0].dtype == torch.int32
+        want = _k7_model(pat.numpy(), lens.numpy(), l0.numpy(), r0.numpy(),
+                         need.numpy(), lcp.numpy(), lc.numpy(),
+                         rmq.tab_v.numpy(), rmq.tab_a.numpy(), rmq.block,
+                         cap, events)
+        for k, g in enumerate(got):
+            np.testing.assert_array_equal(g.numpy().astype(np.int64),
+                                          want[k], err_msg=str(k))
+        events["calls"] += 1
+        return got
+
+    monkeypatch.setattr(t_desa, "blind_search", checked)
+    # substrings, absent patterns, patterns longer than any match or than
+    # the text, and empty ones (zero-length rows of the batch)
+    pats = _patterns(text, 3) + [text[:40] + text[:5],
+                                 text + text[:7], b"", b""]
+    got = d.bulk_locate(pats)
+    assert events["calls"] >= (2 if kw.get("tli") == "tldt" else 1)
+    sa = suffix_array_np(text)
+    for pat, (l, r) in zip(pats, got):
+        assert sorted(sa[l:r].tolist()) == sorted(occurrences(text, pat)), \
+            (pat, l, r)
+    assert d.last_stats["steps"] > 0
+    if name == "two_rows":
+        assert events["two_row"] > 0
+    if name == "ties":
+        assert events["tie"] > 0
+    assert events["ran_out"] > 0 or name == "mississippi"
+
+
+def test_blind_search_reports_steps_per_pattern():
+    """The plain walk's step counts are per pattern: a pattern that is not
+    walked takes none, and the batch's ``steps`` is the longest walk."""
+    from psac_tpu_torch.ops.blind_search import blind_search
+
+    text = rand_dna(2000, seed=5)
+    d = t_desa.build_desa(text, "cpu")
+    pats = [text[10:40], text[:3], b"", text[500:520]]
+    mat, lens, _ = d.encode_patterns(pats)
+    pat, dl = torch.from_numpy(mat), torch.from_numpy(lens)
+    l0 = torch.zeros(4, dtype=torch.int32)
+    r0 = torch.full((4,), d.cap - 1, dtype=torch.int32)
+    need = dl > 0
+    stats = {"readbacks": 0}
+    l, r, q, steps = blind_search(pat, dl, l0, r0, need, d.lcp, d.lc, d.rmq,
+                                  d.cap, stats)
+    assert steps.dtype == torch.int32 and steps[2] == 0
+    assert int(steps.max()) > 0 and stats["readbacks"] >= 1
+    d.bulk_locate(pats)
+    assert d.last_stats["steps"] > 0
