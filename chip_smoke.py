@@ -1068,11 +1068,16 @@ def k7_reads(args, got) -> dict:
     each inner step, every LCP word read, the LCP words of each argmin's
     edge scans and the table entries of each argmin that spans a full
     block.  Its final (l, r, q, steps) must equal the kernel's ``got``.
-    ``scanned`` sums the edge words over the argmins (their comparisons)."""
+    ``scanned`` sums the edge words over the argmins (their comparisons);
+    ``argmins`` counts them, ``rounds`` sums their load rounds at the
+    launch's shape (``launch_shape``: 16-byte vectors, lanes per pattern
+    and vectors per lane in a round, and a second round for the table's
+    indexes where no full block lies between and every word is INF) and
+    ``multi`` counts those that took more than one."""
     import torch
 
-    from psac_tpu_torch.ops.blind_search import max_steps_for
-    from psac_tpu_torch.ops.rmq import _floor_log2, query_arg_rmq
+    from psac_tpu_torch.ops.blind_search import launch_shape, max_steps_for
+    from psac_tpu_torch.ops.rmq import _floor_log2, edge_mins, query_arg_rmq
 
     pat, lens, l0, r0, need, lcp, lc, rmq, cap = args[:9]
     B, Lmax = pat.shape
@@ -1086,6 +1091,12 @@ def k7_reads(args, got) -> dict:
     tab_w = flags(rmq.tab_v.numel())
     runs = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
     scanned = torch.zeros((), dtype=i64, device=dev)
+    vec = 16 // lcp.element_size()  # words per 16-byte vector
+    shape = launch_shape(lcp.dtype, cap, B)
+    per_round = shape["group"] * shape["round"]
+    inf = torch.iinfo(lcp.dtype).max
+    rounds = {k: torch.zeros((), dtype=i64, device=dev)
+              for k in ("argmins", "rounds", "multi")}
 
     def mark(w, sel, idx):
         w[torch.where(sel, idx, w.shape[0] - 1)] = True
@@ -1112,6 +1123,14 @@ def k7_reads(args, got) -> dict:
         lev = _floor_log2(span)
         mark(tab_w, full, lev * nb + bl + 1)
         mark(tab_w, full, lev * nb + bh - (1 << lev))
+        lend = torch.where(bl == bh, hi, bl * block + block - 1)
+        nvec = lend // vec - lo // vec + 1 + torch.where(
+            bl != bh, hi // vec - bh * block // vec + 1, 0)
+        nr = -(-nvec // per_round) + (
+            (span <= 0) & (edge_mins(lcp, block, lo, hi) == inf)).to(i64)
+        rounds["argmins"] += sel.sum()
+        rounds["rounds"] += torch.where(sel, nr, 0).sum()
+        rounds["multi"] += (sel & (nr > 1)).sum()
         return query_arg_rmq(rmq, lo, hi).to(i64)
 
     l, r, m = l0.to(i64), r0.to(i64), lens.to(i64)
@@ -1161,7 +1180,8 @@ def k7_reads(args, got) -> dict:
     return dict(codes=int(codes[:-1].sum()),
                 lcp=int((edge | lcp_w[:-1]).sum()), lc=int(lc_w[:-1].sum()),
                 tab=int(tab_w[:-1].sum()), scanned=int(scanned),
-                steps=int(steps.sum()))
+                steps=int(steps.sum()),
+                **{k: int(v) for k, v in rounds.items()})
 
 
 def k7_bound(args, got) -> dict:
@@ -1183,7 +1203,8 @@ def check_k7(k7_calls: dict, card: str, kern: dict) -> None:
     slab search, the TLDT's sample and slab searches), timed both ways;
     the kernel table's row is the TLLT slab search at length 20."""
     from psac_tpu_torch.ops.blind_search import (blind_search,
-                                                 blind_search_plain)
+                                                 blind_search_plain,
+                                                 launch_shape)
 
     for (tli, L), calls in sorted(k7_calls.items()):
         for where, args in zip(("sample", "slab") if tli == "tldt"
@@ -1197,6 +1218,7 @@ def check_k7(k7_calls: dict, card: str, kern: dict) -> None:
             ms = cuda_ms(lambda: blind_search(*args), 10)
             plain_ms = cuda_ms(lambda: blind_search_plain(
                 *args[:-1], {"readbacks": 0}), 1)
+            grid = launch_shape(args[5].dtype, args[8], args[0].shape[0])
             log(f"[k7] {tli} {where} search, {args[0].shape[0]} x len {L} "
                 f"({args[5].shape[0]} rows): == plain (max abs err {err}); "
                 f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
@@ -1204,8 +1226,12 @@ def check_k7(k7_calls: dict, card: str, kern: dict) -> None:
                 f"reached), longest walk {int(got[3].max())} steps, "
                 f"{w['steps']} steps in all; words read once: {w['lcp']} LCP, "
                 f"{w['lc']} Lc, {w['tab']} table, {w['codes']} pattern; "
-                f"{w['scanned']} edge words scanned; {stats['readbacks']} "
-                f"plain readbacks on {card}")
+                f"{w['scanned']} edge words scanned; {w['argmins']} argmins "
+                f"in {w['rounds']} load rounds ({w['multi']} took more than "
+                f"one); G {grid['group']}, {grid['threads']} threads per "
+                f"block, {grid['round']} vectors per lane in a round, "
+                f"{grid['blocks']} blocks; "
+                f"{stats['readbacks']} plain readbacks on {card}")
             if (tli, L, where) == ("tllt", 20, "slab"):
                 kern["blind_search"] = dict(
                     route="cuda", source="psac_tpu_torch/csrc/blind_search.cu",

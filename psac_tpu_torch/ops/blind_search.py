@@ -7,13 +7,17 @@ suffix-tree intervals using only the leftmost-argmin RMQ over the slab's
 LCP and its left-branching characters Lc (reference desa.hpp:402-527
 ``find_child`` / ``local_locate_possible``).  ``blind_search`` launches the
 hand-written CUDA kernel (``psac_tpu_torch/csrc/blind_search.cu``: one
-launch, each pattern walked to its end by one thread) on CUDA tensors and
-raises on what it does not take; given CPU tensors it runs
+launch, each pattern walked to its end by a group of lanes that reads
+each range minimum's edge parts as 16-byte vectors; the launcher picks
+the lanes from the slab's size, and ``launch_shape`` reports them) on CUDA
+tensors and raises on what it does not take; given CPU tensors it runs
 ``blind_search_plain``, the batched torch walk, with the same outputs bit
 for bit.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -28,6 +32,9 @@ I32_MAX = torch.iinfo(torch.int32).max
 _COMPACT_RUNGS = (2, 8, 64)
 #: Plain-walk steps between readbacks of the exit and compaction tests.
 _CHECK_EVERY = 4
+
+#: The largest RMQ block the kernel takes.
+MAX_BLOCK = 128
 
 
 def max_steps_for(cap: int) -> int:
@@ -147,6 +154,19 @@ def blind_search_plain(pat, lens, l0, r0, need, lcp_slab, lc_slab,
     return l, r, q, nst
 
 
+def launch_shape(dtype: torch.dtype, cap: int, B: int) -> dict:
+    """The shape of a K7 launch of ``B`` patterns on a slab of ``cap`` rows
+    of ``dtype`` values, as the library compiled it: lanes per pattern
+    (``group``), ``threads`` per block, the most 16-byte vectors a lane
+    loads in one round (``round``) and the ``blocks`` of the grid."""
+    out = (ctypes.c_int * 3)()
+    cuda_lib.lib().psac_blind_search_shape(cap, int(dtype == torch.int64),
+                                           out)
+    group, threads, rnd = out
+    return dict(group=group, threads=threads, round=rnd,
+                blocks=-(-B // (threads // group)))
+
+
 def blind_search(pat, lens, l0, r0, need, lcp_slab, lc_slab,
                  rmq: ArgLocalRMQ, cap: int, stats: dict):
     """K7: see ``blind_search_plain`` for the contract.  On CUDA tensors one
@@ -182,9 +202,12 @@ def blind_search(pat, lens, l0, r0, need, lcp_slab, lc_slab,
             tab_a.device != lcp_slab.device or \
             tab_v.shape[1] * block != cap:
         raise ValueError("blind_search: the RMQ is not this slab's")
-    if block & (block - 1) or not 0 < block <= 128:
+    if block & (block - 1) or not 0 < block <= MAX_BLOCK:
         raise ValueError(f"blind_search: block {block} is not a power of two "
-                         "up to 128")
+                         f"up to {MAX_BLOCK}")
+    if lcp_slab.data_ptr() % 16 or cap * lcp_slab.element_size() % 16:
+        raise ValueError("blind_search: the slab's LCP must start on a "
+                         "16-byte boundary and fill whole 16-byte words")
     out_l = torch.empty_like(l0)
     out_r = torch.empty_like(l0)
     out_q = torch.empty(B, dtype=dt, device=l0.device)

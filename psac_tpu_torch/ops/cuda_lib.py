@@ -44,6 +44,7 @@ _SIGNATURES = {
                                           _I64, _P],
     "psac_blind_search_i64": [_P] * 13 + [_I64, _I32, _I64, _I64, _I32, _I32,
                                           _I64, _P],
+    "psac_blind_search_shape": [_I64, _I32, _P],
 }
 
 _lib = None

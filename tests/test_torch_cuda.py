@@ -540,7 +540,7 @@ def _k7_patterns(text: bytes, B: int, seed: int) -> list:
     return out
 
 
-@pytest.mark.parametrize("B", [1, 255, 65536])
+@pytest.mark.parametrize("B", [1, 255, 4093, 65536])
 @pytest.mark.parametrize("tli", ["tllt", "tldt"])
 @pytest.mark.parametrize("force_int64", [False, True])
 def test_blind_search_kernel_vs_plain(cuda, monkeypatch, force_int64, tli,
@@ -619,6 +619,163 @@ def test_blind_search_rejects_what_the_kernel_does_not_take(cuda):
     out = blind_search(pat[:0], empty, empty, empty, need[:0], lcp, lc, rmq,
                        cap, {})
     assert all(o.shape == (0,) for o in out)
+    assert blind_search.launches == before + 1
+
+
+def _k7_calls(d, pats) -> list:
+    """The arguments of the blind searches of ``d.bulk_locate(pats)``."""
+    from unittest import mock
+
+    from psac_tpu_torch.models import desa as t_desa
+    from psac_tpu_torch.ops import blind_search as k7
+
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return k7.blind_search(*args)
+
+    with mock.patch.object(t_desa, "blind_search", record):
+        d.bulk_locate(pats)
+    assert calls
+    return calls
+
+
+def _k7_plain(args):
+    from psac_tpu_torch.ops.blind_search import blind_search_plain
+
+    return blind_search_plain(*args[:-1], {"readbacks": 0})
+
+
+def _k7_padded(args, cap2: int):
+    """The blind search's arguments on its slab padded with INF rows (as a
+    slab's unused capacity) to ``cap2`` rows, with the padded slab's RMQ."""
+    from psac_tpu_torch.ops.rmq import build_arg_rmq
+
+    pat, lens, l0, r0, need, lcp, lc, _, cap, stats = args
+    lcp2 = torch.full((cap2,), torch.iinfo(lcp.dtype).max, dtype=lcp.dtype,
+                      device=lcp.device)
+    lcp2[:cap] = lcp
+    lc2 = torch.zeros(cap2, dtype=torch.int32, device=lc.device)
+    lc2[:cap] = lc
+    return (pat, lens, l0, r0, need, lcp2, lc2, build_arg_rmq(lcp2), cap2,
+            stats)
+
+
+def _k7_wide_cap(dtype, cap: int) -> int:
+    """The least ``cap`` * 2^k rows on which K7 walks a pattern with more
+    than one lane (the launcher picks the lanes from the slab's size)."""
+    from psac_tpu_torch.ops.blind_search import launch_shape
+
+    while launch_shape(dtype, cap, 1)["group"] == 1:
+        cap *= 2
+        assert cap < 1 << 28, "K7 never takes more than one lane"
+    return cap
+
+
+@pytest.mark.parametrize("B", [1, 255, 4093, 65536])
+@pytest.mark.parametrize("tli", ["tllt", "tldt"])
+@pytest.mark.parametrize("force_int64", [False, True])
+def test_blind_search_kernel_every_shape(cuda, force_int64, tli, B):
+    """K7 at both lane counts it launches (one lane per pattern on a small
+    slab, a group on a large one) equals the plain version in all four
+    outputs: the main path's searches as they are, and on their slabs
+    padded past the size where the launcher takes a group."""
+    from psac_tpu_torch import SAConfig, build_desa
+    from psac_tpu_torch.ops.alphabet import rand_dna
+    from psac_tpu_torch.ops.blind_search import blind_search, launch_shape
+
+    text = rand_dna(1 << 16, seed=B)
+    d = build_desa(text, cuda, config=SAConfig(force_int64=force_int64),
+                   tli=tli)
+    calls = _k7_calls(d, _k7_patterns(text, B, seed=B + 2))
+    groups = set()
+    for args in calls:
+        dt, cap = args[5].dtype, args[8]
+        wide = _k7_padded(args, _k7_wide_cap(dt, cap))
+        for a in (args, wide):
+            nb = a[0].shape[0]
+            shape = launch_shape(dt, a[8], nb)
+            groups.add(shape["group"])
+            assert shape["blocks"] * shape["threads"] >= nb * shape["group"]
+            _same(blind_search(*a), _k7_plain(a))
+    assert 1 in groups and len(groups) == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("block", [8, 16, 32, 64, 128])
+def test_blind_search_kernel_on_every_block(cuda, dtype, block):
+    """The slab's RMQ block is any power of two from 8 to 128: the TLLT
+    slab search's inputs re-padded (INF rows, as a slab's unused capacity)
+    to a capacity whose block is ``block``, one small and one large enough
+    for the launcher to take a group of lanes."""
+    from psac_tpu_torch import SAConfig, build_desa
+    from psac_tpu_torch.ops.alphabet import rand_dna
+    from psac_tpu_torch.ops.blind_search import blind_search
+
+    text = rand_dna(1 << 15, seed=block)
+    d = build_desa(text, cuda, config=SAConfig(
+        force_int64=dtype == torch.int64))
+    # one length tier, so one blind search
+    pats = [p[:12] for p in _k7_patterns(text, 2048, seed=block)]
+    (args,) = _k7_calls(d, pats)
+    cap = args[8]
+    for least in (cap + 1, _k7_wide_cap(dtype, cap)):
+        cap2 = -(-least // 256) * 256 + block  # block divides, 2 * block not
+        a = _k7_padded(args, cap2)
+        assert a[7].block == block
+        _same(blind_search(*a), _k7_plain(a))
+
+
+def test_blind_search_kernel_twice_on_one_stream(cuda):
+    """Two launches in a row on one stream, with no synchronization
+    between, and freed memory filled with -7 before each: both equal the
+    plain version, on a slab walked by one lane per pattern and on one
+    walked by a group."""
+    from psac_tpu_torch import build_desa
+    from psac_tpu_torch.ops.alphabet import rand_dna
+    from psac_tpu_torch.ops.blind_search import blind_search
+
+    text = rand_dna(1 << 16, seed=77)
+    d = build_desa(text, cuda)
+    B = 3001
+    (args,) = _k7_calls(d, [p[:12] for p in _k7_patterns(text, B, seed=78)])
+    assert args[0].shape[0] == B
+    for a in (args, _k7_padded(args, _k7_wide_cap(torch.int32, args[8]))):
+        want = _k7_plain(a)
+        torch.cuda.synchronize()
+        got = []
+        for _ in range(2):
+            junk = [torch.full_like(a[2], -7) for _ in range(8)]
+            del junk
+            got.append(blind_search(*a))
+        torch.cuda.synchronize()
+        for g in got:
+            _same(g, want)
+
+
+def test_blind_search_rejects_a_misaligned_lcp(cuda):
+    """An LCP view that does not start on a 16-byte boundary raises and
+    launches nothing."""
+    from psac_tpu_torch.ops.blind_search import blind_search
+    from psac_tpu_torch.ops.rmq import build_arg_rmq
+
+    cap, B = 256, 4
+    base = torch.zeros(cap + 1, dtype=torch.int32, device=cuda)
+    lcp = base[1:]
+    assert lcp.is_contiguous() and lcp.data_ptr() % 16
+    lc = torch.zeros(cap, dtype=torch.int32, device=cuda)
+    pat = torch.ones((B, 8), dtype=torch.int32, device=cuda)
+    v = torch.zeros(B, dtype=torch.int32, device=cuda)
+    need = torch.ones(B, dtype=torch.bool, device=cuda)
+    before = blind_search.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        blind_search(pat, v + 8, v, v + 9, need, lcp, lc, build_arg_rmq(lcp),
+                     cap, {})
+    assert blind_search.launches == before
+    aligned = base[4:4 + cap - 8]  # 16 bytes in
+    blind_search(pat, v + 8, v, v + 9, need, aligned, lc[:cap - 8],
+                 build_arg_rmq(aligned), cap - 8, {})
     assert blind_search.launches == before + 1
 
 

@@ -6,9 +6,14 @@ is also checked by a naive occurrence scan.  Both top-level indexes, the
 int64 index, mixed pattern lengths (several length groups), empty patterns
 and characters outside the alphabet.  Exact equality (integers only)."""
 
+import functools
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 from psac_tpu_torch import SAConfig
 from psac_tpu_torch.models import desa as t_desa
@@ -205,23 +210,22 @@ def test_construct_lc_vs_compute_lc_device(mesh1):
 # K7, the blind search: a numpy model of the kernel's per-pattern walk
 # ---------------------------------------------------------------------------
 
-def _k7_model(pat, lens, l0, r0, need, lcp, lc, tab_v, tab_a, block: int,
-              cap: int, events: dict):
-    """What ``csrc/blind_search.cu`` computes, one pattern at a time: the
-    walk of the JAX ``body`` with the argmin as the least (value, index)
-    pair over the in-range edge-block entries, each edge seeded with (INF,
-    its block's first index), and two doubling-table entries (value INF
-    where no full block lies between).  ``events`` counts the descents
-    into two-row intervals, the argmin ranges with tied minima and the
-    patterns that ran out of pattern or of range."""
+def _clamp(v, lo, hi):
+    return min(max(int(v), lo), hi)
+
+
+def _k7_serial_argmin(lcp, tab_v, tab_a, block: int, cap: int,
+                      events: dict):
+    """The argmin of the kernel at one lane, serially: the least (value,
+    index) pair over the in-range edge-block entries, each edge seeded with
+    (INF, its block's first index), and two doubling-table entries (value
+    INF where no full block lies between).  Returns ``arg_rmq(lo, hi)``;
+    ``events["tie"]`` counts the ranges with tied minima."""
     INF = int(np.iinfo(lcp.dtype).max)
     levels, nb = tab_v.shape
     last = levels * nb - 1
     fv, fa = tab_v.reshape(-1), tab_a.reshape(-1)
-    B, Lmax = pat.shape
-
-    def clamp(v, lo, hi):
-        return min(max(int(v), lo), hi)
+    clamp = _clamp
 
     def arg_rmq(lo, hi):
         lo = clamp(lo, 0, cap - 1)
@@ -241,6 +245,20 @@ def _k7_model(pat, lens, l0, r0, need, lcp, lc, tab_v, tab_a, block: int,
         vals = lcp[lo:hi + 1]
         events["tie"] += int((vals == vals.min()).sum() > 1)
         return best[1]
+
+    return arg_rmq
+
+
+def _k7_model(pat, lens, l0, r0, need, lcp, lc, tab_v, tab_a, block: int,
+              cap: int, events: dict, argmin=_k7_serial_argmin):
+    """What ``csrc/blind_search.cu`` computes, one pattern at a time: the
+    walk of the JAX ``body`` with the argmin of ``argmin`` (the serial one
+    by default, or ``_k7_group_argmin``).  ``events`` counts the descents
+    into two-row intervals, the argmin ranges with tied minima and the
+    patterns that ran out of pattern or of range."""
+    B, Lmax = pat.shape
+    clamp = _clamp
+    arg_rmq = argmin(lcp, tab_v, tab_a, block, cap, events)
 
     def lcp_at(i):
         return int(lcp[clamp(i, 0, cap - 1)])
@@ -364,3 +382,211 @@ def test_blind_search_reports_steps_per_pattern():
     assert int(steps.max()) > 0 and stats["readbacks"] >= 1
     d.bulk_locate(pats)
     assert d.last_stats["steps"] > 0
+
+
+# ---------------------------------------------------------------------------
+# K7's group argmin: G lanes, 16-byte vectors, one shuffle tree
+# ---------------------------------------------------------------------------
+
+K7_LANES = (1, 4, 8, 16, 32)
+#: most 16-byte vectors per lane in a load round (``PSAC_K7_ROUND``)
+K7_ROUNDS = (2, 4, 8)
+
+
+def _k7_round(lanes: int, itemsize: int, max_round: int) -> int:
+    """Vectors per lane in a round: enough for both edge parts of the
+    largest block, at most ``max_round``."""
+    from psac_tpu_torch.ops.blind_search import MAX_BLOCK
+
+    return min(max_round, -(-(2 * MAX_BLOCK * itemsize // 16) // lanes))
+
+
+def _k7_group_argmin(lcp, tab_v, tab_a, block: int, cap: int, events: dict,
+                     *, lanes: int, max_round: int,
+                     rounds: list | None = None):
+    """The argmin of ``csrc/blind_search.cu`` taken by a group of ``lanes``
+    lanes: the edge parts read as aligned 16-byte vectors (16 //
+    itemsize words), the left part's then the right part's, lane k taking
+    vectors k, k + G, ... in rounds of ``_k7_round`` per lane; each lane
+    meets its words in increasing order and keeps the first of its least,
+    a word outside [lo, hi] counting as INF; where full blocks lie between,
+    lane 0 takes the first table entry and lane 1 (lane 0 at G = 1) the
+    second, in the same round; lane 0 takes the two seeds; an xor-shuffle
+    tree combines the lanes' least pairs, after which every lane holds the
+    same pair; where no full block lies between and that pair's value is
+    INF, the table entries' indexes join it with value INF (a second
+    round).  Each call appends its load rounds to ``rounds``.  Also checks
+    the kernel's shortcut: the winning value is the LCP at the winning
+    index unless it is INF."""
+    G = lanes
+    INF = int(np.iinfo(lcp.dtype).max)
+    IMAX = int(np.iinfo(np.int32).max)
+    VE = 16 // lcp.dtype.itemsize
+    R = _k7_round(G, lcp.dtype.itemsize, max_round)
+    levels, nb = tab_v.shape
+    last = levels * nb - 1
+    fv, fa = tab_v.reshape(-1), tab_a.reshape(-1)
+    clamp = _clamp
+    assert lcp.shape[0] == cap and cap % VE == 0
+
+    def arg_rmq(lo, hi):
+        lo = clamp(lo, 0, cap - 1)
+        hi = clamp(max(hi, lo), 0, cap - 1)
+        bl, bh = lo // block, hi // block
+        lend = hi if bl == bh else (bl + 1) * block - 1
+        ln = bh - bl - 1
+        lev = ln.bit_length() - 1 if ln > 0 else 0
+        t0 = clamp(lev * nb + bl + 1, 0, last)
+        t1 = clamp(lev * nb + bh - 1 - (1 << lev) + 1, 0, last)
+        vl = lo // VE
+        nl = lend // VE - vl + 1
+        vr = bh * block // VE
+        n = nl + (hi // VE - vr + 1 if bl != bh else 0)
+        best = [(INF, IMAX)] * G
+        nround = 0
+        for base in range(0, n, G * R):
+            nround += 1
+            for lane in range(G):
+                for k in range(R):
+                    c = base + lane + k * G
+                    if c >= n:
+                        continue
+                    w = (vl + c if c < nl else vr + c - nl) * VE
+                    vec = lcp[w:w + VE]  # one 16-byte load
+                    assert vec.shape[0] == VE
+                    for e in range(VE):
+                        x = int(vec[e]) if lo <= w + e <= hi else INF
+                        if x < best[lane][0]:
+                            best[lane] = (x, w + e)
+        best[0] = min(best[0], (INF, bl * block))
+        if bl != bh:
+            best[0] = min(best[0], (INF, bh * block))
+        if ln > 0:
+            best[0] = min(best[0], (int(fv[t0]), int(fa[t0])))
+            t1_lane = 1 if G > 1 else 0
+            best[t1_lane] = min(best[t1_lane], (int(fv[t1]), int(fa[t1])))
+        off = G // 2
+        while off:
+            best = [min(best[k], best[k ^ off]) for k in range(G)]
+            off //= 2
+        assert len(set(best)) == 1
+        v, i = best[0]
+        if ln <= 0 and v == INF:
+            nround += 1
+            v, i = min((v, i), (INF, int(fa[t0])), (INF, int(fa[t1])))
+        assert 0 <= i < cap and (v == INF or v == int(lcp[i]))
+        if rounds is not None:
+            rounds.append(nround)
+        return i
+
+    return arg_rmq
+
+
+def _k7_table(lcp: np.ndarray, block: int):
+    from psac_tpu_torch.ops.rmq import build_arg_rmq
+
+    rmq = build_arg_rmq(torch.from_numpy(lcp), block)
+    return rmq.tab_v.numpy(), rmq.tab_a.numpy()
+
+
+@st.composite
+def _k7_ranges(draw, block: int, itemsize: int):
+    """An LCP of one to six blocks with runs of INF and many ties (values
+    from a small alphabet) and a list of query ranges: lo == hi, ranges
+    inside one block, ranges over two blocks (no full block between),
+    reversed and out-of-slab ranges (clamped), and wide ones."""
+    nblk = draw(st.integers(1, 6))
+    cap = nblk * block
+    dt = np.int32 if itemsize == 4 else np.int64
+    INF = int(np.iinfo(dt).max)
+    vals = draw(st.lists(st.integers(0, 3), min_size=cap, max_size=cap))
+    lcp = np.array(vals, dt)
+    for _ in range(draw(st.integers(0, 3))):
+        a = draw(st.integers(0, cap - 1))
+        lcp[a:a + draw(st.integers(1, 2 * block))] = INF
+    if draw(st.booleans()):
+        lcp[-draw(st.integers(1, cap)):] = INF  # a padded tail
+    if itemsize == 8 and draw(st.booleans()):
+        lcp = np.where(lcp == INF, lcp, lcp + (1 << 40))  # wide values
+    pos = st.integers(-2, cap + 2)
+    ranges = draw(st.lists(st.tuples(pos, pos), min_size=1, max_size=12))
+    for lo in draw(st.lists(st.integers(0, cap - 1), max_size=4)):
+        b0 = lo // block * block
+        ranges += [(lo, lo), (lo, min(cap - 1, b0 + block - 1)),
+                   (lo, min(cap - 1, b0 + 2 * block - 1))]
+    return lcp, ranges
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("block", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("lanes", K7_LANES)
+@settings(max_examples=30, deadline=None, derandomize=True, database=None,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(data=st.data())
+def test_k7_group_argmin_vs_serial(lanes, block, itemsize, data):
+    """The group argmin equals the serial argmin of ``_k7_model`` on every
+    range, bit for bit, at every lane count, block and vector width."""
+    lcp, ranges = data.draw(_k7_ranges(block, itemsize))
+    max_round = data.draw(st.sampled_from(K7_ROUNDS))
+    cap = lcp.shape[0]
+    tab_v, tab_a = _k7_table(lcp, block)
+    events = {"tie": 0}
+    serial = _k7_serial_argmin(lcp, tab_v, tab_a, block, cap, events)
+    rounds = []
+    group = _k7_group_argmin(lcp, tab_v, tab_a, block, cap, events,
+                             lanes=lanes, max_round=max_round,
+                             rounds=rounds)
+    INF = int(np.iinfo(lcp.dtype).max)
+    for lo, hi in ranges:
+        assert group(lo, hi) == serial(lo, hi), (lo, hi)
+        # one round, unless the edge parts outgrow a round's vectors or
+        # every word is INF with no full block between (the table's indexes)
+        lo_, hi_ = _clamp(lo, 0, cap - 1), _clamp(max(hi, lo), 0, cap - 1)
+        wide = hi_ // block - lo_ // block > 1
+        nvec = 2 * block * itemsize // 16  # the most the edge parts hold
+        fits = lanes * _k7_round(lanes, itemsize, max_round) >= nvec
+        if fits and (wide or lcp[lo_:hi_ + 1].min() < INF):
+            assert rounds[-1] == 1, (lo, hi)
+
+
+@functools.lru_cache(maxsize=None)
+def _k7_case_calls(name: str) -> list:
+    """The blind searches of ``bulk_locate`` on K7_CASES[name]'s index and
+    patterns: each call's arguments and the plain version's outputs."""
+    from psac_tpu_torch.ops import blind_search as k7
+
+    text, kw = K7_CASES[name]
+    d = t_desa.build_desa(text, "cpu", **kw)
+    calls = []
+
+    def record(*args):
+        got = k7.blind_search_plain(*args)
+        calls.append((args, tuple(g.numpy().astype(np.int64) for g in got)))
+        return got
+
+    pats = _patterns(text, 3) + [text[:40] + text[:5],
+                                 text + text[:7], b"", b""]
+    with mock.patch.object(t_desa, "blind_search", record):
+        d.bulk_locate(pats)
+    return calls
+
+
+@pytest.mark.parametrize("lanes", K7_LANES)
+@pytest.mark.parametrize("name", sorted(K7_CASES))
+def test_blind_search_group_model_vs_plain(name, lanes):
+    """The whole walk with the group argmin equals the plain version on
+    the cases of ``test_blind_search_model_vs_plain`` (two-row intervals,
+    ties, TLDT samples and slabs, int64) in all four outputs."""
+    calls = _k7_case_calls(name)
+    assert calls
+    for args, want in calls:
+        pat, lens, l0, r0, need, lcp, lc, rmq, cap, _ = args
+        events = {"tie": 0, "two_row": 0, "ran_out": 0}
+        got = _k7_model(pat.numpy(), lens.numpy(), l0.numpy(), r0.numpy(),
+                        need.numpy(), lcp.numpy(), lc.numpy(),
+                        rmq.tab_v.numpy(), rmq.tab_a.numpy(), rmq.block,
+                        cap, events,
+                        argmin=functools.partial(_k7_group_argmin,
+                                                 lanes=lanes, max_round=2))
+        for k in range(4):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=str(k))
