@@ -15,9 +15,15 @@ patterns of lengths 8, 20 and 64 (the blind search K7, held against its
 plain version on those batches' inputs); the generalized suffix array +
 LCP and the generalized suffix tree of 16,384 random 4 KiB strings (2^26
 characters) and of a family of 64 near-identical 256 KiB strings (2^24);
-then the command-line tools in processes of their own (``psac -f``,
-``gsac -f``, ``mkpattern``, ``desa -q`` building, saving and loading the
-index) on the same inputs, and ``d_check_sa`` on the file build.
+the host-driven construction loop (``fused=False``) on the same texts and
+sets (SA+LCP at tail thresholds 0.1 and 0.0, SA-only at factors 2-4, K6 in
+every doubling step of ``rep_dna``, the GSA of both sets) and
+``pack_keys`` at ``dense_factor=5``; each ANSV engine (hybrid, scan,
+block, spine) against the plain path on 2^24 values; then the
+command-line tools in processes of their own (``psac -f``, ``gsac -f``,
+``mkpattern``, ``desa -q`` building, saving and loading the index,
+``benchmark`` and ``benchmark-ansv``) on the same inputs, and
+``d_check_sa`` on the file build.
 Every result is held against the native SA-IS + Kasai oracle, the
 sequential ANSV oracle, the sorting oracles or the plain path; the script
 prints the kernel table (each kernel's time beside its bound: the bytes it
@@ -27,13 +33,14 @@ Any mismatch raises; the exit code is then non-zero.
 
 Run from the repository root:  python3 chip_smoke.py
 (``--log2n``/``--rep-log2n``/``--ansv-log2n``/``--batch``/``--gsa-log2n``/
-``--fam-log2n`` shrink the work for a quick rehearsal.)
+``--fam-log2n``/``--bench-reps`` shrink the work for a quick rehearsal.)
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -601,8 +608,10 @@ def gsa_phase(label: str, strings: list, want_k6: bool, card: str) -> dict:
     for run in ("first", "second"):
         del dgsa, tree
         reset()
+        gc.collect()  # cyclic garbage of earlier phases holds no memory
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         dgsa = build_gsa_device(strings)
         torch.cuda.synchronize()
@@ -669,7 +678,8 @@ def gsa_phase(label: str, strings: list, want_k6: bool, card: str) -> dict:
         f"above them): "
         f"{out['gsa_first_s']:.3f} s first, {out['gsa_second_s']:.3f} s "
         f"second ({n / out['gsa_second_s'] / 1e6:.1f} MB/s), peak "
-        f"{mem_gsa / 2**30:.2f} GiB, launches {gsa_counts} on {card}")
+        f"{mem_gsa / 2**30:.2f} GiB ({live / 2**30:.2f} GiB live before "
+        f"it), launches {gsa_counts} on {card}")
     log(f"[gsa] {label}: GST == plain path: {out['gst_first_s']:.3f} s "
         f"first, {out['gst_second_s']:.3f} s second, peak "
         f"{mem_gst / 2**30:.2f} GiB, launches {gst_counts} on {card}")
@@ -1239,10 +1249,221 @@ def check_k7(k7_calls: dict, card: str, kern: dict) -> None:
                     ms=ms, plain_ms=plain_ms, **b)
 
 
-def run_cli(args: list, label: str) -> str:
+def timed_build(build, label: str, card: str) -> tuple:
+    """``build()`` on the card, synchronized, with K6's launches counted
+    (they join the kernel table's), its host-loop iterations
+    (``LAST_BUILD``; an SA build sets them, a GSA build does not) and its
+    peak memory, with what was allocated before it; logged.  Returns
+    (result, stats)."""
+    import torch
+
+    from psac_tpu_torch.models.suffix_array import LAST_BUILD
+    from psac_tpu_torch.ops.rmq import rmq_resolve
+
+    reset, read = counter((rmq_resolve,))
+    LAST_BUILD.update(fused=None, host_iters=None)
+    reset()
+    gc.collect()  # cyclic garbage of earlier builds holds no memory
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = build()
+    torch.cuda.synchronize()
+    st = dict(wall_s=time.perf_counter() - t0, k6=read()["rmq_resolve"],
+              host_iters=LAST_BUILD["host_iters"], fused=LAST_BUILD["fused"],
+              peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+              live_gib=live / 2**30)
+    add_launches({"rmq_resolve": st["k6"]})
+    log(f"[hostloop] {label}: {st['wall_s']:.3f} s, K6 launches {st['k6']}, "
+        + (f"host_iters {st['host_iters']}, fused {st['fused']}, "
+           if st["host_iters"] is not None else "")
+        + f"peak {st['peak_gib']:.2f} GiB ({st['live_gib']:.2f} GiB live "
+        f"before it) on {card}")
+    return res, st
+
+
+def hostloop_phase(dev, text: bytes, sa_ref, lcp_ref, log2n: int,
+                   rep_text: bytes, rsa, rlcp, rep_log2n: int,
+                   gsa_sets: dict, card: str) -> dict:
+    """The host-driven construction loop (``SAConfig(fused=False)``) at full
+    size through ``construct_device`` and ``build_gsa_device``, each result
+    held against the oracle the script already has: SA+LCP of the random
+    text at tail thresholds 0.1 and 0.0 and SA-only at factors 2, 3 and 4;
+    SA+LCP of ``rep_dna`` (K6 in every doubling step) in turns with the
+    fused build; ``pack_keys`` on and off at ``dense_factor=5`` on
+    ``rep_dna`` (equal results), in turns; the GSA + GLCP of each set of
+    ``gsa_sets`` (label -> (strings, (sa, lcp) oracle)) in turns with the
+    fused build."""
+    from psac_tpu_torch import SAConfig
+    from psac_tpu_torch.models.gsa import build_gsa_device
+    from psac_tpu_torch.models.suffix_array import (construct_device,
+                                                    encode_and_shard)
+
+    out = {}
+
+    def sa_build(t, conf, label, want_sa, want_lcp, keep=False):
+        """(the result if ``keep``, else None; stats)."""
+        xs, alpha, n, N = encode_and_shard(t, dev)
+        dsa, st = timed_build(
+            lambda: construct_device(xs, alpha, n, N, conf), label, card)
+        res = dsa.materialize()
+        if not np.array_equal(res.sa, want_sa) or (
+                conf.construct_lcp and not np.array_equal(res.lcp,
+                                                          want_lcp)):
+            raise AssertionError(f"{label} differs from the native oracle")
+        return (dsa if keep else None), st
+
+    for frac in (0.1, 0.0):
+        _, out[f"rand_lcp_frac{frac}"] = sa_build(
+            text, SAConfig(fused=False, tail_threshold_frac=frac),
+            f"SA+LCP 2^{log2n} rand_dna fused=False tail_threshold_frac "
+            f"{frac}", sa_ref, lcp_ref)
+    for f in (2, 3, 4):
+        _, out[f"rand_sa_f{f}"] = sa_build(
+            text, SAConfig(fused=False, construct_lcp=False, factor=f),
+            f"SA-only 2^{log2n} rand_dna fused=False factor {f}", sa_ref,
+            None)
+    log(f"[hostloop] 2^{log2n} rand_dna: every host-loop build == native "
+        "SA-IS + Kasai")
+
+    turns = []
+    for fused in (True, False, False, True):
+        _, st = sa_build(rep_text, SAConfig(fused=fused),
+                         f"SA+LCP 2^{rep_log2n} rep_dna fused={fused}", rsa,
+                         rlcp)
+        turns.append(("fused" if fused else "host", st))
+    host = [st for name, st in turns if name == "host"]
+    if min(st["k6"] for st in host) == 0 or host[0]["host_iters"] == 0:
+        raise AssertionError("the host loop of rep_dna launched no K6")
+    out["rep_turns"] = turns
+
+    # the timer's sections of one more host-loop build, summed by kind
+    import contextlib
+    import io
+    import re
+    xs, alpha, n, N = encode_and_shard(rep_text, dev)
+    err = io.StringIO()
+    os.environ["PSAC_TIMER"] = "1"
+    try:
+        with contextlib.redirect_stderr(err):
+            construct_device(xs, alpha, n, N, SAConfig(fused=False))
+    finally:
+        del os.environ["PSAC_TIMER"]
+    del xs
+    kinds: dict = {}
+    for m in re.finditer(r"^\[timer\] \[construct\] ([a-z-]+)[^\n]*: "
+                         r"([0-9.]+) ms$", err.getvalue(), re.M):
+        t, c = kinds.get(m.group(1), (0.0, 0))
+        kinds[m.group(1)] = (t + float(m.group(2)), c + 1)
+    out["rep_sections_ms"] = kinds
+    log(f"[hostloop] PSAC_TIMER sections of the 2^{rep_log2n} rep_dna "
+        "fused=False build, summed by kind: " + ", ".join(
+            f"{k} {t:.2f} ms x{c}" for k, (t, c) in kinds.items())
+        + " (a section ends at the next readback: a resolve's device time "
+        f"falls into the step after it) on {card}")
+
+    states, ptimes = {}, []
+    for packed in (True, False, False, True):
+        dsa, st = sa_build(rep_text, SAConfig(dense_factor=5,
+                                              pack_keys=packed),
+                           f"SA+LCP 2^{rep_log2n} rep_dna dense_factor=5 "
+                           f"pack_keys={packed}", rsa, rlcp,
+                           keep=packed not in states)
+        if dsa is not None:
+            states[packed] = dsa
+        ptimes.append(("packed" if packed else "unpacked", st))
+        del dsa
+    import torch
+    for field in ("sa", "isa", "lcp"):
+        if not torch.equal(getattr(states[True], field),
+                           getattr(states[False], field)):
+            raise AssertionError(f"pack_keys changed the padded {field}")
+    del states
+    out["pack_turns"] = ptimes
+    log(f"[hostloop] pack_keys at dense_factor=5 on 2^{rep_log2n} rep_dna: "
+        "padded SA, ISA, LCP equal packed and unpacked, == native; walls "
+        + ", ".join(f"{name} {st['wall_s']:.3f} s" for name, st in ptimes)
+        + f" on {card}")
+
+    for label, (strings, (want_sa, want_lcp)) in gsa_sets.items():
+        gturns = []
+        for fused in (True, False, False, True):
+            dgsa, st = timed_build(
+                lambda: build_gsa_device(strings,
+                                         config=SAConfig(fused=fused)),
+                f"GSA + GLCP of {label} fused={fused}", card)
+            res = dgsa.materialize()
+            if not (np.array_equal(res.sa, want_sa)
+                    and np.array_equal(res.lcp, want_lcp)):
+                raise AssertionError(f"GSA + GLCP of {label} fused={fused} "
+                                     "differ from the host oracle")
+            del dgsa, res
+            gturns.append(("fused" if fused else "host", st))
+        out[f"gsa_{label}"] = gturns
+        log(f"[hostloop] GSA + GLCP of {label}: fused and host loop == host "
+            "oracle")
+    return out
+
+
+def engines_phase(dev, log2n: int, card: str) -> None:
+    """Each ANSV engine (``hybrid``, ``scan``, ``block``, ``spine``) on the
+    card for every pair ``benchmark-ansv`` times and each of its inputs
+    (and the public ANSV phase's values), at 2^log2n: every answer equals
+    the plain path's (the kernels' plain versions), and each call launches
+    the kernels its engine names (K2 where the tile-spine pass's spine
+    overflows).  Comparisons only: these launches are not counted."""
+    import torch
+
+    from psac_tpu_torch.cli import ansv_inputs
+    from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_EQ, NEAREST_SM
+    from psac_tpu_torch.ops.bansv import block_psv
+    from psac_tpu_torch.ops.nsv_scan import (nsv_scan_dual, nsv_scan_left,
+                                             nsv_scan_spine)
+    from psac_tpu_torch.ops.tansv import tile_side
+    from psac_tpu_torch.parallel.ansv import KERNELS, PLAIN, _ansv
+
+    reset, read = counter((tile_side, nsv_scan_spine, nsv_scan_dual,
+                           nsv_scan_left, block_psv))
+    combos = {"sm-sm": (NEAREST_SM, NEAREST_SM),
+              "feq-sm": (FURTHEST_EQ, NEAREST_SM),
+              "eq-eq": (NEAREST_EQ, NEAREST_EQ)}
+    inputs = dict(ansv_values=ansv_values(log2n),
+                  **ansv_inputs(1 << log2n, 0))
+    ran = {}
+    for iname, a in inputs.items():
+        x = torch.from_numpy(a).to(dev)
+        for cname, (lt, rt) in combos.items():
+            want = _ansv(x, lt, rt, PLAIN, x.dtype, "scan")
+            for eng in ("hybrid", "scan", "block", "spine"):
+                if eng == "spine" and cname != "feq-sm":
+                    continue
+                reset()
+                got = _ansv(x, lt, rt, KERNELS, x.dtype, eng)
+                counts = {k: v for k, v in read().items() if v}
+                max_abs_err(got, want)
+                spine = {"tile_side": 2, "nsv_scan_spine": 1}
+                expect = [{"nsv_scan_dual": 1}] if eng == "scan" else \
+                    [spine, {"tile_side": 2, "nsv_scan_dual": 1}] \
+                    if cname == "feq-sm" and eng != "block" else \
+                    [{"block_psv": 2}]
+                if counts not in expect:
+                    raise AssertionError(f"{eng} {iname} {cname} launched "
+                                         f"{counts}")
+                ran[eng, iname, cname] = ",".join(
+                    f"{k} {v}" for k, v in counts.items())
+    log(f"[engines-ansv] every engine == plain path on 2^{log2n} "
+        f"{', '.join(inputs)} for {', '.join(combos)}; on {card}")
+    for eng in ("hybrid", "scan", "block", "spine"):
+        log(f"[engines-ansv] {eng}: " + "; ".join(
+            f"{i} {c}: {v}" for (e, i, c), v in ran.items() if e == eng))
+
+
+def run_cli(args: list, label: str):
     """``python -m psac_tpu_torch.cli`` with ``args`` and no ``--device``
-    (the card is the default) in a process of its own; returns its stderr.
-    A non-zero exit raises; the process is killed at its time limit."""
+    (the card is the default) in a process of its own; logs its stderr and
+    stdout lines and returns the finished process.  A non-zero exit raises;
+    the process is killed at its time limit."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "psac_tpu_torch.cli"] + args, cwd=ROOT,
@@ -1253,13 +1474,15 @@ def run_cli(args: list, label: str) -> str:
         raise AssertionError(f"{label}: exit {proc.returncode}\n"
                              f"{proc.stderr[-4000:]}")
     log(f"[cli] {label}: {dt:.2f} s of process wall; "
-        + (" | ".join(proc.stderr.strip().splitlines()) or "no stderr"))
-    return proc.stderr
+        + (" | ".join(proc.stderr.strip().splitlines()) or "no stderr")
+        + (" | stdout: " + " | ".join(proc.stdout.strip().splitlines())
+           if proc.stdout.strip() else ""))
+    return proc
 
 
 def cli_phase(text: bytes, sa_ref: np.ndarray, lcp_ref: np.ndarray,
               gsa_strings: list, gsa_oracle: tuple, batch: int,
-              card: str) -> dict:
+              ansv_log2n: int, bench_reps: int, card: str) -> dict:
     """The command-line tools at full size, each in a process of its own
     with no device given, their outputs held against the oracles the
     script already has: ``psac -f -l -o`` of the text (read back == native
@@ -1269,8 +1492,10 @@ def cli_phase(text: bytes, sa_ref: np.ndarray, lcp_ref: np.ndarray,
     (saving the index), then ``--load`` (matched counts, and the saved
     index's ranges loaded in this process, == the native SA's).  Also
     ``d_check_sa`` on the file build: true, and false with two SA rows
-    swapped.  The files live in ``_smoke/`` of the checkout, removed at the
-    end."""
+    swapped; then ``benchmark -f --reps bench_reps`` of the text and
+    ``benchmark-ansv -n 2^ansv_log2n --reps 1`` (all four engines), whose
+    rows must be the JAX CLI's (p = 1).  The files live in ``_smoke/`` of
+    the checkout, removed at the end."""
     import re
     import shutil
 
@@ -1301,7 +1526,7 @@ def cli_phase(text: bytes, sa_ref: np.ndarray, lcp_ref: np.ndarray,
         for ext in (".sa64", ".lcp64", ".alpha"):
             os.remove(pre + ext)
         log("[cli] psac -f -l -o: .sa64 / .lcp64 == native SA-IS + Kasai")
-        err = run_cli(["psac", "-f", tpath, "-t"], "psac -f -t")
+        err = run_cli(["psac", "-f", tpath, "-t"], "psac -f -t").stderr
         if f"({n} nodes x 5 slots)" not in err:
             raise AssertionError("psac -f -t printed no tree of the text")
 
@@ -1356,7 +1581,7 @@ def cli_phase(text: bytes, sa_ref: np.ndarray, lcp_ref: np.ndarray,
                              ("tldt", ["--tli", "tldt"]),
                              ("load", ["--load", ipre])):
             err = run_cli(["desa", "-f", tpath, "-q", ppath, "--reps", "3"]
-                          + extra, f"desa -q {' '.join(extra)}")
+                          + extra, f"desa -q {' '.join(extra)}").stderr
             m = matched.search(err)
             if not m or int(m.group(1)) != len(pats) or \
                     int(m.group(2)) != found:
@@ -1373,6 +1598,30 @@ def cli_phase(text: bytes, sa_ref: np.ndarray, lcp_ref: np.ndarray,
         log(f"[cli] desa: {found} of {len(pats)} patterns matched in every "
             "run; the saved index read back with each top-level index "
             f"answers every range == the native SA; on {card}")
+
+        rows = [r.split(";") for r in run_cli(
+            ["benchmark", "-f", tpath, "--reps", str(bench_reps)],
+            f"benchmark --reps {bench_reps}").stdout.split()]
+        names = ["sa-nolcp-reg", "sa-nolcp-fast", "sa-lcp-reg",
+                 "sa-lcp-fast", "sa-nolcp-arr3", "sa-nolcp-arr4"]
+        if [r[:2] for r in rows] != [["1", k] for k in names]:
+            raise AssertionError(f"benchmark printed {rows}")
+        out["benchmark_ms"] = {r[1]: float(r[2]) for r in rows}
+        m = 1 << ansv_log2n
+        rows = [r.split(";") for r in run_cli(
+            ["benchmark-ansv", "-n", str(m), "--reps", "1"],
+            "benchmark-ansv --reps 1").stdout.split()]
+        want = [[str(m), "1", e, i, c]
+                for e in ("hybrid", "scan", "block", "spine")
+                for i in ("uniform", "peaks", "bitonic")
+                for c in ("sm-sm", "feq-sm", "eq-eq")
+                if e != "spine" or c == "feq-sm"]
+        if [r[:5] for r in rows] != want:
+            raise AssertionError(f"benchmark-ansv printed {rows}")
+        out["benchmark_ansv_ms"] = {";".join(r[2:5]): float(r[5])
+                                    for r in rows}
+        log(f"[cli] benchmark and benchmark-ansv printed the JAX CLI's rows "
+            f"with p = 1; on {card}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out
@@ -1392,6 +1641,8 @@ def main() -> int:
                     help="random string set size (log2 chars, 4 KiB strings)")
     ap.add_argument("--fam-log2n", type=int, default=24,
                     help="near-identical family size (log2 chars, 64 strings)")
+    ap.add_argument("--bench-reps", type=int, default=3,
+                    help="--reps of the CLI phase's benchmark run")
     args = ap.parse_args()
 
     # ---- 1. device ------------------------------------------------------
@@ -1585,7 +1836,7 @@ def main() -> int:
     log(f"[main] rep_dna 2^{args.rep_log2n} LCP spines {spines} of {rs} rows "
         f"({100 * max(spines) / rs:.3f}%), capacity {cap}: "
         f"{'overflows -> K2' if max(spines) > cap else 'fits -> K1'}")
-    del rres, rsa, rlcp, rx
+    del rres, rx
     plain_tree = _st_local(dsa, xs, PLAIN)
     if not torch.equal(tree.nodes, plain_tree.nodes):
         raise AssertionError("suffix tree differs from the plain path")
@@ -1645,15 +1896,23 @@ def main() -> int:
     del whole
     # one seeded base and 63 copies with about 0.1% substitutions each
     fam_len = (1 << args.fam_log2n) // 64
-    gsa_fam = gsa_phase(
-        f"2^{args.fam_log2n} near-identical family",
-        near_identical_family(64, fam_len, max(1, fam_len // 1000)),
-        True, card)
-    del gsa_fam["oracle"]
+    fam_set = near_identical_family(64, fam_len, max(1, fam_len // 1000))
+    fam_label = f"2^{args.fam_log2n} near-identical family"
+    gsa_fam = gsa_phase(fam_label, fam_set, True, card)
 
-    # ---- 10. the command-line tools at full size --------------------------
+    # ---- 9b. the host-driven loop at full size (counted) -----------------
+    host = hostloop_phase(
+        dev, text, sa_ref, lcp_ref, args.log2n, rep_text, rsa, rlcp,
+        args.rep_log2n,
+        {fam_label: (fam_set, gsa_fam.pop("oracle")),
+         f"2^{args.gsa_log2n} random DNA in 4 KiB strings":
+             (gsa_set, gsa_rand["oracle"])}, card)
+    del rsa, rlcp, fam_set
+
+    # ---- 10. the ANSV engines, then the command-line tools at full size ---
+    engines_phase(dev, args.ansv_log2n, card)
     cli = cli_phase(text, sa_ref, lcp_ref, gsa_set, gsa_rand.pop("oracle"),
-                    args.batch, card)
+                    args.batch, args.ansv_log2n, args.bench_reps, card)
     del text, sa_ref, lcp_ref, gsa_set
 
     # ---- 11. results ------------------------------------------------------
@@ -1677,6 +1936,23 @@ def main() -> int:
         log(f"[result] engines on the {k}: tile-spine pass "
             f"{e['tile_spine_ms']:.3f} ms vs K2 {e['dual_ms']:.3f} ms "
             f"(spine {100 * e['spine_share']:.3f}% of the rows)")
+    for key, turns in host.items():
+        if key == "rep_sections_ms":
+            continue
+        if isinstance(turns, list):
+            log(f"[result] hostloop {key}: " + ", ".join(
+                f"{name} {st['wall_s']:.3f} s (K6 {st['k6']}"
+                + (f", host_iters {st['host_iters']}"
+                   if st["host_iters"] is not None else "") + ")"
+                for name, st in turns))
+        else:
+            log(f"[result] hostloop {key}: {turns['wall_s']:.3f} s (K6 "
+                f"{turns['k6']}, host_iters {turns['host_iters']}, peak "
+                f"{turns['peak_gib']:.2f} GiB)")
+    log("[result] CLI benchmark ms: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in cli["benchmark_ms"].items()))
+    log("[result] CLI benchmark-ansv ms: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in cli["benchmark_ansv_ms"].items()))
     log(f"[result] CLI: desa -q ms/rep " + ", ".join(
         f"{k} {cli[f'desa_{k}_ms']:.2f} ({cli[f'desa_{k}_qps']:,.0f} "
         "patterns/s)" for k in ("tllt", "tldt", "load"))

@@ -4,7 +4,9 @@
   psac (src/psac.cpp)              -> ``psac``        SA / SA+LCP / +suffix tree
   gsac (src/gsac.cpp)              -> ``gsac``        generalized SA of a string set
   desa-main (src/desa_main.cpp)    -> ``desa``        DESA build/load/save + bulk query
+  benchmark_sac (src/benchmark.cpp)-> ``benchmark``   construction-variant timings CSV
   benchmark_k (src/benchmark_k.cpp)-> ``benchmark-k`` initial k-mer length sweep
+  benchmark-ansv                   -> ``benchmark-ansv`` ANSV engines x inputs x pairs
   dss (src/dss.cpp)                -> ``dss``         native sequential baseline
   psac-vs-dss (src/psac_vs_dss.cpp)-> ``psac-vs-dss`` cross-check + timings
   print64 (src/print64.cpp)        -> ``print64``
@@ -13,9 +15,9 @@
 
 Flags, defaults, output lines and exit codes are the JAX package's, with
 ``--device`` (default: the CUDA card; ``cpu`` runs the kernels' plain
-versions) in place of ``--devices``.  Every timed line stops its clock
-after the result is copied to the host or the device is synchronized.
-``benchmark`` and ``benchmark-ansv`` are not ported yet.
+versions) in place of ``--devices``; the device-count column of the
+benchmark lines is 1.  Every timed line stops its clock after the result
+is copied to the host or the device is synchronized.
 
 Usage: ``python -m psac_tpu_torch.cli <subcommand> [args]``.
 """
@@ -165,6 +167,94 @@ def cmd_desa(args) -> int:
     return 0
 
 
+def cmd_benchmark(args) -> int:
+    """Construction-variant timings CSV (reference src/benchmark.cpp): the
+    reference's {reg, reg-fast} x {lcp, nolcp} ("reg" = the host-driven
+    loop, pure doubling with no sparse tail; "fast" = the default build)
+    and the SA-only construct_arr<3> and <4> rows, each as
+    ``1;<name>;<ms>``, the mean of ``--reps`` builds to host arrays after
+    one warm-up."""
+    from psac_tpu_torch import config as cfg
+    from psac_tpu_torch.models.suffix_array import build_suffix_array
+
+    text = _load_text(args)
+    variants = [
+        ("sa-nolcp-reg", cfg.SAConfig(construct_lcp=False,
+                                      tail_threshold_frac=0.0, fused=False)),
+        ("sa-nolcp-fast", cfg.SAConfig(construct_lcp=False)),
+        ("sa-lcp-reg", cfg.SAConfig(construct_lcp=True,
+                                    tail_threshold_frac=0.0, fused=False)),
+        ("sa-lcp-fast", cfg.SAConfig(construct_lcp=True)),
+        ("sa-nolcp-arr3", cfg.SAConfig(construct_lcp=False, factor=3,
+                                       fused=False)),
+        ("sa-nolcp-arr4", cfg.SAConfig(construct_lcp=False, factor=4,
+                                       fused=False)),
+    ]
+    for name, conf in variants:
+        build_suffix_array(text, args.device, conf)  # warm-up
+        t0 = time.time()
+        for _ in range(args.reps):
+            build_suffix_array(text, args.device, conf)
+        print(f"1;{name};{(time.time() - t0) / args.reps * 1000:.2f}")
+    return 0
+
+
+def ansv_inputs(n: int, seed: int, which: str = "all") -> dict:
+    """The ``benchmark-ansv`` inputs of n int32 values: ``uniform`` (seeded
+    random in [0, n)), ``peaks`` (a 1000-periodic |i mod 1000 - 500|) and
+    ``bitonic`` (rising to n/2, then falling)."""
+    rng = np.random.RandomState(seed)
+    inputs = {}
+    if which in ("uniform", "all"):
+        inputs["uniform"] = rng.randint(0, n, size=n).astype(np.int32)
+    if which in ("peaks", "all"):
+        inputs["peaks"] = (np.abs(np.arange(n) % 1000 - 500)).astype(np.int32)
+    if which in ("bitonic", "all"):
+        h = n // 2
+        inputs["bitonic"] = np.concatenate(
+            [np.arange(h), np.arange(n - h)[::-1]]).astype(np.int32)
+    return inputs
+
+
+def cmd_benchmark_ansv(args) -> int:
+    """ANSV timing: engines x inputs x match-type pairs (the reference
+    sweeps 6 implementations x 3 inputs, src/benchmark_ansv.cpp:38-171;
+    here the implementation axis is the engine, ``parallel.ansv``'s
+    ``engine=``).  Prints ``n;1;<engine>;<input>;<pair>;<ms>``, the mean of
+    ``--reps`` calls after one warm-up; the ``spine`` engine serves only
+    the suffix tree's pass, ``feq-sm``."""
+    import os
+
+    from psac_tpu_torch.config import resolve_device
+    from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_EQ, NEAREST_SM
+    from psac_tpu_torch.parallel.ansv import ansv
+
+    n = args.n
+    inputs = ansv_inputs(n, args.seed, args.input)
+    if args.engines:
+        engines = args.engines.split(",")
+    elif resolve_device(args.device).type == "cuda":
+        engines = ["hybrid", "scan", "block", "spine"]
+    else:
+        engines = [os.environ.get("PSAC_NSV", "")]
+    combos = [("sm-sm", (NEAREST_SM, NEAREST_SM)),
+              ("feq-sm", (FURTHEST_EQ, NEAREST_SM)),
+              ("eq-eq", (NEAREST_EQ, NEAREST_EQ))]
+    for eng in engines:
+        for iname, a in inputs.items():
+            for cname, (lt, rt) in combos:
+                if eng == "spine" and cname != "feq-sm":
+                    continue  # the spine engine serves only the ST pass
+                kw = dict(device=args.device, engine=eng or None)
+                ansv(a, lt, rt, **kw)  # warm-up
+                t0 = time.time()
+                for _ in range(args.reps):
+                    ansv(a, lt, rt, **kw)
+                print(f"{n};1;{eng or 'default'};{iname};{cname};"
+                      f"{(time.time() - t0) / args.reps * 1000:.2f}")
+    return 0
+
+
 def cmd_benchmark_k(args) -> int:
     """Initial k-mer length sweep (reference src/benchmark_k.cpp); the
     device count column is 1."""
@@ -307,12 +397,33 @@ def main(argv=None) -> int:
                    help="tldt sampling maxsize (default n/128)")
     s.set_defaults(fn=cmd_desa)
 
+    s = sub.add_parser("benchmark")
+    common(s)
+    s.add_argument("--reps", type=int, default=3)
+    s.set_defaults(fn=cmd_benchmark)
+
     s = sub.add_parser("benchmark-k")
     common(s)
     s.add_argument("-l", "--lcp", action="store_true")
     s.add_argument("--ks", type=int, nargs="+", default=[0, 4, 8, 12, 16, 20])
     s.add_argument("--reps", type=int, default=3)
     s.set_defaults(fn=cmd_benchmark_k)
+
+    s = sub.add_parser("benchmark-ansv")
+    s.add_argument("-n", type=int, default=1 << 20)
+    s.add_argument("-i", "--input",
+                   choices=["uniform", "peaks", "bitonic", "all"],
+                   default="all")
+    s.add_argument("--engines", default=None,
+                   help="comma list of ANSV engines to sweep (default: "
+                        "hybrid,scan,block,spine on the card, else PSAC_NSV "
+                        "or the default engine)")
+    s.add_argument("--reps", type=int, default=3)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card; cpu runs "
+                        "the kernels' plain versions)")
+    s.set_defaults(fn=cmd_benchmark_ansv)
 
     s = sub.add_parser("dss")
     common(s)

@@ -1,9 +1,8 @@
 """Global tunables and dtype policy (PyTorch port of ``psac_tpu/config.py``).
 
 Same fields and defaults as the JAX package's ``SAConfig`` so a
-configuration converts one to one (``SAConfig.from_jax``).  Two JAX-side
-options are not ported: ``pack_keys`` (a TPU sort-lane experiment, off by
-default there) and ``fused=False`` (the multi-shard host-driven loop).
+configuration converts one to one (``SAConfig.from_jax``), and every field
+acts as it does there.
 """
 
 from __future__ import annotations
@@ -33,12 +32,17 @@ def index_dtype(n: int) -> torch.dtype:
 @dataclasses.dataclass(frozen=True)
 class SAConfig:
     """Configuration of suffix-array construction (see the JAX package's
-    ``SAConfig`` for the meaning of each field).  ``tail_threshold_frac``
-    and ``tail_capacity_mult`` steer only the JAX package's host-driven
-    loop and have no effect here; they are kept so configurations convert
-    one to one.  ``resolve_div`` sizes the chunks of the LCP resolve's plain
-    version, which CPU builds run; on the card one kernel launch takes the
-    whole resolve."""
+    ``SAConfig`` for the meaning of each field).  ``fused`` picks the
+    driver: the fused path, or the host-driven loop, which enters its tail
+    once fewer than N * ``tail_threshold_frac`` elements are unfinished
+    (the fused path enters at N / ``fused_tail_div``).  ``factor`` steps
+    SA-only builds (``construct_arr<L>``) and ``dense_factor`` the fused
+    dense loop.  ``pack_keys`` packs pairs of int32 sort keys into int64
+    lanes in sorts of 6 or more columns (factor 5 and up).
+    ``tail_capacity_mult`` has no reader in either package; it is kept so
+    configurations convert one to one.  ``resolve_div`` sizes the chunks of
+    the fused path's LCP resolve in its plain version, which CPU builds
+    run; on the card one kernel launch takes the whole resolve."""
 
     construct_lcp: bool = True
     construct_lc: bool = False
@@ -59,14 +63,6 @@ class SAConfig:
         """Field-by-field copy of a ``psac_tpu.config.SAConfig``."""
         return cls(**{f.name: getattr(cfg, f.name)
                       for f in dataclasses.fields(cls)})
-
-    def check_supported(self) -> None:
-        """Raise for the options this port does not implement."""
-        if self.pack_keys:
-            raise NotImplementedError("pack_keys is a TPU sort-lane experiment")
-        if not self.fused:
-            raise NotImplementedError(
-                "fused=False (the multi-shard host-driven loop) is not ported")
 
 
 DEFAULT = SAConfig()

@@ -23,8 +23,9 @@
     ``read_desa_from_file`` stage the text from a file.
 
 Left out of this port: the per-process distributed writes and reads, the
-multi-process fetch, the timer statistics and the ``PSAC_DESA_RUNGS``
-switch.
+multi-process fetch, the ``PSAC_TIMER`` lines of query-routing and
+partition imbalance (shard statistics) and the ``PSAC_DESA_RUNGS`` switch
+of the lockstep walk's compaction.
 """
 
 from __future__ import annotations

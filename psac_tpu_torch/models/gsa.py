@@ -1,5 +1,5 @@
 """Generalized suffix array (+LCP) over string sets on one device (port of
-``psac_tpu/models/gsa.py`` at p = 1, fused construction path).
+``psac_tpu/models/gsa.py`` at p = 1).
 
 All suffixes of all strings sorted together, each suffix ending at its own
 string's end (a virtual ``$`` = 0 terminator), positions indexing the
@@ -21,15 +21,18 @@ of the string that holds position i:
                       suffix length.
 
 The dense loop's LCP resolve and the tail's run K6
-(``ops.rmq.rmq_resolve``) as the suffix array's do.  The in-memory and the
-file input (``build_gsa_from_file``) share one build from staged bytes.
-Not ported: the host-driven ``fused=False`` loop.
+(``ops.rmq.rmq_resolve``) as the suffix array's do.  Two drivers run the
+steps, as in the JAX package: the fused path (``fused=True``), and the
+host-driven loop (``fused=False``, and where the fused path does not
+converge: it redoes the build).  The in-memory and the file input
+(``build_gsa_from_file``) share one build from staged bytes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import sys
 
 import numpy as np
 import torch
@@ -156,6 +159,9 @@ class _GsaBuilder(_Builder):
 
     def _gstep_local(self, isa, eos, lcp, d: int):
         N, idt = self.N, self.idt
+        # past N every suffix has ended: d is capped there so the tensors'
+        # dtype holds it
+        d = min(d, N)
         gidx = self._gidx()
         b2 = global_shift_left_dyn(isa, d)
         b2 = torch.where(gidx + d < eos, b2, 0)
@@ -175,7 +181,7 @@ class _GsaBuilder(_Builder):
             return isa_new, sa, None, None, b_new, active, eos_s, counts
         split = (b_s == pb) & (b2_s != pb2)
         zero = (pb2 == 0) | (b2_s == 0)
-        lcp = torch.where(split & zero & (lcp == N), min(d, N), lcp)
+        lcp = torch.where(split & zero & (lcp == N), d, lcp)
         querycase = split & ~zero
         q = dict(qkey=torch.where(querycase, gidx, self.INF),
                  lq=torch.minimum(pb2, b2_s), rq=torch.maximum(pb2, b2_s) - 1,
@@ -200,12 +206,56 @@ class _GsaBuilder(_Builder):
                                               L=2)
             return isa, sa, lcp, brow, active, (eos_row,), ub, ue, d * 2
 
-        isa, sa, lcp, stats = self._fused_drive(
+        isa, sa, lcp, _, _, _, stats = self._fused_drive(
             (isa, sa, lcp, brow, active, (eos_row,), *_read(*counts)),
             dense_step, m_cap=m_cap, m_cap2=m_cap2)
         if self.with_lcp:
             lcp = _lcp_tiefix_local(lcp, sa, eos, self.N)
         return isa, sa, lcp, stats
+
+    # ---------------- host-driven GSA construction ----------------
+
+    def ghost_full(self, codes, eos, *, tail_limit: int):
+        """The JAX package's host-driven GSA loop at p = 1: masked k-mer
+        init, then eos-masked doubling steps (one stacked (nq, ue) readback
+        each, K6 only when the step has queries) until 0 < ue <=
+        ``tail_limit``, then the eos-aware tail at one capacity, the power
+        of two above ue, and the sentinel-LCP tie-fix.  Returns (isa, sa,
+        lcp)."""
+        N = self.N
+        isa, sa, lcp, brow, active, eos_row, counts = self._ginit_local(
+            codes, eos)
+        (ue,) = _read(counts[1])
+        d = sum(self.ks)
+        while ue > 0:
+            if d >= 4 * N:
+                raise AssertionError("GSA doubling failed to converge")
+            if 0 < ue <= tail_limit:
+                # the active count is ue from the last step: no readback
+                m_cap = min(N, max(8, pow2ceil(ue)))
+                cbufs = self._tail_enter_local(sa, brow, active, m_cap,
+                                               extra=(eos_row,))
+                while ue > 0:
+                    cbufs, isa, sa, lcp, tue = self._tail_step_local(
+                        cbufs, isa, sa, lcp, d)
+                    (ue,) = _read(tue)
+                    d *= 2
+                    if d >= 8 * N:
+                        raise AssertionError("GSA tail failed to converge")
+                break
+            isa, sa, lcp, q, brow, active, eos_row, counts = \
+                self._gstep_local(isa, eos, lcp, d)
+            if lcp is None:
+                (ue,) = _read(counts[1])
+            else:
+                nq, ue = _read((q["qkey"] != self.INF).sum(), counts[1])
+                if nq > 0:
+                    lcp = self._resolve_fused_local(
+                        lcp, q, d, m_pad=min(pow2ceil(nq), N), L=2, nq=nq)
+            d *= 2
+        if self.with_lcp:
+            lcp = _lcp_tiefix_local(lcp, sa, eos, N)
+        return isa, sa, lcp
 
 
 def _flatten(strings) -> tuple[bytes, np.ndarray]:
@@ -248,21 +298,28 @@ def _build_gsa_staged(xb: torch.Tensor, alpha: Alphabet, lens: np.ndarray,
     """The device-side GSA build shared by the in-memory and the file
     inputs: from the staged (N,) uint8 separator-free flat text and the
     host string lengths, decode the codes and expand eos on the device, then
-    run the construction."""
-    config.check_supported()
+    run the construction: the fused path, redone on the host-driven loop
+    when it does not converge, or the host-driven loop alone
+    (``fused=False``).  Never packs sort keys, as in the JAX package."""
     xs = _decode_staged(xb, alpha)
     idt = index_dtype_for(N, config)
     eos = _eos_device(lens, n, N, idt, xs.device)
     ks = kmer_words_for(alpha.bits_per_char, config)
     b = _GsaBuilder(N, ks, alpha.bits_per_char, config.construct_lcp, idt,
                     xs.device)
-    m_cap2 = max(8, min(N, pow2ceil(max(256, N // 1024))))
-    m_cap = max(m_cap2, min(N, pow2ceil(N // 32)))
-    _, sa, lcp, (ub, ue, _) = b.gfused_full(
-        xs, eos, m_cap=m_cap, m_cap2=m_cap2, resolve_div=config.resolve_div)
-    if ue != 0:
-        raise RuntimeError(f"GSA construction stopped with {ue} unfinished "
-                           f"elements ({ub} buckets)")
+    if config.fused:
+        m_cap2 = max(8, min(N, pow2ceil(max(256, N // 1024))))
+        m_cap = max(m_cap2, min(N, pow2ceil(N // 32)))
+        _, sa, lcp, (_, ue, _, _) = b.gfused_full(
+            xs, eos, m_cap=m_cap, m_cap2=m_cap2,
+            resolve_div=config.resolve_div)
+        if ue == 0:
+            return DeviceGSA(sa=sa, lcp=lcp, eos=eos, xs=xs, alphabet=alpha,
+                             lens=lens, n=n, N=N)
+        print(f"[psac_tpu_torch] fused GSA did not converge (ue={ue}); "
+              "redoing the build on the host-driven loop", file=sys.stderr)
+    _, sa, lcp = b.ghost_full(
+        xs, eos, tail_limit=int(N * config.tail_threshold_frac))
     return DeviceGSA(sa=sa, lcp=lcp, eos=eos, xs=xs, alphabet=alpha,
                      lens=lens, n=n, N=N)
 

@@ -1,13 +1,23 @@
 """Single-device suffix-array + LCP construction (port of
-``psac_tpu/models/suffix_array.py`` at p = 1, fused construction path).
+``psac_tpu/models/suffix_array.py`` at p = 1).
 
 k-mer initial ranking, then dense prefix-L-pling steps (sort by
 (B, B@d, ..., B@(L-1)d, i), rebucket by prefix max, SA -> ISA un-permute)
 with the LCP resolved per step by range-minimum queries (K6,
 ``ops.rmq.rmq_resolve``), then a sparse
-"bucket chaising" tail over the compacted unfinished rows — the JAX
-package's ``_Builder.fused_full`` program.  Its ``lax.while_loop``s become
-host loops here that read one stacked scalar tensor back per step.
+"bucket chaising" tail over the compacted unfinished rows.  Two drivers
+run these steps, as in the JAX package:
+
+- the fused path (``fused=True``, the default): the JAX package's
+  ``_Builder.fused_full`` program, whose ``lax.while_loop``s become host
+  loops here that read one stacked scalar tensor back per step: dense
+  L-pling at ``dense_factor`` until the active set fits N /
+  ``fused_tail_div``, then a two-stage tail;
+- the host-driven loop (``fused=False``, and where the fused dense loop
+  stops at its iteration bound with work left): doubling steps (or the
+  SA-only ``construct_arr<L>`` steps at ``factor``) until fewer than
+  N * ``tail_threshold_frac`` elements are unfinished, then a one-stage
+  tail at the power of two above that count.
 
 Conventions (as in the JAX package): bucket id = 1-based index of the
 bucket's first SA row, 0 = shifted past the end; the padded text has
@@ -19,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -39,6 +50,36 @@ from psac_tpu_torch.parallel.sort import (dist_sort_local, lex_perm,
 from psac_tpu_torch.parallel.staging import (stage_bytes_block,
                                              stage_file_block,
                                              staged_histogram)
+from psac_tpu_torch.utils.timers import SectionTimer
+
+
+class _LastBuild(threading.local):
+    """Diagnostics of this thread's most recent ``construct_device``:
+    whether the fused path ran (``fused``) and how many host-driven loop
+    iterations followed it (``host_iters``), with ``p``, ``n`` and ``N``."""
+
+    def __init__(self):
+        self.d: dict = {}
+
+    def update(self, **kw):
+        self.d.update(kw)
+
+    def __getitem__(self, k):
+        return self.d[k]
+
+    def __setitem__(self, k, v):
+        self.d[k] = v
+
+    def __repr__(self):
+        return repr(self.d)
+
+
+LAST_BUILD = _LastBuild()
+
+
+def fused_max_iters(N: int) -> int:
+    """The fused path's bound on the iterations of each of its loops."""
+    return max(4, int(N).bit_length() + 2)
 
 
 @dataclasses.dataclass
@@ -113,13 +154,15 @@ class _Builder:
     """Geometry and construction steps of one build (p = 1: s == N)."""
 
     def __init__(self, N: int, ks: tuple[int, ...], bits: int,
-                 with_lcp: bool, idt: torch.dtype, device):
+                 with_lcp: bool, idt: torch.dtype, device, pack: bool = False):
         self.N = self.s = N
         self.ks, self.bits = tuple(ks), bits
         self.with_lcp = with_lcp
         self.idt = idt
         self.INF = torch.iinfo(idt).max
         self.device = device
+        # pairs of int32 key columns in one int64 sort lane (int32 builds)
+        self.pack = pack and idt == torch.int32
 
     def _gidx(self, m: int | None = None) -> torch.Tensor:
         return torch.arange(self.s if m is None else m, dtype=self.idt,
@@ -127,8 +170,21 @@ class _Builder:
 
     def _sort_keys(self, cols):
         """Sort rows by (cols..., gidx): a stable lexicographic sort keeps
-        equal-key rows in gidx order.  Returns (sorted cols, sa)."""
-        perm = lex_perm(cols)
+        equal-key rows in gidx order.  Returns (sorted cols, sa).
+
+        Packed-key mode (``pack``, sorts of at least 6 columns counting
+        gidx): pairs of the 31-bit nonnegative key columns, gidx last, ride
+        one int64 lane each (a trailing odd column stays int32), so the
+        sort takes one stable pass per lane instead of one per column; the
+        order is the same."""
+        keys = cols = tuple(cols)
+        if self.pack and len(cols) + 1 >= 6:
+            seq = cols + (self._gidx(),)
+            i64 = torch.int64
+            keys = [(seq[k].to(i64) << 32) | seq[k + 1].to(i64)
+                    for k in range(0, len(seq) - 1, 2)]
+            keys += [seq[-1]] if len(seq) % 2 else []
+        perm = lex_perm(keys)
         return tuple(c[perm] for c in cols), perm.to(self.idt)
 
     # ---------------- init: k-mer ranking ----------------
@@ -288,6 +344,9 @@ class _Builder:
 
     def _tail_step_local(self, cbufs: tuple, isa, sa, lcp, d: int):
         s, N, INF = self.s, self.N, self.INF
+        # no split lies N or more characters deep: d is capped there so the
+        # tensors' dtype holds it
+        d = min(d, N)
         cs, cb = cbufs[:2]
         ce = cbufs[2] if len(cbufs) == 3 else None
         valid = cb != INF
@@ -348,6 +407,59 @@ class _Builder:
             (tue,) = _read(ue)
         return cbufs, isa, sa, lcp, d, tue
 
+    # ---------------- host-driven loop ----------------
+
+    def host_loop(self, isa, sa, lcp, brow, active, d: int, ub: int,
+                  ue: int, *, factor: int, tail_limit: int, timer):
+        """The JAX package's host-driven loop at p = 1 (``fused=False``, or
+        resuming where the fused dense loop stopped): dense steps, one
+        stacked (ub, ue[, nq]) readback each, the LCP resolve (K6, one
+        launch) only when the step has queries; once 0 < ue <=
+        ``tail_limit``, the sparse tail at one capacity, the power of two
+        above ue, until every element is finished.  ``factor`` > 2 (SA
+        only) steps by ``construct_arr<factor>``, else by doubling.  ``d``
+        stays uncapped for the convergence checks; the steps cap what they
+        hand to tensors at N.  Returns (isa, sa, lcp)."""
+        N = self.N
+        L = factor if not self.with_lcp and factor > 2 else 2
+        name = "doubling-step" if L == 2 else f"{L}-pling-step"
+        while ub > 0:
+            LAST_BUILD["host_iters"] += 1
+            if d >= 2 * N:
+                raise AssertionError("doubling failed to converge")
+            if 0 < ue <= tail_limit:
+                # the active count is ue from the last rebucket: no readback
+                m_cap = min(N, max(8, pow2ceil(ue)))
+                cbufs = self._tail_enter_local(sa, brow, active, m_cap)
+                timer.end_section(f"tail-enter ({ue} active, cap {m_cap})")
+                while True:
+                    cbufs, isa, sa, lcp, tue = self._tail_step_local(
+                        cbufs, isa, sa, lcp, d)
+                    (ue,) = _read(tue)
+                    timer.end_section(f"tail-step d={d}")
+                    timer.info(f"d={d}: tail unfinished elements={ue}")
+                    d *= 2
+                    if ue == 0:
+                        break
+                    if d >= 4 * N:
+                        raise AssertionError("tail failed to converge")
+                break
+            isa, sa, lcp, q, brow, active, counts = self._stepL_local(
+                isa, lcp, d, L)
+            if lcp is None:
+                ub, ue = _read(*counts)
+                timer.end_section(f"{name} d={d}")
+            else:
+                ub, ue, nq = _read(*counts, (q["qkey"] != self.INF).sum())
+                timer.end_section(f"{name} d={d}")
+                if nq > 0:
+                    lcp = self._resolve_fused_local(
+                        lcp, q, d, m_pad=min(pow2ceil(nq), N), L=2, nq=nq)
+                    timer.end_section(f"lcp-resolve d={d} ({nq} queries)")
+            timer.info(f"d={d}: unfinished buckets={ub} elements={ue}")
+            d *= L
+        return isa, sa, lcp
+
     # ---------------- fused construction ----------------
 
     def _dense_resolve(self, lcp, q, counts, d: int, *, m_pad: int, L: int):
@@ -363,7 +475,7 @@ class _Builder:
     def fused_full(self, codes, n_real: int, *, m_cap: int, m_cap2: int,
                    factor: int, resolve_div: int):
         """init -> dense L-pling loop -> two-stage sparse tail (see
-        ``_fused_drive``).  Returns (isa, sa, lcp, stats)."""
+        ``_fused_drive``).  Returns (isa, sa, lcp, brow, active, stats)."""
         m_pad = max(8, self.s // resolve_div)
         isa, sa, lcp, brow, active, counts = self._init_local(codes, n_real)
 
@@ -374,9 +486,10 @@ class _Builder:
                                               L=factor)
             return isa, sa, lcp, brow, active, (), ub, ue, d * factor
 
-        return self._fused_drive(
+        isa, sa, lcp, brow, active, _, stats = self._fused_drive(
             (isa, sa, lcp, brow, active, (), *_read(*counts)), dense_step,
             m_cap=m_cap, m_cap2=m_cap2)
+        return isa, sa, lcp, brow, active, stats
 
     def _fused_drive(self, init_outs, dense_step, *, m_cap: int,
                      m_cap2: int):
@@ -392,11 +505,14 @@ class _Builder:
         The dense loop hands over once the active set fits ``m_cap``; the
         tail enters at ``m_cap`` and recompacts to ``m_cap2`` once the
         active count drops, or enters at ``m_cap2`` directly.  Returns
-        (isa, sa, lcp, stats) with stats = (unfinished buckets, unfinished
-        elements, tail_ran)."""
+        (isa, sa, lcp, brow, active, extra, stats) with stats = (unfinished
+        buckets, unfinished elements, tail_ran, d) and d the distance the
+        dense loop reached: where it stopped at its iteration bound with
+        work left (not tail_ran, ue > 0), the host-driven loop resumes from
+        this state."""
         isa, sa, lcp, brow, active, extra, ub, ue = init_outs
         d = sum(self.ks)
-        max_iters = max(4, int(self.N).bit_length() + 2)
+        max_iters = fused_max_iters(self.N)
         it = 0
         while ub > 0 and ue > m_cap and it < max_iters:
             isa, sa, lcp, brow, active, extra, ub, ue, d = dense_step(
@@ -405,18 +521,19 @@ class _Builder:
 
         fits = 0 < ue <= m_cap
         if fits:
+            dt = d
             if ue > m_cap2:
                 cbufs = self._tail_enter_local(sa, brow, active, m_cap, extra)
-                cbufs, isa, sa, lcp, d, tue = self._tail_loop(
-                    cbufs, isa, sa, lcp, d, ue, m_cap2, max_iters)
+                cbufs, isa, sa, lcp, dt, tue = self._tail_loop(
+                    cbufs, isa, sa, lcp, dt, ue, m_cap2, max_iters)
                 cbufs = self._tail_recompact_local(cbufs, m_cap2)
             else:
                 cbufs = self._tail_enter_local(sa, brow, active, m_cap2,
                                                extra)
                 tue = ue
-            _, isa, sa, lcp, d, ue = self._tail_loop(
-                cbufs, isa, sa, lcp, d, tue, 0, max_iters)
-        return isa, sa, lcp, (ub, ue, fits)
+            _, isa, sa, lcp, dt, ue = self._tail_loop(
+                cbufs, isa, sa, lcp, dt, tue, 0, max_iters)
+        return isa, sa, lcp, brow, active, extra, (ub, ue, fits, d)
 
 
 def index_dtype_for(N: int, config) -> torch.dtype:
@@ -491,23 +608,53 @@ def encode_and_shard_file(path: str, device=None):
 def construct_device(xs, alpha, n: int, N: int,
                      config: cfg_mod.SAConfig = cfg_mod.DEFAULT
                      ) -> DeviceSuffixArray:
-    """Run the construction on ``xs``'s device; the result stays there."""
-    config.check_supported()
+    """Run the construction on ``xs``'s device; the result stays there.
+    ``config.fused`` picks the driver (module docstring); with
+    ``PSAC_TIMER=1`` each phase prints a ``[timer] [construct]`` line, and
+    ``LAST_BUILD`` records which driver ran and the host-loop iterations."""
     ks = kmer_words_for(alpha.bits_per_char, config)
+    k = sum(ks)
     idt = index_dtype_for(N, config)
+    # only wide dense sorts (>= 6 key columns: factor >= 5) pack keys
+    wide = max(config.dense_factor if config.fused else 2, config.factor) >= 5
     b = _Builder(N, ks, alpha.bits_per_char, config.construct_lcp, idt,
-                 xs.device)
-    m_cap2 = max(8, min(N, pow2ceil(max(256, N // 1024))))
-    m_cap = max(m_cap2, min(N, pow2ceil(N // max(1, config.fused_tail_div))))
-    factor = config.dense_factor if config.construct_lcp else config.factor
-    isa, sa, lcp, (ub, ue, tail_ran) = b.fused_full(
-        xs, n, m_cap=m_cap, m_cap2=m_cap2, factor=factor,
-        resolve_div=config.resolve_div)
-    if tail_ran and ue != 0:
-        raise RuntimeError("fused tail failed to converge")
-    if not tail_ran and ue != 0:
-        raise RuntimeError(f"dense loop stopped with {ue} unfinished "
-                           f"elements ({ub} buckets)")
+                 xs.device, pack=config.pack_keys and wide)
+    timer = SectionTimer(label="construct")
+    d = k
+    if config.fused:
+        m_cap2 = max(8, min(N, pow2ceil(max(256, N // 1024))))
+        m_cap = max(m_cap2, min(N, pow2ceil(N // max(1,
+                                                      config.fused_tail_div))))
+        factor = config.dense_factor if config.construct_lcp else \
+            config.factor
+        isa, sa, lcp, brow, active, (ub, ue, tail_ran, d_out) = \
+            b.fused_full(xs, n, m_cap=m_cap, m_cap2=m_cap2, factor=factor,
+                         resolve_div=config.resolve_div)
+        timer.end_section(f"fused construction (k={k}, cap {m_cap}, "
+                          f"tail_ran={int(tail_ran)})")
+        timer.info(f"n={n} N={N} p=1 unfinished buckets={ub} "
+                   f"elements(after)={ue}")
+        if tail_ran:
+            if ue != 0:
+                raise AssertionError("fused tail failed to converge")
+            ub = 0
+        elif ue == 0:
+            ub = 0
+        else:
+            # the dense loop hit its iteration bound: the host-driven loop
+            # resumes from its state
+            d = max(d, d_out)
+        LAST_BUILD.update(fused=True, host_iters=0, p=1, n=n, N=N)
+    else:
+        isa, sa, lcp, brow, active, counts = b._init_local(xs, n)
+        ub, ue = _read(*counts)
+        timer.end_section(f"kmer-init (k={k})")
+        timer.info(f"n={n} N={N} p=1 unfinished buckets={ub} elements={ue}")
+        LAST_BUILD.update(fused=False, host_iters=0, p=1, n=n, N=N)
+    isa, sa, lcp = b.host_loop(
+        isa, sa, lcp, brow, active, d, ub, ue, factor=config.factor,
+        tail_limit=int(N * config.tail_threshold_frac), timer=timer)
+    timer.summary()
     dsa = DeviceSuffixArray(sa=sa, lcp=lcp, isa=isa, alphabet=alpha, n=n, N=N)
     if config.construct_lc:
         if not config.construct_lcp:

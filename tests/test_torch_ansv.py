@@ -7,6 +7,7 @@ with counting stand-ins for the kernels.  Exact equality (integers only).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -165,3 +166,94 @@ def test_lcp_callers_keep_their_dtype():
     inf = t_ansv.nonsv_for(torch.int64)
     assert li.tolist() == [inf, 0, 0, 2, 0]
     assert ri.tolist() == [inf, 2, inf, 4, inf]
+
+
+# ---------------------------------------------------------------------------
+# the engine selector (engine= / PSAC_NSV)
+# ---------------------------------------------------------------------------
+
+def _engine_input(wide: bool) -> np.ndarray:
+    """Ties and a bitonic run: one scan chunk's length in int32; shorter in
+    int64, which no scan pads."""
+    rng = np.random.RandomState(12)
+    k = 200 if wide else 400
+    a = np.concatenate([rng.randint(0, 9, 3 * k), np.arange(k),
+                        np.arange(k)[::-1]])
+    return a.astype(np.int64) << 33 if wide else a.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _engine_oracle(wide: bool) -> dict:
+    """``ansv_seq`` of the input for each pair (shared by the engines)."""
+    a = _engine_input(wide)
+    return {(lt, rt): ansv_seq(a, lt, rt, nonsv=len(a)) for lt, rt in PAIRS}
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["int32", "int64"])
+@pytest.mark.parametrize("engine", t_ansv.ENGINES)
+def test_every_engine_vs_oracle(engine, wide):
+    """Every engine, every pair, int32 and int64 values, == ``ansv_seq``."""
+    a, want = _engine_input(wide), _engine_oracle(wide)
+    for lt, rt in PAIRS:
+        got = t_ansv.ansv(a, lt, rt, device="cpu", engine=engine)
+        for g, o in zip(got, want[lt, rt]):
+            np.testing.assert_array_equal(g, o)
+
+
+@pytest.mark.parametrize("engine,lt,rt,want", [
+    ("scan", NEAREST_SM, NEAREST_SM, {"dual_scan": 1}),
+    ("scan", FURTHEST_EQ, NEAREST_SM, {"dual_scan": 1}),
+    ("scan", NEAREST_EQ, NEAREST_EQ, {"dual_scan": 1}),
+    ("block", NEAREST_SM, NEAREST_SM, {"block_psv": 2}),
+    ("block", FURTHEST_EQ, NEAREST_SM, {"block_psv": 2}),
+    ("block", FURTHEST_EQ, FURTHEST_EQ, {"block_psv": 2}),
+    ("spine", FURTHEST_EQ, NEAREST_SM, {"tile_side": 2, "spine_scan": 1}),
+    ("spine", NEAREST_EQ, NEAREST_EQ, {"block_psv": 2}),
+    ("hybrid", NEAREST_EQ, NEAREST_EQ, {"block_psv": 2}),
+])
+def test_dispatch_by_engine(engine, lt, rt, want):
+    rng = np.random.RandomState(5)
+    a = rng.randint(0, 9, 5000).astype(np.int32)
+    kernels, calls = _counting_plain()
+    got = t_ansv.ansv(a, lt, rt, device="cpu", kernels=kernels,
+                      engine=engine)
+    assert calls == want
+    for g, o in zip(got, ansv_seq(a, lt, rt, nonsv=len(a))):
+        np.testing.assert_array_equal(g, o)
+    # int64 values run the block engine under every engine
+    kernels, calls = _counting_plain()
+    t_ansv.ansv(a.astype(np.int64) << 33, lt, rt, device="cpu",
+                kernels=kernels, engine=engine)
+    assert calls == {"block_psv": 2}
+
+
+def test_engine_from_the_environment(monkeypatch):
+    """``engine=None`` reads ``PSAC_NSV``, and takes ``hybrid`` where it is
+    unset; an explicit engine wins; ``ansv_local`` (the suffix tree's and
+    the DESA's pass) honours it too."""
+    a = np.random.RandomState(6).randint(0, 9, 3000).astype(np.int32)
+    monkeypatch.delenv("PSAC_NSV", raising=False)
+    assert t_ansv.resolve_engine() == "hybrid"
+    monkeypatch.setenv("PSAC_NSV", "scan")
+    assert t_ansv.resolve_engine() == "scan"
+    assert t_ansv.resolve_engine("block") == "block"
+    kernels, calls = _counting_plain()
+    t_ansv.ansv(a, NEAREST_SM, NEAREST_SM, device="cpu", kernels=kernels)
+    assert calls == {"dual_scan": 1}
+    kernels, calls = _counting_plain()
+    t_ansv.ansv_local(torch.from_numpy(a), FURTHEST_EQ, NEAREST_SM, kernels)
+    assert calls == {"dual_scan": 1}
+    kernels, calls = _counting_plain()
+    t_ansv.ansv_local(torch.from_numpy(a), FURTHEST_EQ, NEAREST_SM, kernels,
+                      engine="block")
+    assert calls == {"block_psv": 2}
+
+
+@pytest.mark.parametrize("engine", ["walk", "bogus"])
+def test_unported_and_unknown_engines_raise(monkeypatch, engine):
+    a = np.arange(10, dtype=np.int32)
+    with pytest.raises(ValueError, match="engine"):
+        t_ansv.ansv(a, device="cpu", engine=engine)
+    monkeypatch.setenv("PSAC_NSV", engine)
+    with pytest.raises(ValueError, match="engine"):
+        t_ansv.ansv(a, device="cpu")

@@ -127,6 +127,36 @@ def test_benchmark_k_and_psac_vs_dss(tmp_path, capsys):
     assert "[SUCCESS]" in capsys.readouterr().out
 
 
+def test_benchmark_variants_as_jax(capsys):
+    """``benchmark`` prints the JAX CLI's six construction variants in its
+    order, each row ``p;name;ms`` with p = 1 (the JAX CLI given one
+    device)."""
+    argv = ["benchmark", "-r", "3000", "--reps", "1"]
+    assert run_cli(argv) == 0
+    got = [r.split(";") for r in capsys.readouterr().out.split()]
+    assert run_jax_cli(argv) == 0
+    want = [r.split(";") for r in capsys.readouterr().out.split()]
+    assert [r[:2] for r in got] == [r[:2] for r in want]
+    assert [r[1] for r in got] == [
+        "sa-nolcp-reg", "sa-nolcp-fast", "sa-lcp-reg", "sa-lcp-fast",
+        "sa-nolcp-arr3", "sa-nolcp-arr4"]
+    assert all(r[0] == "1" and float(r[2]) > 0 for r in got)
+
+
+def test_benchmark_ansv_rows_as_jax(capsys):
+    """``benchmark-ansv`` prints the JAX CLI's rows (every field but the
+    time) for the four engines, the spine engine on ``feq-sm`` only."""
+    argv = ["benchmark-ansv", "-n", "4096", "--reps", "1", "--engines",
+            "hybrid,scan,block,spine"]
+    assert run_cli(argv) == 0
+    got = [r.split(";") for r in capsys.readouterr().out.split()]
+    assert run_jax_cli(argv) == 0
+    want = [r.split(";") for r in capsys.readouterr().out.split()]
+    assert [r[:5] for r in got] == [r[:5] for r in want]
+    assert len(got) == 3 * 3 * 3 + 3
+    assert all(float(r[5]) > 0 for r in got)
+
+
 def test_cli_errors(tmp_path):
     with pytest.raises(SystemExit):
         run_cli(["psac", "-l"])  # neither -f nor -r

@@ -822,3 +822,107 @@ def test_d_check_sa_on_gpu(cuda):
     sa[off + 10], sa[off + 11] = dsa.sa[off + 11], dsa.sa[off + 10]
     import dataclasses
     assert not d_check_sa(dataclasses.replace(dsa, sa=sa), xs)
+
+
+# ---------------------------------------------------------------------------
+# the host-driven loop, pack_keys and the ANSV engines on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cfg", [dict(fused=False),
+                                 dict(fused=False, tail_threshold_frac=0.0),
+                                 dict(fused=False, construct_lcp=False,
+                                      factor=3)])
+def test_host_loop_on_gpu_equals_cpu(cuda, cfg):
+    """The host-driven loop on the card: the padded state equals its CPU
+    run, and the LCP builds launch K6 once per resolve."""
+    from psac_tpu_torch import SAConfig
+    from psac_tpu_torch.models import suffix_array as t_sa
+    from psac_tpu_torch.ops.alphabet import rep_dna
+
+    t = rep_dna(1 << 16, unit_len=1024, seed=7, mutations=64)
+    conf = SAConfig(**cfg)
+    states = {}
+    for dev in ("cpu", cuda):
+        xs, alpha, n, N = t_sa.encode_and_shard(t, dev)
+        before = rmq.rmq_resolve.launches
+        states[str(dev)] = t_sa.construct_device(xs, alpha, n, N, conf)
+        launched = rmq.rmq_resolve.launches - before
+        assert t_sa.LAST_BUILD["host_iters"] > 0
+    assert (launched > 0) == conf.construct_lcp
+    got, want = states[str(cuda)], states["cpu"]
+    for field in ("sa", "isa", "lcp"):
+        if getattr(want, field) is not None:
+            assert torch.equal(getattr(got, field).cpu(),
+                               getattr(want, field))
+
+
+def test_gsa_host_loop_on_gpu_equals_cpu(cuda):
+    from psac_tpu_torch import SAConfig
+    from psac_tpu_torch.models.gsa import build_gsa_device
+
+    strings = cases.near_identical_family(16, 2000, 20, seed=3)
+    conf = SAConfig(fused=False)
+    before = rmq.rmq_resolve.launches
+    got = build_gsa_device(strings, cuda, conf)
+    assert rmq.rmq_resolve.launches > before
+    want = build_gsa_device(strings, "cpu", conf)
+    assert torch.equal(got.sa.cpu(), want.sa)
+    assert torch.equal(got.lcp.cpu(), want.lcp)
+
+
+@pytest.mark.parametrize("cfg", [dict(dense_factor=5),
+                                 dict(fused=False, factor=5,
+                                      construct_lcp=False)])
+def test_pack_keys_on_gpu(cuda, cfg):
+    from psac_tpu_torch import SAConfig, build_suffix_array
+    from psac_tpu_torch.native import lcp_array, suffix_array
+    from psac_tpu_torch.ops.alphabet import rep_dna
+
+    t = rep_dna(1 << 16, unit_len=1024, seed=7, mutations=64)
+    sa = suffix_array(t)
+    for packed in (True, False):
+        res = build_suffix_array(t, cuda, SAConfig(pack_keys=packed, **cfg))
+        np.testing.assert_array_equal(res.sa, sa)
+        if res.lcp is not None:
+            np.testing.assert_array_equal(res.lcp, lcp_array(t, sa))
+
+
+#: the kernels each engine launches on int32 input, per pair (the FEQ,NSM
+#: spine fits its capacity on these values)
+ENGINE_LAUNCHES = {
+    ("hybrid", "sm-sm"): {"block_psv": 2},
+    ("hybrid", "feq-sm"): {"tile_side": 2, "nsv_scan_spine": 1},
+    ("hybrid", "eq-eq"): {"block_psv": 2},
+    ("spine", "feq-sm"): {"tile_side": 2, "nsv_scan_spine": 1},
+    ("scan", "sm-sm"): {"nsv_scan_dual": 1},
+    ("scan", "feq-sm"): {"nsv_scan_dual": 1},
+    ("scan", "eq-eq"): {"nsv_scan_dual": 1},
+    ("block", "sm-sm"): {"block_psv": 2},
+    ("block", "feq-sm"): {"block_psv": 2},
+    ("block", "eq-eq"): {"block_psv": 2},
+}
+
+
+@pytest.mark.parametrize("engine,combo", sorted(ENGINE_LAUNCHES))
+def test_ansv_engines_on_gpu(cuda, engine, combo):
+    """Each engine launches its kernels and equals the plain path."""
+    from psac_tpu_torch.parallel.ansv import PLAIN, ansv
+
+    pair = {"sm-sm": (NEAREST_SM, NEAREST_SM),
+            "feq-sm": (FURTHEST_EQ, NEAREST_SM),
+            "eq-eq": (NEAREST_EQ, NEAREST_EQ)}[combo]
+    a = np.random.RandomState(21).randint(0, 1 << 12, 1 << 18).astype(
+        np.int32)
+    fns = {"tile_side": tansv.tile_side,
+           "nsv_scan_spine": nsv_scan.nsv_scan_spine,
+           "nsv_scan_dual": nsv_scan.nsv_scan_dual,
+           "nsv_scan_left": nsv_scan.nsv_scan_left,
+           "block_psv": bansv.block_psv}
+    before = {k: f.launches for k, f in fns.items()}
+    got = ansv(a, *pair, device=cuda, engine=engine)
+    ran = {k: f.launches - before[k] for k, f in fns.items()
+           if f.launches != before[k]}
+    assert ran == ENGINE_LAUNCHES[engine, combo]
+    want = ansv(a, *pair, device=cuda, kernels=PLAIN, engine=engine)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

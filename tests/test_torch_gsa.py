@@ -356,8 +356,11 @@ def test_edge_inputs_and_errors():
         t_gsa.build_gsa_device([], "cpu")
     with pytest.raises(ValueError):
         build_gsa([b"ab\x00c"], "cpu")
-    with pytest.raises(NotImplementedError):
-        build_gsa([b"abc"], "cpu", SAConfig(fused=False))
+    # fused=False (once NotImplementedError) builds the oracle's result
+    res = build_gsa([b"abc", b"bc"], "cpu", SAConfig(fused=False))
+    want_sa, want_lcp = gsa_oracle([b"abc", b"bc"])
+    np.testing.assert_array_equal(res.sa, want_sa)
+    np.testing.assert_array_equal(res.lcp, want_lcp)
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             build_gsa([b"abc", b"abd"])

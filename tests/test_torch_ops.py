@@ -242,10 +242,15 @@ def test_config_from_jax():
     for n in (8, (1 << 30) - 1, 1 << 30):
         assert str(t_config.index_dtype(n)).endswith(
             np.dtype(index_dtype(n)).name)
-    for bad in (dict(pack_keys=True), dict(fused=False)):
-        with pytest.raises(NotImplementedError):
-            t_config.SAConfig(**bad).check_supported()
-    t_config.SAConfig(construct_lc=True).check_supported()  # ported
+    # every option builds the oracle's result (none is left unsupported)
+    from psac_tpu_torch import build_suffix_array
+    text = b"ab" * 300 + b"ba" * 40
+    sa = t_oracle.suffix_array_np(text)
+    for opt in (dict(pack_keys=True, dense_factor=5), dict(fused=False),
+                dict(construct_lc=True)):
+        res = build_suffix_array(text, "cpu", t_config.SAConfig(**opt))
+        np.testing.assert_array_equal(res.sa, sa, err_msg=str(opt))
+        np.testing.assert_array_equal(res.lcp, t_oracle.lcp_kasai(text, sa))
 
 
 def test_copied_numpy_helpers_equal_originals():

@@ -178,10 +178,11 @@ def test_edge_inputs_and_errors():
     assert res.n == 0 and len(res.sa) == 0 and len(res.lcp) == 0
     with pytest.raises(ValueError):
         build_suffix_array(b"ab\x00c", "cpu")
-    with pytest.raises(NotImplementedError):
-        build_suffix_array(b"abc", "cpu", SAConfig(pack_keys=True))
-    with pytest.raises(NotImplementedError):
-        build_suffix_array(b"abc", "cpu", SAConfig(fused=False))
+    # the options that once raised NotImplementedError build the oracle's
+    for opt in (dict(pack_keys=True), dict(fused=False)):
+        res = build_suffix_array(b"abc", "cpu", SAConfig(**opt))
+        np.testing.assert_array_equal(res.sa, [0, 1, 2])
+        np.testing.assert_array_equal(res.lcp, [0, 0, 0])
 
 
 def test_device_suffix_array_from_numpy_roundtrip():
