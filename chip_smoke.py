@@ -18,8 +18,12 @@ characters) and of a family of 64 near-identical 256 KiB strings (2^24);
 the host-driven construction loop (``fused=False``) on the same texts and
 sets (SA+LCP at tail thresholds 0.1 and 0.0, SA-only at factors 2-4, K6 in
 every doubling step of ``rep_dna``, the GSA of both sets) and
-``pack_keys`` at ``dense_factor=5``; each ANSV engine (hybrid, scan,
-block, spine) against the plain path on 2^24 values; then the
+``pack_keys`` at ``dense_factor=5``; the mesh of p = 4 shards on the
+card(s) (``[mesh]``: SA+LCP of the 2^26 text and of ``rep_dna``, fused
+and host-driven, the 2^26 suffix tree, ``d_check_sa``, the public ANSV,
+and SA+LCP at p = 3; K6's min-only entry, ``rmq_mins``, held against its
+plain version there); each ANSV engine (hybrid, scan, block, spine)
+against the plain path on 2^24 values; then the
 command-line tools in processes of their own (``psac -f``, ``gsac -f``,
 ``mkpattern``, ``desa -q`` building, saving and loading the index,
 ``benchmark`` and ``benchmark-ansv``) on the same inputs, and
@@ -69,19 +73,22 @@ def smi_name_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, device=None) -> float:
     """Mean device milliseconds of ``fn()`` over ``reps`` runs, after one
-    warm-up run (CUDA events around the whole batch)."""
+    warm-up run (CUDA events around the whole batch, on the current stream
+    of ``device``, by default the current device: the device whose tensors
+    ``fn`` works on)."""
     import torch
 
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    with torch.cuda.device(device):
         fn()
-    end.record()
-    torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
@@ -1406,6 +1413,305 @@ def hostloop_phase(dev, text: bytes, sa_ref, lcp_ref, log2n: int,
     return out
 
 
+def mins_bound(rmq, lo, hi, valid) -> dict:
+    """K6's min-only bound from this call's data, each input read once and
+    each output written once: per query a flag read and one word written,
+    per valid query its two range words, the LCP words the valid ranges
+    cover (at most all of them, each once), and two table words per valid
+    range with whole blocks between its edge blocks (at most the table).
+    One comparison per word a query reads."""
+    import torch
+
+    s, block, isz = rmq.x.shape[0], rmq.block, rmq.x.element_size()
+    m = lo.shape[0]
+    lo = lo.to(torch.int64)[valid].clamp(0, s - 1)
+    hi = torch.maximum(hi.to(torch.int64)[valid], lo).clamp(0, s - 1)
+    bl, bh = lo // block, hi // block
+    narrow = hi - lo < 8
+    between = (bh - bl > 1) & ~narrow
+    cross = bl != bh
+    edge = torch.where(cross, (bl + 1) * block - lo + hi - bh * block + 1,
+                       hi - lo + 1)
+    words = torch.where(narrow, hi - lo + 1, edge)
+    table = min(2 * int(between.sum()), rmq.table.numel())
+    lcp_words = min(int(words.sum()), s)
+    nbytes = m * (isz + 1) + (2 * int(valid.sum()) + lcp_words + table) * isz
+    return dict(bound(nbytes, int(words.sum()) + 2 * int(between.sum())),
+                n_valid=int(valid.sum()), n_narrow=int(narrow.sum()))
+
+
+def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
+               rsa, rlcp, log2n: int, rep_log2n: int, ansv_log2n: int,
+               card: str, kern: dict) -> dict:
+    """The mesh of p = 4 shards on the card(s), ``devices[i] = cuda:(i %
+    count)``: SA+LCP of the 2^26 random DNA and of the 2^24 ``rep_dna``
+    (fused, and the host-driven loop with its routed resolve and capacity
+    escalation) against their native references, the 2^26 suffix tree
+    against the p = 1 tree, SA+LCP at p = 3 (the odd-even sort) on 2^20
+    random DNA against the native oracle, ``d_check_sa`` at p = 4 (true,
+    and false with two rows swapped), and the public ``ansv`` at p = 4
+    against p = 1.  Each build's wall, peak memory and its launches of K6's
+    min-only entry, K5 and K6 (counted into the kernel table); K6's
+    min-only entry held against its plain version on the largest call of
+    the rep_dna build and on small adversaries, K5 on one shard's suffix
+    tree input; the walks' time in the tree's ANSV (their calls replayed
+    one by one with CUDA events)."""
+    import threading
+    from unittest import mock
+
+    import torch
+
+    from psac_tpu_torch import native
+    from psac_tpu_torch.config import SAConfig
+    from psac_tpu_torch.models import suffix_array as sa_mod
+    from psac_tpu_torch.models import suffix_tree as st_mod
+    from psac_tpu_torch.ops import rmq as rmq_mod
+    from psac_tpu_torch.ops.alphabet import rand_dna
+    from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_EQ, NEAREST_SM
+    from psac_tpu_torch.ops.bansv import block_psv, block_psv_plain
+    from psac_tpu_torch.parallel import ansv as ansv_mod
+    from psac_tpu_torch.parallel import par_rmq
+    from psac_tpu_torch.parallel.mesh import Sharded, make_mesh
+    from psac_tpu_torch.verify.cases import resolve_lcp
+    from psac_tpu_torch.verify.check_sa import d_check_sa
+
+    count = torch.cuda.device_count()
+    devices = [f"cuda:{i % count}" for i in range(4)]
+    cards = sorted(set(devices))
+    log(f"[mesh] p = 4 shards on {devices} ({count} card(s)); {card}")
+    mesh = make_mesh(4, devices)
+    reset, read = counter((rmq_mod.rmq_mins, block_psv, rmq_mod.rmq_resolve))
+    out = {}
+
+    def timed(label, fn):
+        gc.collect()
+        for d in cards:
+            torch.cuda.synchronize(d)
+            torch.cuda.reset_peak_memory_stats(d)
+        reset()
+        t0 = time.perf_counter()
+        res = fn()
+        for d in cards:
+            torch.cuda.synchronize(d)
+        st = dict(wall_s=time.perf_counter() - t0, peak_gib=sum(
+            torch.cuda.max_memory_allocated(d) for d in cards) / 2**30,
+            **read())
+        add_launches({k: st[k] for k in ("rmq_mins", "block_psv",
+                                         "rmq_resolve")})
+        out[label] = st
+        log(f"[mesh] {label}: {st['wall_s']:.3f} s, peak "
+            f"{st['peak_gib']:.2f} GiB, launches K6-mins {st['rmq_mins']}, "
+            f"K5 {st['block_psv']}, K6 {st['rmq_resolve']}")
+        return res
+
+    def build(t, cfg=None, m=mesh):
+        xs, alpha, n, N = sa_mod.encode_and_shard(t, mesh=m)
+        return sa_mod.construct_device(xs, alpha, n, N, cfg or SAConfig(),
+                                       m), xs
+
+    # ---- SA+LCP and ST of the 2^26 random DNA at p = 4
+    dsa, xs = timed(f"SA+LCP 2^{log2n} DNA p=4", lambda: build(text))
+    lb = dict(sa_mod.LAST_BUILD.d)
+    res = dsa.materialize()
+    if not (np.array_equal(res.sa, sa_ref)
+            and np.array_equal(res.lcp, lcp_ref)):
+        raise AssertionError("p = 4 SA+LCP of the random DNA differs from "
+                             "SA-IS + Kasai")
+    del res
+    log(f"[mesh] SA+LCP 2^{log2n} DNA p=4 == native (fused {lb['fused']}, "
+        f"host_iters {lb['host_iters']})")
+    tree = timed(f"ST 2^{log2n} DNA p=4",
+                 lambda: st_mod.construct_suffix_tree_device(dsa, xs))
+    w = tree.sigma + 1
+    got = tree.nodes.gather().view(dsa.N, w)[dsa.N - dsa.n:]
+    want = tree_p1.view(-1, w)[-dsa.n:]
+    if not torch.equal(got, want):
+        raise AssertionError("p = 4 suffix tree differs from the p = 1 tree")
+    del tree, got, want
+    log(f"[mesh] ST 2^{log2n} DNA p=4 == p = 1 tree")
+
+    def walks(label, fn):
+        """The walks' time inside ``fn()``: a second run with the walk calls
+        noted, then replayed one by one (one card's stream is shared by the
+        shards, so events around a call in the run would time the other
+        shards' work too)."""
+        calls, lock = [], threading.Lock()
+
+        def spy(walk):
+            def wrapped(levels, start, v, strict=walk.__defaults__[0]):
+                with lock:
+                    calls.append((walk, levels, start, v, strict))
+                return walk(levels, start, v, strict)
+            return wrapped
+
+        with mock.patch.object(ansv_mod, "levels_prev_lt",
+                               spy(ansv_mod.levels_prev_lt)), \
+                mock.patch.object(ansv_mod, "levels_next_leq",
+                                  spy(ansv_mod.levels_next_leq)):
+            fn()
+        for d in cards:
+            torch.cuda.synchronize(d)
+        n_walk = sum(c[2].shape[0] for c in calls)
+        # each shard's calls timed on its own card's stream
+        by_card = {}
+        for c in calls:
+            by_card.setdefault(c[3].device, []).append(c)
+        ms = sum(cuda_ms(lambda cs=cs: [w(lv, st, v, sr) for w, lv, st, v, sr
+                                        in cs], 1, d)
+                 for d, cs in by_card.items())
+        out[label]["walk_ms"] = ms
+        out[label]["walk_queries"] = n_walk
+        log(f"[mesh] walks in {label}: {len(calls)} calls, {n_walk} "
+            f"queries, {ms:.3f} ms replayed on {card}")
+
+    walks(f"ST 2^{log2n} DNA p=4",
+          lambda: st_mod.construct_suffix_tree_device(dsa, xs))
+
+    # K5 at the shape each shard gives it: shard 1's suffix tree input
+    lcp1 = dsa.lcp.shards[1]
+    errs5 = [max_abs_err((block_psv(lcp1, strict),),
+                         (block_psv_plain(lcp1, strict),))
+             for strict in (True, False)]
+    if max(errs5):
+        raise AssertionError("K5 differs from its plain version on a mesh "
+                             "shard")
+    log(f"[mesh] K5 == plain on shard 1's LCP ({lcp1.shape[0]} rows)")
+
+    # d_check_sa at p = 4: true, and false with two real rows swapped
+    ok = timed(f"d_check_sa 2^{log2n} p=4", lambda: d_check_sa(dsa, xs))
+    shards = [t.clone() for t in dsa.sa.shards]
+    a, b = shards[-1][-1].item(), shards[-1][-7].item()
+    shards[-1][-1], shards[-1][-7] = b, a
+    bad = d_check_sa(dataclasses.replace(dsa, sa=Sharded(shards)), xs)
+    if not ok or bad:
+        raise AssertionError(f"d_check_sa at p = 4: {ok} for the build, "
+                             f"{bad} with two rows swapped")
+    log("[mesh] d_check_sa p=4: True for the build, False with two rows "
+        "swapped")
+    del dsa, xs, shards
+
+    # ---- rep_dna at p = 4: fused, then the host loop (routed resolve)
+    mins_calls, mlock = [], threading.Lock()
+    real_mins = par_rmq.rmq_mins
+
+    def mins_spy(rmq, lo, hi, valid):
+        # keep the call with the most valid queries
+        nv = int(valid.sum())
+        with mlock:
+            if not mins_calls or nv > mins_calls[0][0]:
+                mins_calls[:] = [(nv, rmq, lo, hi, valid)]
+        return real_mins(rmq, lo, hi, valid)
+
+    rdsa, _ = timed(f"SA+LCP 2^{rep_log2n} rep_dna p=4",
+                    lambda: build(rep_text))
+    res = rdsa.materialize()
+    if not (np.array_equal(res.sa, rsa) and np.array_equal(res.lcp, rlcp)):
+        raise AssertionError("p = 4 SA+LCP of rep_dna differs")
+    if out[f"SA+LCP 2^{rep_log2n} rep_dna p=4"]["rmq_mins"] == 0:
+        raise AssertionError("K6's min-only entry was not launched by the "
+                             "p = 4 rep_dna build")
+    del rdsa, res
+    # K6-mins' calls noted in a second, untimed build (the spy reads each
+    # call's query count back)
+    with mock.patch.object(par_rmq, "rmq_mins", mins_spy):
+        build(rep_text)
+    retries = []
+    real_run = sa_mod._Builder._resolve_run
+
+    def run_spy(self, ctx, lcp, kq, lq, rq, d, capscale):
+        got = real_run(self, ctx, lcp, kq, lq, rq, d, capscale)
+        if ctx.rank == 0:
+            retries.append((capscale, got[1].value))
+        return got
+
+    with mock.patch.object(sa_mod._Builder, "_resolve_run", run_spy):
+        hdsa, _ = timed(f"SA+LCP 2^{rep_log2n} rep_dna p=4 fused=False",
+                        lambda: build(rep_text, SAConfig(fused=False)))
+    res = hdsa.materialize()
+    if not (np.array_equal(res.sa, rsa) and np.array_equal(res.lcp, rlcp)):
+        raise AssertionError("p = 4 host-loop SA+LCP of rep_dna differs")
+    escalated = sum(1 for c, o in retries if c == 6 and o > 0)
+    out["resolves"] = dict(calls=len(retries), escalated=escalated,
+                           host_iters=sa_mod.LAST_BUILD["host_iters"])
+    log(f"[mesh] rep_dna p=4 == native, fused and host loop (host_iters "
+        f"{sa_mod.LAST_BUILD['host_iters']}, routed resolves "
+        f"{len(retries)}, escalated to cap = m {escalated} times)")
+    del hdsa, res
+
+    # ---- K6's min-only entry against its plain version
+    _, rmq, lo, hi, valid = mins_calls[0]
+    del mins_calls
+    # the call came from a shard's thread: its tensors may lie on another
+    # card than the current one, whose stream the timings must use
+    mdev = lo.device
+    errs = [max_abs_err((rmq_mod.rmq_mins(rmq, lo, hi, valid),),
+                        (rmq_mod.rmq_mins_plain(rmq, lo, hi, valid),))]
+    rng = np.random.RandomState(31)
+    for s_, dt in ((8 * 37, torch.int32), (128 * 257, torch.int64),
+                   (1 << 20, torch.int32), (1 << 20, torch.int64)):
+        x = torch.from_numpy(resolve_lcp(s_, seed=s_)).to(dev).to(dt)
+        r = rmq_mod.build_local_rmq(x)
+        m = 1 << 14
+        qlo = rng.randint(0, s_, m)
+        qhi = np.minimum(s_ - 1, qlo + rng.choice(
+            [0, 3, 7, 8, r.block + 1, 9 * r.block, s_], m))
+        qv = torch.from_numpy(rng.rand(m) < 0.9).to(dev)
+        ql, qh = (torch.from_numpy(a).to(dev).to(dt) for a in (qlo, qhi))
+        errs.append(max_abs_err((rmq_mod.rmq_mins(r, ql, qh, qv),),
+                                (rmq_mod.rmq_mins_plain(r, ql, qh, qv),)))
+    mb = mins_bound(rmq, lo, hi, valid)
+    kern["rmq_mins"] = dict(
+        route="cuda", source="psac_tpu_torch/csrc/rmq_resolve.cu",
+        replaces="psac_tpu/parallel/par_rmq.py:64", max_abs_err=max(errs),
+        # the launch alone: the wrapper's check for a valid query reads
+        # back, which would time the host round trip, not the kernel
+        ms=cuda_ms(lambda: rmq_mod.rmq_mins_launch(rmq, lo, hi, valid,
+                                                   torch.empty_like(lo)), 10,
+                   mdev),
+        plain_ms=cuda_ms(lambda: rmq_mod.rmq_mins_plain(rmq, lo, hi, valid),
+                         1, mdev),
+        bound_ms=mb["bound_ms"], bound_by=mb["bound_by"], library_ms=None,
+        shape=dict(rows=rmq.x.shape[0], m=lo.shape[0], valid=mb["n_valid"],
+                   narrow=mb["n_narrow"], block=rmq.block,
+                   dtype=str(rmq.x.dtype)))
+    k = kern["rmq_mins"]
+    log(f"[kernel] K6-mins rmq_mins == plain on the p=4 rep_dna build's call "
+        f"with the most valid queries"
+        f" ({lo.shape[0]} queries, {mb['n_valid']} valid, "
+        f"{mb['n_narrow']} under 8 wide, of {rmq.x.shape[0]} rows) and on "
+        f"4 adversarial sets: {k['ms']:.4f} ms, plain {k['plain_ms']:.3f} "
+        f"ms, bound {k['bound_ms']:.5f} ms ({k['bound_by']}) on {card}")
+    del rmq, lo, hi, valid
+
+    # ---- p = 3 (odd-even block sort) on 2^20 random DNA
+    small = rand_dna(1 << 20, seed=20)
+    ssa = native.suffix_array(small)
+    mesh3 = make_mesh(3, [f"cuda:{i % count}" for i in range(3)])
+    d3, _ = timed("SA+LCP 2^20 DNA p=3", lambda: build(small, m=mesh3))
+    r3 = d3.materialize()
+    if not (np.array_equal(r3.sa, ssa) and
+            np.array_equal(r3.lcp, native.lcp_array(small, ssa))):
+        raise AssertionError("p = 3 SA+LCP differs from SA-IS + Kasai")
+    mesh3.close()
+    log("[mesh] SA+LCP 2^20 DNA p=3 == native")
+
+    # ---- the public ANSV at p = 4 against p = 1
+    vals = ansv_values(ansv_log2n)
+    for lt, rt, name in ((NEAREST_SM, NEAREST_SM, "NSM,NSM"),
+                         (FURTHEST_EQ, NEAREST_SM, "FEQ,NSM"),
+                         (NEAREST_EQ, NEAREST_EQ, "NEQ,NEQ")):
+        label = f"ansv 2^{ansv_log2n} {name} p=4"
+        got = timed(label, lambda: ansv_mod.ansv(vals, lt, rt, mesh=mesh))
+        want = ansv_mod.ansv(vals, lt, rt, device=dev)
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"p = 4 ansv {name} differs from p = 1")
+        walks(label, lambda: ansv_mod.ansv(vals, lt, rt, mesh=mesh))
+    log(f"[mesh] public ansv 2^{ansv_log2n} p=4 == p = 1 for NSM,NSM, "
+        "FEQ,NSM and NEQ,NEQ")
+    mesh.close()
+    return out
+
+
 def engines_phase(dev, log2n: int, card: str) -> None:
     """Each ANSV engine (``hybrid``, ``scan``, ``block``, ``spine``) on the
     card for every pair ``benchmark-ansv`` times and each of its inputs
@@ -1849,6 +2155,7 @@ def main() -> int:
     if not np.array_equal(homo_tree, want):
         raise AssertionError("suffix tree of the homopolymer differs")
     log(f"[main] ST of A^{m} (spine overflow -> dual scan) == oracle")
+    tree_p1 = tree.nodes.cpu()  # the mesh phase's reference
     del tree, dsa, xs
 
     # ---- 4b. suffix tree of the repetitive text (counted) ---------------
@@ -1907,7 +2214,15 @@ def main() -> int:
         {fam_label: (fam_set, gsa_fam.pop("oracle")),
          f"2^{args.gsa_log2n} random DNA in 4 KiB strings":
              (gsa_set, gsa_rand["oracle"])}, card)
-    del rsa, rlcp, fam_set
+    del fam_set
+
+    # ---- 9c. the mesh of p = 4 shards (counted) --------------------------
+    t0 = time.perf_counter()
+    mesh_res = mesh_phase(dev, text, sa_ref, lcp_ref, tree_p1, rep_text, rsa,
+                          rlcp, args.log2n, args.rep_log2n, args.ansv_log2n,
+                          card, kern)
+    log(f"[mesh] phase {time.perf_counter() - t0:.1f} s")
+    del rsa, rlcp, tree_p1
 
     # ---- 10. the ANSV engines, then the command-line tools at full size ---
     engines_phase(dev, args.ansv_log2n, card)
@@ -1949,6 +2264,12 @@ def main() -> int:
             log(f"[result] hostloop {key}: {turns['wall_s']:.3f} s (K6 "
                 f"{turns['k6']}, host_iters {turns['host_iters']}, peak "
                 f"{turns['peak_gib']:.2f} GiB)")
+    log("[result] mesh: " + ", ".join(
+        f"{k} {v['wall_s']:.3f} s ({v['peak_gib']:.2f} GiB; K6-mins "
+        f"{v['rmq_mins']}, K5 {v['block_psv']}, K6 {v['rmq_resolve']}; "
+        f"walks {v.get('walk_ms', 0.0):.3f} ms)"
+        for k, v in mesh_res.items() if "wall_s" in v)
+        + f"; host-loop resolves {mesh_res['resolves']}")
     log("[result] CLI benchmark ms: " + ", ".join(
         f"{k} {v:.2f}" for k, v in cli["benchmark_ms"].items()))
     log("[result] CLI benchmark-ansv ms: " + ", ".join(

@@ -43,6 +43,17 @@
 // needs 4-32 bytes, so the scattered reads, not the bound's bytes, set the
 // pace.  All index arithmetic is 64-bit, so no int32 product of an invalid
 // row can overflow; values are int32 or int64 (a template).
+//
+// A second entry point, psac_rmq_mins_*, answers the range minima alone,
+// for p > 1: there the queries' ranges are global and cross shards, so the
+// shard that owns a range's start (and, for a crossing range, the shard
+// that owns its end) answers the part inside its own block
+// (psac_tpu/parallel/par_rmq.py:52-84), and the issuing shard writes
+// j*d + min.  Per query it runs the resolve's code: the narrow tier in
+// the query's thread, the wide tier by the warp in turn; a query that is
+// not valid gets INF.  Its bound is compulsory bytes too: per query two
+// range words and a flag read and one word written, plus the LCP and
+// table words the valid ranges cover.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -131,6 +142,47 @@ __device__ __forceinline__ T narrow_min(const T* __restrict__ lcp,
   return m;
 }
 
+// The wide ranges of a warp, taken one at a time by all 32 lanes: the part
+// of [lo, hi] in lo's block and the part in hi's block are read coalesced,
+// the full blocks between them come from two reads of the doubling table,
+// and a five-step shuffle reduce gives the minimum, which lands in `m` of
+// the lane whose query it is.  Every lane of the warp must call it.
+template <typename T>
+__device__ __forceinline__ void warp_wide_min(const T* __restrict__ lcp,
+                                              const T* __restrict__ table,
+                                              long long nb, int bshift,
+                                              bool wide, long long lo,
+                                              long long hi, int lane, T& m) {
+  unsigned todo = __ballot_sync(FULL, wide);
+  while (todo) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const long long wlo = __shfl_sync(FULL, lo, src);
+    const long long whi = __shfl_sync(FULL, hi, src);
+    const long long bl = wlo >> bshift;
+    const long long bh = whi >> bshift;
+    T w = Inf<T>::v;
+    // the part of the range in lo's block
+    const long long lend = bl == bh ? whi : ((bl + 1) << bshift) - 1;
+    for (long long i = wlo + lane; i <= lend; i += 32) w = min_of(w, lcp[i]);
+    if (bl != bh) {
+      // the part in hi's block, and the full blocks between the two
+      for (long long i = (bh << bshift) + lane; i <= whi; i += 32)
+        w = min_of(w, lcp[i]);
+      const long long first = bl + 1;
+      const long long len = bh - first;
+      if (len > 0 && lane < 2) {
+        const int lev = 63 - __clzll(len);
+        const long long at = lane == 0 ? first : bh - (1LL << lev);
+        w = min_of(w, table[lev * nb + at]);
+      }
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      w = min_of(w, __shfl_xor_sync(FULL, w, off));
+    if (lane == src) m = w;
+  }
+}
+
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 rmq_resolve_kernel(const __grid_constant__ Args<T> a) {
@@ -167,36 +219,51 @@ rmq_resolve_kernel(const __grid_constant__ Args<T> a) {
   if (live && !wide) m = narrow_min<T, VEC>(a.lcp, lo, hi);
 
   // ---- wide tier: the warp takes its wide queries one at a time
-  unsigned todo = __ballot_sync(FULL, wide);
-  while (todo) {
-    const int src = __ffs(todo) - 1;
-    todo &= todo - 1;
-    const long long wlo = __shfl_sync(FULL, lo, src);
-    const long long whi = __shfl_sync(FULL, hi, src);
-    const long long bl = wlo >> a.bshift;
-    const long long bh = whi >> a.bshift;
-    T w = Inf<T>::v;
-    // the part of the range in lo's block
-    const long long lend = bl == bh ? whi : ((bl + 1) << a.bshift) - 1;
-    for (long long i = wlo + lane; i <= lend; i += 32) w = min_of(w, a.lcp[i]);
-    if (bl != bh) {
-      // the part in hi's block, and the full blocks between the two
-      for (long long i = (bh << a.bshift) + lane; i <= whi; i += 32)
-        w = min_of(w, a.lcp[i]);
-      const long long first = bl + 1;
-      const long long len = bh - first;
-      if (len > 0 && lane < 2) {
-        const int lev = 63 - __clzll(len);
-        const long long at = lane == 0 ? first : bh - (1LL << lev);
-        w = min_of(w, a.table[lev * a.nb + at]);
-      }
-    }
-    for (int off = 16; off > 0; off >>= 1)
-      w = min_of(w, __shfl_xor_sync(FULL, w, off));
-    if (lane == src) m = w;
-  }
+  warp_wide_min<T>(a.lcp, a.table, a.nb, a.bshift, wide, lo, hi, lane, m);
 
   if (live) a.out[row] = static_cast<T>(j * a.d + m);
+}
+
+
+// The range minima alone (the second entry point): at p > 1 the owner shard
+// answers min(lcp[lo..hi]) over its own block for the queries routed to it
+// (psac_tpu/parallel/par_rmq.py:52-84, query_local_rmq there), and the
+// issuing shard combines the parts and writes j*d + min.  Same per-query
+// code as the resolve: a range under 8 wide read by its own thread, the
+// warp taking the wider ones in turn; INF where a query is not valid.
+template <typename T>
+struct MinsArgs {
+  const T* lcp;           // (s,) the values
+  const T* table;         // (levels, nb) doubling table over block minima
+  const T* lo;            // (m,) range starts
+  const T* hi;            // (m,) range ends (inclusive)
+  const uint8_t* valid;   // (m,) 0 or 1
+  T* out;                 // (m,) the minima
+  long long s, nb, m;
+  int bshift;
+};
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+rmq_mins_kernel(const __grid_constant__ MinsArgs<T> a) {
+  const int lane = threadIdx.x & 31;
+  const long long q = static_cast<long long>(blockIdx.x) * THREADS +
+                      threadIdx.x;
+  bool live = false;
+  long long lo = 0, hi = 0;
+  if (q < a.m && a.valid[q]) {
+    const long long l = a.lo[q];
+    const long long r = a.hi[q];
+    lo = l < 0 ? 0 : (l > a.s - 1 ? a.s - 1 : l);
+    hi = r < l ? l : r;
+    hi = hi < 0 ? 0 : (hi > a.s - 1 ? a.s - 1 : hi);
+    live = true;
+  }
+  const bool wide = live && hi - lo >= NARROW;
+  T m = Inf<T>::v;
+  if (live && !wide) m = narrow_min<T, VEC>(a.lcp, lo, hi);
+  warp_wide_min<T>(a.lcp, a.table, a.nb, a.bshift, wide, lo, hi, lane, m);
+  if (q < a.m) a.out[q] = m;
 }
 
 template <typename T>
@@ -237,6 +304,39 @@ int rmq_resolve(const T* lcp, const T* table, const T* ks, const T* ls,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+template <typename T>
+int rmq_mins(const T* lcp, const T* table, const T* lo, const T* hi,
+             const uint8_t* valid, T* out, long long s, long long nb,
+             int block, long long m, cudaStream_t stream) {
+  if (block <= 0 || (block & (block - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m <= 0) return 0;
+  MinsArgs<T> a;
+  a.lcp = lcp;
+  a.table = table;
+  a.lo = lo;
+  a.hi = hi;
+  a.valid = valid;
+  a.out = out;
+  a.s = s;
+  a.nb = nb;
+  a.m = m;
+  a.bshift = 0;
+  while ((1 << a.bshift) < block) ++a.bshift;
+  const long long blocks = (m + THREADS - 1) / THREADS;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int E = 16 / sizeof(T);
+  const bool vec = reinterpret_cast<uintptr_t>(lcp) % 16 == 0 && s % E == 0;
+  if (vec)
+    rmq_mins_kernel<T, true>
+        <<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(a);
+  else
+    rmq_mins_kernel<T, false>
+        <<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -260,6 +360,22 @@ int psac_rmq_resolve_i64(const int64_t* lcp, const int64_t* table,
   return rmq_resolve<int64_t>(lcp, table, ks, ls, rs, js, out, s, nb, block,
                               nq, Lm, mode, d,
                               static_cast<cudaStream_t>(stream));
+}
+
+int psac_rmq_mins_i32(const int32_t* lcp, const int32_t* table,
+                      const int32_t* lo, const int32_t* hi,
+                      const uint8_t* valid, int32_t* out, long long s,
+                      long long nb, int block, long long m, void* stream) {
+  return rmq_mins<int32_t>(lcp, table, lo, hi, valid, out, s, nb, block, m,
+                           static_cast<cudaStream_t>(stream));
+}
+
+int psac_rmq_mins_i64(const int64_t* lcp, const int64_t* table,
+                      const int64_t* lo, const int64_t* hi,
+                      const uint8_t* valid, int64_t* out, long long s,
+                      long long nb, int block, long long m, void* stream) {
+  return rmq_mins<int64_t>(lcp, table, lo, hi, valid, out, s, nb, block, m,
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -49,6 +49,7 @@ from psac_tpu_torch.ops.rmq import ArgLocalRMQ, build_arg_rmq
 from psac_tpu_torch.parallel.ansv import (KERNELS, AnsvKernels, ansv_local,
                                           nonsv_for)
 from psac_tpu_torch.parallel.collectives import halo_from_right
+from psac_tpu_torch.parallel.mesh import single_device
 from psac_tpu_torch.parallel.route import route_apply, route_scatter
 
 _MAX_LEN_GROUPS = 3
@@ -281,10 +282,12 @@ class DESA:
 def build_desa(text, device=None,
                config: cfg_mod.SAConfig = cfg_mod.DEFAULT,
                tli_bits: int = 24, tli: str = "tllt",
-               maxsize: int | None = None) -> DESA:
+               maxsize: int | None = None, mesh=None) -> DESA:
     """Construct the DESA of a byte text on ``device`` (None: the CUDA
     card; ``"cpu"`` runs the plain versions): SA+LCP+Lc, the top-level
-    index (TLLT or TLDT), the slabs and the RMQ."""
+    index (TLLT or TLDT), the slabs and the RMQ.  A ``mesh`` of p > 1
+    raises (not ported yet)."""
+    device = single_device(mesh, device, "build_desa")
     if not (isinstance(text, (bytes, bytearray))
             or np.asarray(text).dtype == np.uint8):
         # a TLLT of (sigma bits)^k entries over a wide integer alphabet
@@ -299,9 +302,11 @@ def build_desa(text, device=None,
 def build_desa_from_file(path: str, device=None,
                          config: cfg_mod.SAConfig = cfg_mod.DEFAULT,
                          tli_bits: int = 24, tli: str = "tllt",
-                         maxsize: int | None = None) -> DESA:
+                         maxsize: int | None = None, mesh=None) -> DESA:
     """``build_desa`` of a file's bytes: the file is staged raw on
-    ``device`` (None: the CUDA card) and its alphabet counted there."""
+    ``device`` (None: the CUDA card) and its alphabet counted there.  A
+    ``mesh`` of p > 1 raises (not ported yet)."""
+    device = single_device(mesh, device, "build_desa_from_file")
     xs, alpha, n, N = encode_and_shard_file(path, device)
     return _build_from_codes(xs, alpha, n, N, config, tli_bits, tli, maxsize)
 

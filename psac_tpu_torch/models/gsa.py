@@ -46,7 +46,7 @@ from psac_tpu_torch.ops.bitops import lcp_bitwise_words, pow2ceil
 from psac_tpu_torch.parallel.collectives import (global_cummax,
                                                  global_shift_left_dyn,
                                                  halo_from_right, prev_of)
-from psac_tpu_torch.parallel.mesh import padded_size
+from psac_tpu_torch.parallel.mesh import padded_size, single_device
 from psac_tpu_torch.parallel.sort import lex_perm
 from psac_tpu_torch.parallel.staging import (stage_bytes_block,
                                              stage_file_block,
@@ -117,7 +117,7 @@ class _GsaBuilder(_Builder):
 
     # ---------------- init: masked k-mer ranking ----------------
 
-    def _ginit_local(self, codes, eos):
+    def _ginit(self, ctx, codes, eos):
         s, N, idt = self.s, self.N, self.idt
         ks, bits = self.ks, self.bits
         win = torch.cat([codes, halo_from_right(codes, sum(ks) - 1)])
@@ -144,7 +144,8 @@ class _GsaBuilder(_Builder):
         prev_rem = prev_of(rem_s, fill=0)
         newb = functools.reduce(
             torch.logical_or, (w != pw for w, pw in zip(wsort, prevs)))
-        isa, brow, active, counts = self._rebucket_and_isa(newb, gidx, sa)
+        isa, brow, active, counts = self._rebucket_and_isa(ctx, newb, gidx,
+                                                           sa)
         # row-aligned end-of-string bound for direct tail entry
         eos_row = sa + rem_s
         lcp0 = None
@@ -154,6 +155,9 @@ class _GsaBuilder(_Builder):
             lcp0 = torch.where(newb, lcpv, N)
             lcp0 = torch.where(gidx == 0, 0, lcp0)
         return isa, sa, lcp0, brow, active, eos_row, counts
+
+    def _ginit_local(self, codes, eos):
+        return self._run(self._ginit, codes, eos)
 
     # ---------------- one doubling iteration ----------------
 
@@ -170,7 +174,7 @@ class _GsaBuilder(_Builder):
         b_s, b2_s, eos_s, sa = isa[perm], b2[perm], eos[perm], perm.to(idt)
         pb, pb2 = prev_of(b_s), prev_of(b2_s)
         newb = (b_s != pb) | (b2_s != pb2)
-        isa_new, b_new, _, _ = self._rebucket_and_isa(newb, gidx, sa)
+        isa_new, b_new, _, _ = self._rebucket_and_isa(None, newb, gidx, sa)
         # GSA termination: settled = unique (B, B2) pair or fully-ended
         # suffix group (B2 == 0 ties can never split; their order is final)
         nxt = torch.cat([newb[1:], newb.new_ones(1)])
@@ -185,7 +189,7 @@ class _GsaBuilder(_Builder):
         querycase = split & ~zero
         q = dict(qkey=torch.where(querycase, gidx, self.INF),
                  lq=torch.minimum(pb2, b2_s), rq=torch.maximum(pb2, b2_s) - 1,
-                 jcol=torch.ones_like(gidx))
+                 jcol=torch.ones_like(gidx), nq=querycase.sum())
         return isa_new, sa, lcp, q, b_new, active, eos_s, counts
 
     # ---------------- fused GSA construction ----------------
@@ -248,7 +252,7 @@ class _GsaBuilder(_Builder):
             if lcp is None:
                 (ue,) = _read(counts[1])
             else:
-                nq, ue = _read((q["qkey"] != self.INF).sum(), counts[1])
+                nq, ue = _read(q["nq"], counts[1])
                 if nq > 0:
                     lcp = self._resolve_fused_local(
                         lcp, q, d, m_pad=min(pow2ceil(nq), N), L=2, nq=nq)
@@ -336,23 +340,28 @@ def _build_gsa_flat(flat: bytes, lens: np.ndarray, device,
 
 
 def build_gsa_device(strings, device=None,
-                     config: cfg_mod.SAConfig = cfg_mod.DEFAULT) -> DeviceGSA:
+                     config: cfg_mod.SAConfig = cfg_mod.DEFAULT,
+                     mesh=None) -> DeviceGSA:
     """GSA (+GLCP) of a string set (a list of byte strings, or one
     newline-separated flat byte string as the reference's ``gsac -f``) on
     ``device`` (None: the CUDA card; ``"cpu"`` runs the plain versions);
-    the result stays on the device."""
+    the result stays on the device.  A ``mesh`` of p > 1 raises (not
+    ported yet)."""
+    device = single_device(mesh, device, "build_gsa_device")
     return _build_gsa_flat(*_flatten(strings), device, config)
 
 
 def build_gsa_from_file(path: str, device=None,
                         config: cfg_mod.SAConfig = cfg_mod.DEFAULT,
-                        sep: int = 0x0A) -> DeviceGSA:
+                        sep: int = 0x0A, mesh=None) -> DeviceGSA:
     """GSA (+GLCP) of a ``sep``-delimited file (the reference's ``gsac
     -f``) on ``device`` (None: the CUDA card).  The file is staged raw and
     counted on the device; the separators are dropped there by a mask and
     one compaction, and only their positions (O(m) metadata) come back, to
     make the string lengths on the host.  Empty strings are dropped; a
-    trailing separator is optional."""
+    trailing separator is optional.  A ``mesh`` of p > 1 raises (not
+    ported yet)."""
+    device = single_device(mesh, device, "build_gsa_from_file")
     xbf, n_file, N_file = stage_file_block(path,
                                            cfg_mod.resolve_device(device))
     hist = staged_histogram(xbf)
@@ -380,10 +389,12 @@ def build_gsa_from_file(path: str, device=None,
 
 
 def build_gsa(strings, device=None,
-              config: cfg_mod.SAConfig = cfg_mod.DEFAULT
+              config: cfg_mod.SAConfig = cfg_mod.DEFAULT, mesh=None
               ) -> GeneralizedSuffixArray:
     """Host-facing GSA construction (the reference's ``gsac`` output) on
-    ``device`` (None: the CUDA card)."""
+    ``device`` (None: the CUDA card).  A ``mesh`` of p > 1 raises (not
+    ported yet)."""
+    device = single_device(mesh, device, "build_gsa")
     flat, lens = _flatten(strings)
     if len(flat) == 0:
         return GeneralizedSuffixArray(

@@ -1,5 +1,4 @@
-"""Suffix tree from SA+LCP on one device (port of
-``psac_tpu/models/suffix_tree.py`` at p = 1).
+"""Suffix tree from SA+LCP (port of ``psac_tpu/models/suffix_tree.py``).
 
 The reference's flat representation: one potential internal node per LCP
 entry, sigma+1 child slots per node (slot 0 = the ``$`` edge);
@@ -10,6 +9,14 @@ reference's ``for_each_parent`` (``include/suffix_tree.hpp:44-223``) from
 one ANSV pass (FURTHEST_EQ left, NEAREST_SM right), then one character
 gather and one (row, slot) scatter into the (N * (sigma+1),) table.
 Padding rows (the first N - n) take LCP -1 and emit no edges.
+
+On a mesh of p > 1 shards (JAX ``:71-170, 263-291``) the ANSV pass is
+``parallel.ansv.ansv_mesh_local`` (K5 in every shard, the walks for the
+routed queries), the edge characters are gathered from the shards that
+hold them by ``route_apply``, and the (row, slot) writes go to the rows'
+shards by ``route_scatter``; the routing runs at capscale 6 and is redone
+without a bound when it overflows.  The generalized tree is one-device
+only for now (ROADMAP Queue 1).
 
 The generalized suffix tree of a string set (``construct_gst_device``,
 ``build_gst``) has sigma+2 slots per node: slots 0-1 hold the (min, max)
@@ -24,20 +31,25 @@ import dataclasses
 import numpy as np
 import torch
 
+from psac_tpu_torch.config import SAConfig
 from psac_tpu_torch.models.suffix_array import (DeviceSuffixArray,
                                                 construct_device,
-                                                encode_and_shard)
+                                                encode_and_shard, host_tensor)
 from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_SM
 from psac_tpu_torch.parallel.ansv import (KERNELS, AnsvKernels, ansv_local,
-                                          nonsv_for)
-from psac_tpu_torch.parallel.collectives import halo_from_right, prev_of
-from psac_tpu_torch.parallel.route import route_scatter
+                                          ansv_mesh_local, nonsv_for)
+from psac_tpu_torch.parallel.collectives import (global_index_base,
+                                                 next_of, prev_of)
+from psac_tpu_torch.parallel.mesh import (Rep, num_shards, run_on,
+                                          single_device)
+from psac_tpu_torch.parallel.route import (cap_for, gather_global,
+                                           route_scatter)
 
 
 @dataclasses.dataclass
 class DeviceSuffixTree:
     """Flat node table ((N * (sigma+1),) in the SA's index dtype; padding
-    rows unused)."""
+    rows unused; ``Sharded`` by rows on a mesh)."""
 
     nodes: torch.Tensor
     sigma: int
@@ -45,26 +57,42 @@ class DeviceSuffixTree:
     N: int
 
     def materialize(self) -> np.ndarray:
-        full = self.nodes.view(self.N, self.sigma + 1)[self.N - self.n:]
-        return full.cpu().numpy().astype(np.int64)
+        full = host_tensor(self.nodes).view(self.N, self.sigma + 1)
+        return full[self.N - self.n:].numpy().astype(np.int64)
 
 
-def _parent_edges(lcp, sa, n: int, kernels: AnsvKernels):
-    """``for_each_parent``: per-edge (parents, childs, elcp, savals, valid),
-    each of length 2N (leaf edges, then internal-node edges)."""
+def _check_local_table(N: int, width: int, idt: torch.dtype) -> None:
+    """The node table is addressed per shard: N is a shard's rows here."""
+    if N * width >= (1 << 31) and idt != torch.int64:
+        raise ValueError(
+            f"node table N*width = {N * width} exceeds int32 addressing on an "
+            f"int32 build; use force_int64 (or more shards)")
+
+
+def _parent_edges(ctx, lcp, sa, n: int, capscale, kernels: AnsvKernels):
+    """``for_each_parent`` on this shard's rows (JAX ``_parent_edges``):
+    per-edge (parents, childs, elcp, savals, valid), each of length 2s
+    (leaf edges, then internal-node edges), and the ANSV's overflow count
+    (0 on one device, whose ANSV engines route nothing)."""
     idt = lcp.dtype
     inf = nonsv_for(idt)
-    N = lcp.shape[0]
-    off = N - n
-    g = torch.arange(N, dtype=idt, device=lcp.device)
+    s = lcp.shape[0]
+    off = s * (1 if ctx is None else ctx.p) - n
+    base = global_index_base(s, ctx)
+    g = torch.arange(base, base + s, dtype=idt, device=lcp.device)
     is_real = g >= off
     lcp_adj = torch.where(is_real, lcp, -1)
     lcp_adj = torch.where(g == off, 0, lcp_adj)
 
-    lidx, lval, ridx, rval = ansv_local(lcp_adj, FURTHEST_EQ, NEAREST_SM,
-                                        kernels)
-    # the last element always takes the left case (fill 0 <= lcp)
-    lcp_next = torch.cat([lcp_adj[1:], halo_from_right(lcp_adj, 1)])
+    if ctx is None:
+        lidx, lval, ridx, rval = ansv_local(lcp_adj, FURTHEST_EQ, NEAREST_SM,
+                                            kernels)
+        ovf = 0
+    else:
+        lidx, lval, ridx, rval, ovf = ansv_mesh_local(
+            ctx, lcp_adj, FURTHEST_EQ, NEAREST_SM, capscale, kernels)
+    # the globally last element always takes the left case (fill 0 <= lcp)
+    lcp_next = next_of(lcp_adj, 0, ctx)
 
     # ---- leaf edges (one per real position)
     left_case = lcp_adj >= lcp_next
@@ -84,51 +112,59 @@ def _parent_edges(lcp, sa, n: int, kernels: AnsvKernels):
             torch.cat([leaf_child, int_child]),
             torch.cat([leaf_elcp, int_elcp]),
             torch.cat([sa, sa]),
-            torch.cat([is_real, int_valid]))
+            torch.cat([is_real, int_valid]), ovf)
 
 
-def _gather_from(arr, idx, valid):
-    """arr[idx] where ``valid``, 0 elsewhere."""
-    safe = torch.where(valid, idx, 0).clamp(0, arr.shape[0] - 1)
-    return torch.where(valid, arr[safe], 0)
-
-
-def _check_local_table(N: int, width: int, idt: torch.dtype) -> None:
-    if N * width >= (1 << 31) and idt != torch.int64:
-        raise ValueError(
-            f"node table N*width = {N * width} exceeds int32 addressing on an "
-            f"int32 build; use force_int64")
-
-
-def construct_suffix_tree_device(dsa: DeviceSuffixArray,
-                                 xs) -> DeviceSuffixTree:
-    """Flat suffix tree from a device-resident SA+LCP and the encoded padded
-    text ``xs`` (as ``encode_and_shard`` gives it)."""
-    return _st_local(dsa, xs, KERNELS)
-
-
-def _st_local(dsa: DeviceSuffixArray, xs,
-              kernels: AnsvKernels) -> DeviceSuffixTree:
-    """``construct_suffix_tree_device`` with its ANSV functions given
-    (``parallel.ansv.PLAIN`` builds the plain reference tree)."""
-    if dsa.lcp is None:
-        raise ValueError("suffix tree construction requires the LCP array")
-    n, N = dsa.n, dsa.N
-    sigma = dsa.alphabet.sigma
-    idt = dsa.sa.dtype
-    width = sigma + 1
-    _check_local_table(N, width, idt)
-    parents, childs, elcp, savals, valid = _parent_edges(dsa.lcp, dsa.sa, n,
-                                                         kernels)
+def _st(ctx, lcp, sa, xs, n: int, sigma: int, capscale, kernels):
+    """This shard's (s * (sigma+1),) rows of the node table, and the
+    replicated overflow count of its routing (JAX ``_st_local``)."""
+    p = 1 if ctx is None else ctx.p
+    parents, childs, elcp, savals, valid, ovf = _parent_edges(
+        ctx, lcp, sa, n, capscale, kernels)
     # first character of each edge (slot 0 past the end of the text)
     char_idx = savals + elcp
     dollar = char_idx >= n
-    ch = _gather_from(xs, char_idx, valid & ~dollar)
-    slot = torch.where(dollar, 0, ch)
-    nodes = torch.zeros(N * width, dtype=idt, device=dsa.sa.device)
-    (nodes,) = route_scatter(parents, (childs,), (nodes,), valid,
-                             width=width, slots=slot)
-    return DeviceSuffixTree(nodes=nodes, sigma=sigma, n=n, N=N)
+    ch, ovf_g = gather_global(xs, char_idx, valid & ~dollar, ctx=ctx,
+                              cap=cap_for(char_idx.shape[0], p, capscale),
+                              with_overflow=True)
+    width = sigma + 1
+    nodes = torch.zeros(lcp.shape[0] * width, dtype=lcp.dtype,
+                        device=lcp.device)
+    (nodes,), ovf_s = route_scatter(
+        parents, (childs,), (nodes,), valid, width=width,
+        slots=torch.where(dollar, 0, ch), ctx=ctx,
+        cap=cap_for(parents.shape[0], p, capscale), with_overflow=True)
+    return nodes, Rep(int(ovf + ovf_g + ovf_s))
+
+
+def construct_suffix_tree_device(dsa: DeviceSuffixArray, xs,
+                                 mesh=None) -> DeviceSuffixTree:
+    """Flat suffix tree from a device-resident SA+LCP and the encoded padded
+    text ``xs`` (as ``encode_and_shard`` gives it); on the SA's mesh (or
+    ``mesh``) when it has one."""
+    return _st_local(dsa, xs, KERNELS, mesh)
+
+
+def _st_local(dsa: DeviceSuffixArray, xs, kernels: AnsvKernels,
+              mesh=None) -> DeviceSuffixTree:
+    """``construct_suffix_tree_device`` with its ANSV functions given
+    (``parallel.ansv.PLAIN`` builds the plain reference tree, with K5's
+    plain version on a mesh).  On a mesh the routing runs at capscale 6
+    first and without a bound when that overflows (JAX
+    ``construct_suffix_tree_device``)."""
+    if dsa.lcp is None:
+        raise ValueError("suffix tree construction requires the LCP array")
+    mesh = mesh or dsa.mesh
+    if mesh is not None and mesh.p == 1:
+        mesh = None
+    sigma = dsa.alphabet.sigma
+    _check_local_table(dsa.N // num_shards(mesh), sigma + 1, dsa.sa.dtype)
+    for capscale in (6, None):
+        nodes, ovf = run_on(mesh, _st, dsa.lcp, dsa.sa, xs, dsa.n, sigma,
+                            capscale, kernels)
+        if capscale is None or ovf == 0:
+            break
+    return DeviceSuffixTree(nodes=nodes, sigma=sigma, n=dsa.n, N=dsa.N)
 
 
 def _start_bits(eos, n: int) -> torch.Tensor:
@@ -151,8 +187,8 @@ def _gst_local(dgsa, kernels: AnsvKernels) -> DeviceSuffixTree:
     width = sigma + 2
     _check_local_table(N, width, idt)
     inf = torch.iinfo(idt).max
-    parents, childs, elcp, savals, valid = _parent_edges(dgsa.lcp, dgsa.sa, n,
-                                                         kernels)
+    parents, childs, elcp, savals, valid, _ = _parent_edges(
+        None, dgsa.lcp, dgsa.sa, n, None, kernels)
     # ``$``-edge test without an eos[SA[i]] gather: every recorded edge has
     # depth elcp >= 1 and elcp <= eos[SA[i]] - SA[i], so SA[i] + elcp lies
     # in (SA[i], eos[SA[i]]]: inside SA[i]'s own string unless it IS the
@@ -163,7 +199,7 @@ def _gst_local(dgsa, kernels: AnsvKernels) -> DeviceSuffixTree:
     char_idx = savals + elcp
     dollar_end = char_idx >= n
     valid_q = valid & (elcp != 0)  # root-depth edges are not recorded
-    chz = _gather_from(xz, char_idx, valid_q & ~dollar_end)
+    chz = gather_global(xz, char_idx, valid_q & ~dollar_end)
     dollar = dollar_end | (chz > sigma)
 
     # slot 0 accumulates a min: it starts at INF and goes back to 0 where
@@ -193,22 +229,25 @@ def construct_gst_device(dgsa) -> DeviceSuffixTree:
     return _gst_local(dgsa, KERNELS)
 
 
-def build_suffix_tree(text, device=None, config=None) -> np.ndarray:
+def build_suffix_tree(text, device=None, config=None,
+                      mesh=None) -> np.ndarray:
     """SA+LCP construction + suffix tree of ``text`` on ``device`` (None:
-    the CUDA card; ``"cpu"`` runs the plain versions); returns the
-    (n, sigma+1) int64 node table (the reference's ``psac -t``)."""
-    xs, alpha, n, N = encode_and_shard(text, device)
-    kw = {} if config is None else {"config": config}
-    dsa = construct_device(xs, alpha, n, N, **kw)
+    the CUDA card; ``"cpu"`` runs the plain versions) or on the p shards of
+    ``mesh``; returns the (n, sigma+1) int64 node table (the reference's
+    ``psac -t``)."""
+    xs, alpha, n, N = encode_and_shard(text, device, mesh)
+    dsa = construct_device(xs, alpha, n, N, config or SAConfig(), mesh)
     return construct_suffix_tree_device(dsa, xs).materialize()
 
 
-def build_gst(strings, device=None, config=None) -> np.ndarray:
+def build_gst(strings, device=None, config=None, mesh=None) -> np.ndarray:
     """GSA construction + generalized suffix tree of a string set on
     ``device`` (None: the CUDA card; ``"cpu"`` runs the plain versions);
-    returns the (n, sigma+2) int64 node table."""
+    returns the (n, sigma+2) int64 node table.  A ``mesh`` of p > 1
+    raises (not ported yet)."""
     from psac_tpu_torch.models.gsa import build_gsa_device
 
+    device = single_device(mesh, device, "build_gst")
     kw = {} if config is None else {"config": config}
     return construct_gst_device(
         build_gsa_device(strings, device, **kw)).materialize()

@@ -133,8 +133,8 @@ def block_psv(x: torch.Tensor, strict: bool) -> torch.Tensor:
     name = "psac_block_psv_i32" if x.dtype == torch.int32 else \
         "psac_block_psv_i64"
     cuda_lib.launch(name, x.data_ptr(), out.data_ptr(), scratch.data_ptr(), s,
-                    int(strict))
-    block_psv.launches += 1
+                    int(strict), device=x.device)
+    cuda_lib.count_launch(block_psv)
     return out
 
 

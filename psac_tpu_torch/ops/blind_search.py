@@ -222,8 +222,8 @@ def blind_search(pat, lens, l0, r0, need, lcp_slab, lc_slab,
                     out_l.data_ptr(), out_r.data_ptr(), out_q.data_ptr(),
                     out_steps.data_ptr(), B, pat.shape[1], cap,
                     tab_v.shape[1], tab_v.shape[0], block,
-                    max_steps_for(cap))
-    blind_search.launches += 1
+                    max_steps_for(cap), device=pat.device)
+    cuda_lib.count_launch(blind_search)
     return out_l, out_r, out_q, out_steps
 
 

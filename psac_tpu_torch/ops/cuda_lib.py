@@ -16,6 +16,7 @@ import glob
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -40,6 +41,8 @@ _SIGNATURES = {
                                         _I64, _P],
     "psac_rmq_resolve_i64": [_P] * 7 + [_I64, _I64, _I32, _I64, _I32, _I32,
                                         _I64, _P],
+    "psac_rmq_mins_i32": [_P] * 6 + [_I64, _I64, _I32, _I64, _P],
+    "psac_rmq_mins_i64": [_P] * 6 + [_I64, _I64, _I32, _I64, _P],
     "psac_blind_search_i32": [_P] * 13 + [_I64, _I32, _I64, _I64, _I32, _I32,
                                           _I64, _P],
     "psac_blind_search_i64": [_P] * 13 + [_I64, _I32, _I64, _I64, _I32, _I32,
@@ -48,6 +51,10 @@ _SIGNATURES = {
 }
 
 _lib = None
+# the first use may come from several shard threads of a mesh at once:
+# one builds and loads, the others wait
+_LIB_LOCK = threading.RLock()
+_COUNT_LOCK = threading.Lock()
 #: ptxas report (registers, shared memory, spills) of the last build
 BUILD_LOG = ""
 
@@ -69,6 +76,11 @@ def _nvcc() -> str:
 def build() -> float:
     """Compile the kernels if the library is missing or stale; returns the
     seconds spent (0.0 when up to date)."""
+    with _LIB_LOCK:
+        return _build()
+
+
+def _build() -> float:
     global BUILD_LOG
     srcs = sources()
     if os.path.exists(_SO) and os.path.getmtime(_SO) >= max(
@@ -106,24 +118,36 @@ def build() -> float:
 
 
 def lib():
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use, once)."""
     global _lib
     if _lib is None:
-        build()
-        so = ctypes.CDLL(_SO)
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(so, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = so
+        with _LIB_LOCK:
+            if _lib is None:
+                build()
+                so = ctypes.CDLL(_SO)
+                for name, argtypes in _SIGNATURES.items():
+                    fn = getattr(so, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _lib = so
     return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call C launcher ``name`` with ``args`` plus the current stream;
-    raise if the launch reported a CUDA error."""
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib(), name)(*args, stream)
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the launch count of a kernel
+    wrapper; safe from the shard threads of a mesh."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
+def launch(name: str, *args, device: torch.device) -> None:
+    """Call C launcher ``name`` with ``args`` on ``device`` (the device of
+    the launch's tensors), plus that device's current stream; raise if the
+    launch reported a CUDA error.  The CUDA current device is per thread,
+    so the launch does not rely on the caller's."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib(), name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 

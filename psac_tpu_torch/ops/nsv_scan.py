@@ -163,8 +163,9 @@ def nsv_scan_spine(xf, gf, xn, gn):
     flag = torch.empty(1, dtype=torch.int32, device=xf.device)
     scratch = _block_scan_scratch(xf, 2)
     cuda_lib.launch("psac_nsv_spine", *(t.data_ptr() for t in (
-        xf, gf, xn, gn, fi, fv, fh, ni, nv, flag, scratch)), s)
-    nsv_scan_spine.launches += 1
+        xf, gf, xn, gn, fi, fv, fh, ni, nv, flag, scratch)), s,
+        device=xf.device)
+    cuda_lib.count_launch(nsv_scan_spine)
     return fi, fv, fh, ni, nv, flag[0]
 
 
@@ -183,8 +184,9 @@ def nsv_scan_dual(x, xr, typ_l: int, typ_r: int):
     flag = torch.empty(1, dtype=torch.int32, device=x.device)
     scratch = _block_scan_scratch(x, 2)
     cuda_lib.launch("psac_nsv_dual", *(t.data_ptr() for t in (
-        x, xr, il, vl, ir, vr, flag, scratch)), x.shape[0], typ_l, typ_r)
-    nsv_scan_dual.launches += 1
+        x, xr, il, vl, ir, vr, flag, scratch)), x.shape[0], typ_l, typ_r,
+        device=x.device)
+    cuda_lib.count_launch(nsv_scan_dual)
     return il, vl, ir, vr, flag[0]
 
 
@@ -203,8 +205,8 @@ def nsv_scan_left(x, typ: int):
     flag = torch.empty(1, dtype=torch.int32, device=x.device)
     scratch = _block_scan_scratch(x, 1)
     cuda_lib.launch("psac_nsv_left", *(t.data_ptr() for t in (
-        x, idx, val, flag, scratch)), x.shape[0], typ)
-    nsv_scan_left.launches += 1
+        x, idx, val, flag, scratch)), x.shape[0], typ, device=x.device)
+    cuda_lib.count_launch(nsv_scan_left)
     return idx, val, flag[0]
 
 

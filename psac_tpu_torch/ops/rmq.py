@@ -9,9 +9,11 @@ whole block rows.
 K6, the LCP resolve (the chunk body of the JAX package's
 ``_Builder._resolve_fused_local``), lives here too: ``rmq_resolve`` is a
 hand-written CUDA kernel (``psac_tpu_torch/csrc/rmq_resolve.cu``) with the
-JAX chunk loop in torch beside it as its plain version.  Given CPU tensors
-the wrapper runs the plain version; given CUDA tensors it launches the
-kernel or raises.
+JAX chunk loop in torch beside it as its plain version.  Its second entry,
+``rmq_mins``, answers range minima alone: the owner's part of a routed
+query on a mesh (``parallel/par_rmq.py``), with ``query_local_rmq`` as its
+plain version.  Given CPU tensors a wrapper runs the plain version; given
+CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -220,12 +222,68 @@ def rmq_resolve(rmq: LocalRMQ, ks, ls, rs, js, d: int, *, Lm: int,
                     ls.data_ptr(), rs.data_ptr(),
                     None if js is None else js.data_ptr(), out.data_ptr(),
                     s, table.shape[1], block, nq, Lm,
-                    PACKINGS.index(packing), d)
-    rmq_resolve.launches += 1
+                    PACKINGS.index(packing), d, device=lcp.device)
+    cuda_lib.count_launch(rmq_resolve)
     return out
 
 
 rmq_resolve.launches = 0
+
+
+def rmq_mins_plain(rmq: LocalRMQ, lo, hi, valid) -> torch.Tensor:
+    """Plain version of K6's min-only entry: ``query_local_rmq`` over the
+    inclusive ranges [lo, max(lo, hi)] clamped into [0, s), INF where
+    ``valid`` is False.  ``lo`` / ``hi`` are (m,) tensors, ``valid`` (m,)
+    bool; returns (m,) minima in the values' dtype."""
+    s = rmq.x.shape[0]
+    lo2 = torch.where(valid, lo, 0).clamp(0, s - 1)
+    hi2 = torch.where(valid, torch.maximum(hi, lo), 0).clamp(0, s - 1)
+    return torch.where(valid, query_local_rmq(rmq, lo2, hi2),
+                       _inf(rmq.x.dtype))
+
+
+def rmq_mins(rmq: LocalRMQ, lo, hi, valid) -> torch.Tensor:
+    """K6's min-only entry (replaces the owner's ``query_local_rmq`` of
+    ``psac_tpu/parallel/par_rmq.py::bulk_rmq_local``): see
+    ``rmq_mins_plain`` for the contract; ``lo`` and ``hi`` in the values'
+    dtype.  CPU tensors take the plain version.  ``launches`` counts the
+    kernel's launches: a call with no valid query launches nothing."""
+    x = rmq.x
+    if x.device.type == "cpu":
+        return rmq_mins_plain(rmq, lo, hi, valid)
+    if x.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"rmq_mins: expected int32 or int64, got {x.dtype}")
+    cuda_lib.check_cuda("rmq_mins", x.dtype, lo, hi)
+    cuda_lib.check_cuda("rmq_mins", x.dtype, x)
+    cuda_lib.check_cuda("rmq_mins", torch.bool, valid)
+    table, block, s = rmq.table, rmq.block, x.shape[0]
+    if lo.device != x.device or valid.device != x.device or \
+            valid.shape != lo.shape:
+        raise ValueError("rmq_mins: expected CUDA tensors on one device")
+    if table.dtype != x.dtype or table.device != x.device or \
+            not table.is_contiguous() or table.shape[1] * block != s or \
+            block & (block - 1):
+        raise ValueError("rmq_mins: the table is not these values'")
+    out = torch.full_like(lo, _inf(x.dtype))
+    if not bool(valid.any()):
+        return out
+    rmq_mins_launch(rmq, lo, hi, valid, out)
+    cuda_lib.count_launch(rmq_mins)
+    return out
+
+
+rmq_mins.launches = 0
+
+
+def rmq_mins_launch(rmq: LocalRMQ, lo, hi, valid, out) -> None:
+    """The launch of ``rmq_mins`` alone, on tensors it has checked: the
+    minima into ``out`` (m,), INF where not valid."""
+    name = "psac_rmq_mins_i32" if rmq.x.dtype == torch.int32 else \
+        "psac_rmq_mins_i64"
+    cuda_lib.launch(name, rmq.x.data_ptr(), rmq.table.data_ptr(),
+                    lo.data_ptr(), hi.data_ptr(), valid.data_ptr(),
+                    out.data_ptr(), rmq.x.shape[0], rmq.table.shape[1],
+                    rmq.block, lo.shape[0], device=lo.device)
 
 
 # ---------------------------------------------------------------------------

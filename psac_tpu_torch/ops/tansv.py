@@ -101,8 +101,9 @@ def tile_side(a: torch.Tensor, with_eq: bool):
                  else (None, None))
     ptrs = [t.data_ptr() if t is not None else None
             for t in (a, psv_g, psv_val, chain, spine, nxt, e_g, h_in)]
-    cuda_lib.launch("psac_tansv_tile", *ptrs, s // T, int(with_eq))
-    tile_side.launches += 1
+    cuda_lib.launch("psac_tansv_tile", *ptrs, s // T, int(with_eq),
+                    device=a.device)
+    cuda_lib.count_launch(tile_side)
     return psv_g, psv_val, chain, spine, nxt, e_g, h_in
 
 

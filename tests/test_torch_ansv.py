@@ -249,7 +249,7 @@ def test_engine_from_the_environment(monkeypatch):
     assert calls == {"block_psv": 2}
 
 
-@pytest.mark.parametrize("engine", ["walk", "bogus"])
+@pytest.mark.parametrize("engine", ["bogus"])
 def test_unported_and_unknown_engines_raise(monkeypatch, engine):
     a = np.arange(10, dtype=np.int32)
     with pytest.raises(ValueError, match="engine"):
@@ -257,3 +257,18 @@ def test_unported_and_unknown_engines_raise(monkeypatch, engine):
     monkeypatch.setenv("PSAC_NSV", engine)
     with pytest.raises(ValueError, match="engine"):
         t_ansv.ansv(a, device="cpu")
+
+
+def test_walk_engine_from_the_environment(monkeypatch):
+    """``PSAC_NSV=walk`` selects the walk engine (``ops/walk.py``), which
+    answers as ``ansv_seq`` does, as ``engine="walk"`` does."""
+    a = np.random.RandomState(8).randint(0, 9, 500).astype(np.int32)
+    want = ansv_seq(a, NEAREST_SM, NEAREST_SM, nonsv=len(a))
+    monkeypatch.setenv("PSAC_NSV", "walk")
+    assert t_ansv.resolve_engine() == "walk"
+    kernels, calls = _counting_plain()
+    for got in (t_ansv.ansv(a, device="cpu", kernels=kernels),
+                t_ansv.ansv(a, device="cpu", engine="walk")):
+        for g, o in zip(got, want):
+            np.testing.assert_array_equal(g, o)
+    assert calls == {}

@@ -926,3 +926,115 @@ def test_ansv_engines_on_gpu(cuda, engine, combo):
     want = ansv(a, *pair, device=cuda, kernels=PLAIN, engine=engine)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# the mesh (p > 1 shards on the card) and K6's min-only entry
+# ---------------------------------------------------------------------------
+
+def _mins_queries(s: int, block: int, m: int, seed: int):
+    """Narrow ranges (under 8 wide), ranges inside one block, ranges across
+    one block edge and ranges over many blocks, some reversed (read as
+    [lo, lo]), about one in eight not valid."""
+    rng = np.random.RandomState(seed)
+    lo = rng.randint(0, s, m)
+    width = rng.choice([0, 1, 5, 7, block // 2, block + 3, 5 * block,
+                        s // 3], m)
+    hi = np.minimum(s - 1, lo + width)
+    rev = rng.rand(m) < 0.05
+    hi = np.where(rev, np.maximum(lo - 3, 0), hi)
+    valid = rng.rand(m) < 0.875
+    return lo, hi, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("s", [8 * 37, 32 * 9, 128 * 257, 1 << 20])
+def test_rmq_mins_kernel_vs_plain(cuda, s, dtype):
+    """K6's min-only entry against ``query_local_rmq`` (its plain version)
+    and numpy, at blocks 8, 32 and 128, on an aligned LCP and on one that
+    starts 4 bytes past a 16-byte boundary."""
+    x_np = cases.resolve_lcp(s, seed=s)
+    lo, hi, valid = _mins_queries(s, rmq.block_size_for(s), 5000, seed=s)
+    host = torch.from_numpy(x_np).to(dtype)
+    shifted = torch.cat([host[:1], host]).to(cuda)[1:]
+    inf = torch.iinfo(dtype).max
+    want = np.array([x_np[a:max(a, b) + 1].min() if v else inf
+                     for a, b, v in zip(lo, hi, valid)])
+    args = [torch.from_numpy(a).to(cuda) for a in (lo, hi)]
+    args = [a.to(dtype) for a in args] + [torch.from_numpy(valid).to(cuda)]
+    for x in (host.to(cuda), shifted):
+        r = rmq.build_local_rmq(x)
+        before = rmq.rmq_mins.launches
+        got = rmq.rmq_mins(r, *args)
+        assert rmq.rmq_mins.launches == before + 1
+        assert got.dtype == dtype
+        _same((got,), (rmq.rmq_mins_plain(r, *args),))
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_rmq_mins_without_a_valid_query_launches_nothing(cuda, dtype):
+    x = torch.arange(256, dtype=dtype, device=cuda)
+    r = rmq.build_local_rmq(x)
+    valid = torch.zeros(64, dtype=torch.bool, device=cuda)
+    lo = torch.zeros(64, dtype=dtype, device=cuda)
+    before = rmq.rmq_mins.launches
+    out = rmq.rmq_mins(r, lo, lo + 9, valid)
+    assert rmq.rmq_mins.launches == before
+    assert bool((out == torch.iinfo(dtype).max).all())
+    valid[5] = True
+    out = rmq.rmq_mins(r, lo, lo + 9, valid)
+    assert rmq.rmq_mins.launches == before + 1
+    assert int(out[5]) == 0 and int(out[4]) == torch.iinfo(dtype).max
+
+
+def test_mesh_build_on_the_card_equals_cpu(cuda):
+    """A p = 4 build of SA+LCP and its suffix tree on four shards of the
+    one card equals the same build on four CPU shards, launching K6's
+    min-only entry (the routed resolve) and K5 (each shard's ANSV)."""
+    from psac_tpu_torch.models import suffix_array as sa_mod
+    from psac_tpu_torch.models import suffix_tree as st_mod
+    from psac_tpu_torch.ops.alphabet import rep_dna
+    from psac_tpu_torch.parallel.mesh import make_mesh
+
+    text = rep_dna(1 << 15, unit_len=512, seed=3, mutations=40)
+    outs = {}
+    for name, devs in (("cuda", ["cuda:0"] * 4), ("cpu", ["cpu"] * 4)):
+        mesh = make_mesh(4, devs)
+        before = (rmq.rmq_mins.launches, bansv.block_psv.launches)
+        xs, alpha, n, N = sa_mod.encode_and_shard(text, mesh=mesh)
+        dsa = sa_mod.construct_device(xs, alpha, n, N, mesh=mesh)
+        tree = st_mod.construct_suffix_tree_device(dsa, xs)
+        launched = (rmq.rmq_mins.launches - before[0],
+                    bansv.block_psv.launches - before[1])
+        assert all(t.device.type == name for t in dsa.sa.shards)
+        outs[name] = (dsa.isa.gather(), dsa.sa.gather(), dsa.lcp.gather(),
+                      tree.nodes.gather(), launched)
+        mesh.close()
+    for g, w in zip(outs["cuda"][:4], outs["cpu"][:4]):
+        assert torch.equal(g, w)
+    assert outs["cuda"][4][0] > 0 and outs["cuda"][4][1] > 0
+    assert outs["cpu"][4] == (0, 0)
+
+
+def test_mesh_worker_error_on_the_card_does_not_hang(cuda):
+    """A shard that raises while the others wait in a collective: ``run``
+    raises in the caller, and the mesh runs the next call."""
+    import time
+
+    from psac_tpu_torch.parallel.mesh import Rep, make_mesh
+
+    mesh = make_mesh(4, ["cuda:0"] * 4)
+    xs = mesh.shard(torch.arange(64, device=cuda))
+
+    def fn(ctx, x):
+        if ctx.rank == 2:
+            raise RuntimeError("shard 2 failed")
+        return ctx.all_gather(x)
+
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match="shard 2 failed"):
+        mesh.run(fn, xs)
+    assert time.perf_counter() - t0 < 30
+    assert mesh.run(lambda ctx, x: Rep(int(ctx.psum(x.sum()))), xs) == 2016
+    mesh.close()
