@@ -596,7 +596,9 @@ def gsa_phase(label: str, strings: list, want_k6: bool, card: str) -> dict:
     kernel.  The GSA + GLCP is held against the native host oracle, the GST
     against the plain path on the card.  With ``want_k6`` the build must
     launch K6 and is repeated with the plain resolve in K6's place.  The
-    host oracle's (GSA, GLCP) is returned as ``out["oracle"]``."""
+    host oracle's (GSA, GLCP) is returned as ``out["oracle"]``, the padded
+    GST node table, on the host, as ``out["gst"]`` (the mesh phase's
+    references)."""
     import torch
 
     from psac_tpu_torch.models.gsa import _flatten, build_gsa_device
@@ -659,6 +661,8 @@ def gsa_phase(label: str, strings: list, want_k6: bool, card: str) -> dict:
     plain = _gst_local(dgsa, PLAIN)
     if not torch.equal(tree.nodes, plain.nodes):
         raise AssertionError(f"GST of {label} differs from the plain path")
+    out["gst"] = tree.nodes.cpu()
+    del plain
     if want_k6:
         # the same build with the plain resolve in K6's place
         from unittest import mock
@@ -1442,20 +1446,25 @@ def mins_bound(rmq, lo, hi, valid) -> dict:
 
 def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
                rsa, rlcp, log2n: int, rep_log2n: int, ansv_log2n: int,
-               card: str, kern: dict) -> dict:
+               gsa_sets: dict, card: str, kern: dict) -> dict:
     """The mesh of p = 4 shards on the card(s), ``devices[i] = cuda:(i %
     count)``: SA+LCP of the 2^26 random DNA and of the 2^24 ``rep_dna``
     (fused, and the host-driven loop with its routed resolve and capacity
     escalation) against their native references, the 2^26 suffix tree
     against the p = 1 tree, SA+LCP at p = 3 (the odd-even sort) on 2^20
     random DNA against the native oracle, ``d_check_sa`` at p = 4 (true,
-    and false with two rows swapped), and the public ``ansv`` at p = 4
-    against p = 1.  Each build's wall, peak memory and its launches of K6's
-    min-only entry, K5 and K6 (counted into the kernel table); K6's
-    min-only entry held against its plain version on the largest call of
-    the rep_dna build and on small adversaries, K5 on one shard's suffix
-    tree input; the walks' time in the tree's ANSV (their calls replayed
-    one by one with CUDA events)."""
+    and false with two rows swapped), the public ``ansv`` at p = 4 against
+    p = 1, and the GSA + GLCP and the GST of each string set of
+    ``gsa_sets`` (label -> (strings, the p = 1 (GSA, GLCP), the p = 1 GST
+    table, whether K6's min-only entry is checked there)) against the p = 1
+    results, with, on the checked set, ``build_gsa_from_file`` of the set
+    written as lines against the in-memory build.  Each build's wall, peak
+    memory and its launches of K6's min-only entry, K5 and K6 (counted
+    into the kernel table); K6's min-only entry held against its plain
+    version on the largest call of the rep_dna build and of the checked
+    GSA build and on small adversaries, K5 on one shard's suffix tree
+    input; the walks' time in each tree's ANSV (their calls replayed one
+    by one with CUDA events)."""
     import threading
     from unittest import mock
 
@@ -1463,6 +1472,7 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
 
     from psac_tpu_torch import native
     from psac_tpu_torch.config import SAConfig
+    from psac_tpu_torch.models import gsa as gsa_mod
     from psac_tpu_torch.models import suffix_array as sa_mod
     from psac_tpu_torch.models import suffix_tree as st_mod
     from psac_tpu_torch.ops import rmq as rmq_mod
@@ -1591,16 +1601,23 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
     del dsa, xs, shards
 
     # ---- rep_dna at p = 4: fused, then the host loop (routed resolve)
-    mins_calls, mlock = [], threading.Lock()
     real_mins = par_rmq.rmq_mins
 
-    def mins_spy(rmq, lo, hi, valid):
-        # keep the call with the most valid queries
-        nv = int(valid.sum())
-        with mlock:
-            if not mins_calls or nv > mins_calls[0][0]:
-                mins_calls[:] = [(nv, rmq, lo, hi, valid)]
-        return real_mins(rmq, lo, hi, valid)
+    def largest_mins(build):
+        """The K6-mins call with the most valid queries in ``build()`` (an
+        untimed build: the spy reads each call's query count back)."""
+        calls, lock = [], threading.Lock()
+
+        def spy(rmq, lo, hi, valid):
+            nv = int(valid.sum())
+            with lock:
+                if not calls or nv > calls[0][0]:
+                    calls[:] = [(nv, rmq, lo, hi, valid)]
+            return real_mins(rmq, lo, hi, valid)
+
+        with mock.patch.object(par_rmq, "rmq_mins", spy):
+            build()
+        return calls[0][1:]
 
     rdsa, _ = timed(f"SA+LCP 2^{rep_log2n} rep_dna p=4",
                     lambda: build(rep_text))
@@ -1611,10 +1628,8 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
         raise AssertionError("K6's min-only entry was not launched by the "
                              "p = 4 rep_dna build")
     del rdsa, res
-    # K6-mins' calls noted in a second, untimed build (the spy reads each
-    # call's query count back)
-    with mock.patch.object(par_rmq, "rmq_mins", mins_spy):
-        build(rep_text)
+    # K6-mins' calls noted in a second, untimed build
+    rmq, lo, hi, valid = largest_mins(lambda: build(rep_text))
     retries = []
     real_run = sa_mod._Builder._resolve_run
 
@@ -1639,8 +1654,6 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
     del hdsa, res
 
     # ---- K6's min-only entry against its plain version
-    _, rmq, lo, hi, valid = mins_calls[0]
-    del mins_calls
     # the call came from a shard's thread: its tensors may lie on another
     # card than the current one, whose stream the timings must use
     mdev = lo.device
@@ -1708,6 +1721,79 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
         walks(label, lambda: ansv_mod.ansv(vals, lt, rt, mesh=mesh))
     log(f"[mesh] public ansv 2^{ansv_log2n} p=4 == p = 1 for NSM,NSM, "
         "FEQ,NSM and NEQ,NEQ")
+
+    # ---- GSA + GLCP, GST and the file input at p = 4
+    for label, (strings, (want_sa, want_lcp), gst_p1, check) in \
+            gsa_sets.items():
+        glabel, tlabel = f"GSA+GLCP {label} p=4", f"GST {label} p=4"
+        dg = timed(glabel, lambda: gsa_mod.build_gsa_device(strings,
+                                                            mesh=mesh))
+        res = dg.materialize()
+        if not (np.array_equal(res.sa, want_sa)
+                and np.array_equal(res.lcp, want_lcp)):
+            raise AssertionError(f"p = 4 GSA + GLCP of {label} differs from "
+                                 "p = 1")
+        del res
+        if out[glabel]["rmq_mins"] == 0:
+            raise AssertionError(f"K6's min-only entry was not launched by "
+                                 f"the p = 4 GSA of {label}")
+        tree = timed(tlabel, lambda: st_mod.construct_gst_device(dg))
+        if out[tlabel]["block_psv"] == 0:
+            raise AssertionError(f"K5 was not launched by the p = 4 GST of "
+                                 f"{label}")
+        if tree.N != gst_p1.shape[0] // (tree.sigma + 1) or \
+                not torch.equal(tree.nodes.gather(), gst_p1):
+            raise AssertionError(f"p = 4 GST of {label} differs from p = 1")
+        del tree
+        walks(tlabel, lambda: st_mod.construct_gst_device(dg))
+        log(f"[mesh] {label} p=4: GSA + GLCP == p = 1 (== host oracle), "
+            f"GST == p = 1 (padded table) on {card}")
+        if not check:
+            del dg
+            continue
+        # K6's min-only entry on this build's largest call
+        rmq, lo, hi, valid = largest_mins(
+            lambda: gsa_mod.build_gsa_device(strings, mesh=mesh))
+        mdev = lo.device
+        err = max_abs_err((rmq_mod.rmq_mins(rmq, lo, hi, valid),),
+                          (rmq_mod.rmq_mins_plain(rmq, lo, hi, valid),))
+        k = kern["rmq_mins"]
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+        mb = mins_bound(rmq, lo, hi, valid)
+        ms = cuda_ms(lambda: rmq_mod.rmq_mins_launch(
+            rmq, lo, hi, valid, torch.empty_like(lo)), 10, mdev)
+        plain_ms = cuda_ms(lambda: rmq_mod.rmq_mins_plain(rmq, lo, hi,
+                                                          valid), 1, mdev)
+        out[glabel]["mins_call"] = dict(ms=ms, plain_ms=plain_ms, err=err,
+                                        **mb)
+        if err:
+            raise AssertionError(f"K6-mins differs from its plain version on "
+                                 f"the p = 4 GSA of {label}")
+        log(f"[kernel] K6-mins rmq_mins == plain on the p=4 GSA of {label}'s "
+            f"call with the most valid queries ({lo.shape[0]} queries, "
+            f"{mb['n_valid']} valid, {mb['n_narrow']} under 8 wide, of "
+            f"{rmq.x.shape[0]} rows): {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {mb['bound_ms']:.5f} ms ({mb['bound_by']}) on {card}")
+        del rmq, lo, hi, valid
+        # the file input: the set written as lines, a trailing separator
+        work = os.path.join(ROOT, "_smoke")
+        os.makedirs(work, exist_ok=True)
+        path = os.path.join(work, "strings.txt")
+        try:
+            with open(path, "wb") as f:
+                f.write(b"\n".join(strings) + b"\n")
+            fd = timed(f"GSA+GLCP {label} from file p=4",
+                       lambda: gsa_mod.build_gsa_from_file(path, mesh=mesh))
+        finally:
+            os.remove(path)
+        if not (np.array_equal(fd.lens, dg.lens) and all(
+                torch.equal(getattr(fd, f).gather(), getattr(dg, f).gather())
+                for f in ("sa", "lcp", "eos", "xs"))):
+            raise AssertionError(f"p = 4 build_gsa_from_file of {label} "
+                                 "differs from the in-memory build")
+        log(f"[mesh] {label} p=4: build_gsa_from_file == the in-memory "
+            "build (padded sa, lcp, eos, xs)")
+        del fd, dg
     mesh.close()
     return out
 
@@ -2208,21 +2294,24 @@ def main() -> int:
     gsa_fam = gsa_phase(fam_label, fam_set, True, card)
 
     # ---- 9b. the host-driven loop at full size (counted) -----------------
+    rand_label = f"2^{args.gsa_log2n} random DNA in 4 KiB strings"
     host = hostloop_phase(
         dev, text, sa_ref, lcp_ref, args.log2n, rep_text, rsa, rlcp,
         args.rep_log2n,
-        {fam_label: (fam_set, gsa_fam.pop("oracle")),
-         f"2^{args.gsa_log2n} random DNA in 4 KiB strings":
-             (gsa_set, gsa_rand["oracle"])}, card)
-    del fam_set
+        {fam_label: (fam_set, gsa_fam["oracle"]),
+         rand_label: (gsa_set, gsa_rand["oracle"])}, card)
 
     # ---- 9c. the mesh of p = 4 shards (counted) --------------------------
     t0 = time.perf_counter()
-    mesh_res = mesh_phase(dev, text, sa_ref, lcp_ref, tree_p1, rep_text, rsa,
-                          rlcp, args.log2n, args.rep_log2n, args.ansv_log2n,
-                          card, kern)
+    mesh_res = mesh_phase(
+        dev, text, sa_ref, lcp_ref, tree_p1, rep_text, rsa, rlcp, args.log2n,
+        args.rep_log2n, args.ansv_log2n,
+        {rand_label: (gsa_set, gsa_rand["oracle"], gsa_rand.pop("gst"),
+                      False),
+         fam_label: (fam_set, gsa_fam.pop("oracle"), gsa_fam.pop("gst"),
+                     True)}, card, kern)
     log(f"[mesh] phase {time.perf_counter() - t0:.1f} s")
-    del rsa, rlcp, tree_p1
+    del rsa, rlcp, tree_p1, fam_set
 
     # ---- 10. the ANSV engines, then the command-line tools at full size ---
     engines_phase(dev, args.ansv_log2n, card)

@@ -215,11 +215,12 @@ class _Builder:
         return torch.arange(base, base + m, dtype=self.idt,
                             device=self.device if ctx is None else ctx.device)
 
-    def _sort_keys(self, ctx, cols, gidx):
-        """Sort rows by (cols..., gidx).  Returns (sorted cols, sa).  On one
-        device gidx is the row index, so a stable lexicographic sort of the
-        cols keeps equal-key rows in gidx order; on a mesh the distributed
-        sort takes gidx as its last key.
+    def _sort_keys(self, ctx, cols, gidx, payload: tuple = ()):
+        """Sort rows by (cols..., gidx), carrying ``payload`` along.
+        Returns (sorted cols, sa, sorted payload).  On one device gidx is
+        the row index, so a stable lexicographic sort of the cols keeps
+        equal-key rows in gidx order; on a mesh the distributed sort takes
+        gidx as its last key.
 
         Packed-key mode (``pack``, sorts of at least 6 columns counting
         gidx): pairs of the 31-bit nonnegative key columns, gidx last, ride
@@ -235,17 +236,20 @@ class _Builder:
             lanes = tuple((seq[k].to(i64) << 32) | seq[k + 1].to(i64)
                           for k in range(0, len(seq) - 1, 2))
             seq = lanes + (seq[-1:] if odd else ())
+        payload = tuple(payload)
         if ctx is None:
             perm = lex_perm(seq if packed else cols)
-            return tuple(c[perm] for c in cols), perm.to(self.idt)
-        seq = dist_sort_local(seq, len(seq), ctx)
+            return (tuple(c[perm] for c in cols), perm.to(self.idt),
+                    tuple(x[perm] for x in payload))
+        srt = dist_sort_local(seq + payload, len(seq), ctx)
+        seq, pay = srt[:len(seq)], srt[len(seq):]
         if packed:
             out = []
             for lane in seq[:len(seq) - odd]:
                 out += [(lane >> 32).to(torch.int32),
                         (lane & 0xFFFFFFFF).to(torch.int32)]
             seq = tuple(out) + seq[len(seq) - odd:]
-        return seq[:-1], seq[-1]
+        return seq[:-1], seq[-1], pay
 
     # ---------------- init: k-mer ranking ----------------
 
@@ -260,7 +264,7 @@ class _Builder:
         pad_rank = (N - gidx).to(torch.int32)
         words = words[:-1] + (torch.where(words[0] == 0, pad_rank,
                                           words[-1]),)
-        wsort, sa = self._sort_keys(ctx, words, gidx)
+        wsort, sa, _ = self._sort_keys(ctx, words, gidx)
         prevs = tuple(prev_of(w, ctx=ctx) for w in wsort)
         newb = functools.reduce(
             torch.logical_or, (w != pw for w, pw in zip(wsort, prevs)))
@@ -306,7 +310,7 @@ class _Builder:
         gidx = self._gidx(ctx)
         cols = [isa] + [global_shift_left(isa, j * d, ctx)
                         for j in range(1, L)]
-        bcols, sa = self._sort_keys(ctx, cols, gidx)
+        bcols, sa, _ = self._sort_keys(ctx, cols, gidx)
         pcols = [prev_of(b, ctx=ctx) for b in bcols]
         diffs = [b != pb for b, pb in zip(bcols, pcols)]
         newb = functools.reduce(torch.logical_or, diffs)
@@ -499,9 +503,6 @@ class _Builder:
         """Compact the active rows into (m_cap,) tail buffers; ``extra``
         holds the per-row companions the tail carries (GSA: the row's
         end-of-string bound)."""
-        if extra and self.mesh is not None:
-            raise ValueError("a GSA build at p > 1 is not ported yet "
-                             "(ROADMAP Queue 1)")
         return self._run(self._tail_enter, sa, brow, active, m_cap,
                          tuple(extra))
 

@@ -15,13 +15,14 @@ On a mesh of p > 1 shards (JAX ``:71-170, 263-291``) the ANSV pass is
 routed queries), the edge characters are gathered from the shards that
 hold them by ``route_apply``, and the (row, slot) writes go to the rows'
 shards by ``route_scatter``; the routing runs at capscale 6 and is redone
-without a bound when it overflows.  The generalized tree is one-device
-only for now (ROADMAP Queue 1).
+without a bound when it overflows.
 
 The generalized suffix tree of a string set (``construct_gst_device``,
 ``build_gst``) has sigma+2 slots per node: slots 0-1 hold the (min, max)
 child-id range of the node's ``$``-edges, slot c+1 the char-c edge, and
-edges at root depth are not recorded.
+edges at root depth are not recorded.  It is one shard function
+(``_gst``) for every p, as the tree's (``_st``), with the same capscale
+retry.
 """
 
 from __future__ import annotations
@@ -39,9 +40,8 @@ from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_SM
 from psac_tpu_torch.parallel.ansv import (KERNELS, AnsvKernels, ansv_local,
                                           ansv_mesh_local, nonsv_for)
 from psac_tpu_torch.parallel.collectives import (global_index_base,
-                                                 next_of, prev_of)
-from psac_tpu_torch.parallel.mesh import (Rep, num_shards, run_on,
-                                          single_device)
+                                                 next_of, pmax, prev_of)
+from psac_tpu_torch.parallel.mesh import Rep, num_shards, run_on
 from psac_tpu_torch.parallel.route import (cap_for, gather_global,
                                            route_scatter)
 
@@ -167,65 +167,98 @@ def _st_local(dsa: DeviceSuffixArray, xs, kernels: AnsvKernels,
     return DeviceSuffixTree(nodes=nodes, sigma=sigma, n=dsa.n, N=dsa.N)
 
 
-def _start_bits(eos, n: int) -> torch.Tensor:
-    """(N,) bool: position g < n is the first of its string.  Position n
-    and the padding beyond carry no bit (their eos is their own index, so
-    eos[n - 1] == n would otherwise read as a start)."""
-    g = torch.arange(eos.shape[0], dtype=eos.dtype, device=eos.device)
-    return (g < n) & ((g == 0) | (prev_of(eos, fill=0) == g))
+def _start_bits(eos, n: int, ctx=None) -> torch.Tensor:
+    """(s,) bool of this shard's positions: g < n is the first of its
+    string.  Position n and the padding beyond carry no bit (their eos is
+    their own index, so eos[n - 1] == n would otherwise read as a start)."""
+    s = eos.shape[0]
+    base = global_index_base(s, ctx)
+    g = torch.arange(base, base + s, dtype=eos.dtype, device=eos.device)
+    return (g < n) & ((g == 0) | (prev_of(eos, fill=0, ctx=ctx) == g))
 
 
-def _gst_local(dgsa, kernels: AnsvKernels) -> DeviceSuffixTree:
-    """Generalized suffix tree node table (reference ``construct_gst``,
-    ``include/suffix_tree.hpp:521-608``) with its ANSV functions given
-    (``parallel.ansv.PLAIN`` builds the plain reference tree)."""
-    if dgsa.lcp is None:
-        raise ValueError("GST construction requires the GLCP array")
-    n, N = dgsa.n, dgsa.N
-    sigma = dgsa.alphabet.sigma
-    idt = dgsa.sa.dtype
+def _gst(ctx, lcp, sa, xs, eos, n: int, sigma: int, capscale, kernels):
+    """This shard's (s * (sigma+2),) rows of the generalized tree's node
+    table (reference ``construct_gst``, ``include/suffix_tree.hpp:521-608``;
+    JAX ``_gst_local``), and the replicated overflow count of its routing
+    at ``capscale``."""
+    p = 1 if ctx is None else ctx.p
+    s, idt = lcp.shape[0], lcp.dtype
     width = sigma + 2
-    _check_local_table(N, width, idt)
     inf = torch.iinfo(idt).max
-    parents, childs, elcp, savals, valid, _ = _parent_edges(
-        None, dgsa.lcp, dgsa.sa, n, None, kernels)
+    parents, childs, elcp, savals, valid, ovf = _parent_edges(
+        ctx, lcp, sa, n, capscale, kernels)
     # ``$``-edge test without an eos[SA[i]] gather: every recorded edge has
     # depth elcp >= 1 and elcp <= eos[SA[i]] - SA[i], so SA[i] + elcp lies
     # in (SA[i], eos[SA[i]]]: inside SA[i]'s own string unless it IS the
     # string's end, and a string end below n is the next string's start.
     # So ``$`` <=> SA[i] + elcp is a string start, or is n.  The start bit
     # rides on the gathered text: one gather answers char and ``$`` test.
-    xz = dgsa.xs + (sigma + 1) * _start_bits(dgsa.eos, n).to(dgsa.xs.dtype)
+    xz = xs + (sigma + 1) * _start_bits(eos, n, ctx).to(xs.dtype)
     char_idx = savals + elcp
     dollar_end = char_idx >= n
     valid_q = valid & (elcp != 0)  # root-depth edges are not recorded
-    chz = gather_global(xz, char_idx, valid_q & ~dollar_end)
+    cap = cap_for(2 * s, p, capscale)
+    chz, ovf_g = gather_global(xz, char_idx, valid_q & ~dollar_end, ctx=ctx,
+                               cap=cap, with_overflow=True)
     dollar = dollar_end | (chz > sigma)
 
     # slot 0 accumulates a min: it starts at INF and goes back to 0 where
     # no ``$``-edge landed
-    nodes = torch.zeros(N, width, dtype=idt, device=dgsa.sa.device)
+    nodes = torch.zeros(s, width, dtype=idt, device=lcp.device)
     nodes[:, 0] = inf
-    nodes = nodes.view(-1)
-    (nodes,) = route_scatter(parents, (childs,), (nodes,), valid_q & ~dollar,
-                             width=width, slots=chz + 1)
+    (nodes,), ovf_s = route_scatter(
+        parents, (childs,), (nodes.view(-1),), valid_q & ~dollar,
+        width=width, slots=chz + 1, ctx=ctx, cap=cap, with_overflow=True)
     # many ``$``-edges may meet at one node, so they go through the reducing
-    # scatter, compacted by mask first (they are few beside the 2N rows)
+    # scatter, compacted by mask first (they are few beside the 2s rows),
+    # to the largest shard's count: the exchange's buffers are alike on
+    # every shard
     at = torch.nonzero(valid_q & dollar).squeeze(1)
-    rows, kids = parents[at], childs[at]
-    every = torch.ones_like(rows, dtype=torch.bool)
-    for slot, how in ((0, "min"), (1, "max")):
-        (nodes,) = route_scatter(rows, (kids,), (nodes,), every, width=width,
-                                 slots=torch.full_like(rows, slot),
-                                 combine=(how,))
-    table = nodes.view(N, width)
+    k = at.shape[0]
+    m = int(pmax(torch.tensor(k), ctx))
+    ovf_d = 0
+    if m:
+        pad = m - k
+        rows = torch.cat([parents[at], parents.new_zeros(pad)])
+        kids = torch.cat([childs[at], childs.new_zeros(pad)])
+        ok = torch.arange(m, device=at.device) < k
+        for slot, how in ((0, "min"), (1, "max")):
+            (nodes,), o = route_scatter(
+                rows, (kids,), (nodes,), ok, width=width,
+                slots=torch.full_like(rows, slot), combine=(how,), ctx=ctx,
+                cap=cap_for(m, p, capscale), with_overflow=True)
+            ovf_d = ovf_d + o
+    table = nodes.view(s, width)
     table[:, 0] = torch.where(table[:, 0] == inf, 0, table[:, 0])
-    return DeviceSuffixTree(nodes=nodes, sigma=sigma + 1, n=n, N=N)
+    return nodes, Rep(int(ovf + ovf_g + ovf_s + ovf_d))
+
+
+def _gst_local(dgsa, kernels: AnsvKernels) -> DeviceSuffixTree:
+    """Generalized suffix tree node table of a ``models.gsa.DeviceGSA``, on
+    its device or its mesh, with its ANSV functions given
+    (``parallel.ansv.PLAIN`` builds the plain reference tree).  On a mesh
+    the routing runs at capscale 6 first and without a bound when that
+    overflows."""
+    if dgsa.lcp is None:
+        raise ValueError("GST construction requires the GLCP array")
+    mesh = dgsa.mesh
+    if mesh is not None and mesh.p == 1:
+        mesh = None
+    sigma = dgsa.alphabet.sigma
+    _check_local_table(dgsa.N // num_shards(mesh), sigma + 2, dgsa.sa.dtype)
+    for capscale in (6, None):
+        nodes, ovf = run_on(mesh, _gst, dgsa.lcp, dgsa.sa, dgsa.xs, dgsa.eos,
+                            dgsa.n, sigma, capscale, kernels)
+        if capscale is None or ovf == 0:
+            break
+    return DeviceSuffixTree(nodes=nodes, sigma=sigma + 1, n=dgsa.n, N=dgsa.N)
 
 
 def construct_gst_device(dgsa) -> DeviceSuffixTree:
     """Generalized suffix tree from a device-resident GSA (+GLCP), a
-    ``models.gsa.DeviceGSA``."""
+    ``models.gsa.DeviceGSA``, on its device or on its mesh
+    (``dgsa.mesh``)."""
     return _gst_local(dgsa, KERNELS)
 
 
@@ -242,12 +275,10 @@ def build_suffix_tree(text, device=None, config=None,
 
 def build_gst(strings, device=None, config=None, mesh=None) -> np.ndarray:
     """GSA construction + generalized suffix tree of a string set on
-    ``device`` (None: the CUDA card; ``"cpu"`` runs the plain versions);
-    returns the (n, sigma+2) int64 node table.  A ``mesh`` of p > 1
-    raises (not ported yet)."""
+    ``device`` (None: the CUDA card; ``"cpu"`` runs the plain versions) or
+    on the p shards of ``mesh``; returns the (n, sigma+2) int64 node
+    table."""
     from psac_tpu_torch.models.gsa import build_gsa_device
 
-    device = single_device(mesh, device, "build_gst")
-    kw = {} if config is None else {"config": config}
-    return construct_gst_device(
-        build_gsa_device(strings, device, **kw)).materialize()
+    return construct_gst_device(build_gsa_device(
+        strings, device, config or SAConfig(), mesh)).materialize()

@@ -126,7 +126,11 @@ def global_shift_left(x: torch.Tensor, d: int, ctx=None) -> torch.Tensor:
 
 def exscan_scalar(v: torch.Tensor, ctx, op: str = "add", init=0):
     """Exclusive scan of one 0-d tensor per shard across the mesh
-    (``mxx::exscan``): the carry into this shard."""
+    (``mxx::exscan``): the carry into this shard (0, or ``init`` for max
+    and min, into the first shard and on one shard)."""
+    if not _multi(ctx):
+        return torch.tensor(0 if op == "add" else init, dtype=v.dtype,
+                            device=v.device)
     all_v = ctx.all_gather(v)
     before = all_v[:ctx.rank]
     if op == "add":
@@ -143,6 +147,11 @@ def exscan_scalar(v: torch.Tensor, ctx, op: str = "add", init=0):
 def psum(x: torch.Tensor, ctx=None) -> torch.Tensor:
     """Sum of ``x`` over the shards (``x`` itself on one shard)."""
     return ctx.psum(x) if _multi(ctx) else x
+
+
+def pmax(x: torch.Tensor, ctx=None) -> torch.Tensor:
+    """Maximum of ``x`` over the shards (``x`` itself on one shard)."""
+    return ctx.pmax(x) if _multi(ctx) else x
 
 
 def global_index_base(s: int, ctx=None) -> int:

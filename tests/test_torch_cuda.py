@@ -1017,6 +1017,48 @@ def test_mesh_build_on_the_card_equals_cpu(cuda):
     assert outs["cpu"][4] == (0, 0)
 
 
+def test_mesh_gsa_on_the_card_equals_cpu(cuda, tmp_path):
+    """A p = 4 GSA + GLCP and its generalized suffix tree on four shards of
+    the one card equal the same builds on four CPU shards (the dense loop,
+    the tie-fix and, with ``fused=False``, the host loop's routed resolve),
+    launching K6's min-only entry and K5; the file input equals the
+    in-memory build there."""
+    from psac_tpu_torch.config import SAConfig
+    from psac_tpu_torch.models import gsa as gsa_mod
+    from psac_tpu_torch.models import suffix_tree as st_mod
+    from psac_tpu_torch.parallel.mesh import make_mesh
+
+    strings = cases.near_identical_family(8, 3000, 3, seed=5)
+    strings += [b"ACGTACGT" * 5] * 3 + [b"ACG", b"T"]
+    path = tmp_path / "strings.txt"
+    path.write_bytes(b"\n".join(strings) + b"\n")
+    fields = ("sa", "lcp", "eos", "xs")
+    outs = {}
+    for name, devs in (("cuda", ["cuda:0"] * 4), ("cpu", ["cpu"] * 4)):
+        mesh = make_mesh(4, devs)
+        before = (rmq.rmq_mins.launches, bansv.block_psv.launches)
+        dg = gsa_mod.build_gsa_device(strings, mesh=mesh)
+        host = gsa_mod.build_gsa_device(strings, mesh=mesh,
+                                        config=SAConfig(fused=False))
+        tree = st_mod.construct_gst_device(dg)
+        launched = (rmq.rmq_mins.launches - before[0],
+                    bansv.block_psv.launches - before[1])
+        fd = gsa_mod.build_gsa_from_file(str(path), mesh=mesh)
+        assert all(t.device.type == name for t in dg.sa.shards)
+        for f in fields:
+            assert torch.equal(getattr(fd, f).gather(),
+                               getattr(dg, f).gather()), f
+            assert torch.equal(getattr(host, f).gather(),
+                               getattr(dg, f).gather()), f
+        outs[name] = [getattr(dg, f).gather() for f in fields] + [
+            tree.nodes.gather(), launched]
+        mesh.close()
+    for g, w in zip(outs["cuda"][:5], outs["cpu"][:5]):
+        assert torch.equal(g, w)
+    assert outs["cuda"][5][0] > 0 and outs["cuda"][5][1] > 0
+    assert outs["cpu"][5] == (0, 0)
+
+
 def test_mesh_worker_error_on_the_card_does_not_hang(cuda):
     """A shard that raises while the others wait in a collective: ``run``
     raises in the caller, and the mesh runs the next call."""

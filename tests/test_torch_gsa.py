@@ -219,7 +219,7 @@ def test_tiefix_fills_identical_whole_suffixes():
     lcp = torch.tensor([0, 0, 0, N, 1, N, 2, N], dtype=torch.int32)
     sa = torch.tensor([7, 6, 5, 2, 0, 4, 1, 3], dtype=torch.int32)
     eos = torch.tensor([3, 3, 3, 5, 5, 5, 6, 7], dtype=torch.int32)
-    got = t_gsa._lcp_tiefix_local(lcp, sa, eos, N)
+    got = t_gsa._gsa_tiefix(None, lcp, sa, eos)
     assert got.tolist() == [0, 0, 0, 1, 1, 1, 2, 2]
 
 

@@ -456,14 +456,12 @@ def test_replicated_outputs_must_agree():
         mesh.run(lambda ctx, x: Rep(ctx.rank), mesh.shard(torch.arange(4)))
 
 
-@pytest.mark.parametrize("entry", ["build_gsa", "build_gst", "build_desa"])
+@pytest.mark.parametrize("entry", ["build_desa"])
 def test_unported_entry_points_refuse_a_mesh(entry):
     import psac_tpu_torch as pt
-    from psac_tpu_torch.models import suffix_tree
 
-    fn = {"build_gsa": pt.build_gsa, "build_gst": suffix_tree.build_gst,
-          "build_desa": pt.build_desa}[entry]
-    arg = b"banana" if entry == "build_desa" else [b"ab", b"ba"]
+    fn = {"build_desa": pt.build_desa}[entry]
+    arg = b"banana"
     with pytest.raises(ValueError, match="p > 1 is not ported yet"):
         fn(arg, mesh=make_mesh(2, ["cpu"] * 2))
     # a mesh of one shard is its device
