@@ -20,14 +20,17 @@ sets (SA+LCP at tail thresholds 0.1 and 0.0, SA-only at factors 2-4, K6 in
 every doubling step of ``rep_dna``, the GSA of both sets) and
 ``pack_keys`` at ``dense_factor=5``; the mesh of p = 4 shards on the
 card(s) (``[mesh]``: SA+LCP of the 2^26 text and of ``rep_dna``, fused
-and host-driven, the 2^26 suffix tree, ``d_check_sa``, the public ANSV,
-and SA+LCP at p = 3; K6's min-only entry, ``rmq_mins``, held against its
-plain version there); each ANSV engine (hybrid, scan, block, spine)
-against the plain path on 2^24 values; then the
-command-line tools in processes of their own (``psac -f``, ``gsac -f``,
-``mkpattern``, ``desa -q`` building, saving and loading the index,
-``benchmark`` and ``benchmark-ansv``) on the same inputs, and
-``d_check_sa`` on the file build.
+and host-driven, the 2^26 suffix tree, ``d_check_sa``, the DESA of the
+2^26 text with both top-level indexes answering the same batches as at
+p = 1 (K7 on every shard's slab, held against its plain version there)
+and its files written and read back, the public ANSV, SA+LCP at p = 3,
+and GSA + GLCP and the GST of both string sets; K6's min-only entry,
+``rmq_mins``, held against its plain version there); each ANSV engine
+(hybrid, scan, block, spine) against the plain path on 2^24 values; then
+the command-line tools in processes of their own (``psac -f``, ``gsac
+-f``, ``mkpattern``, ``desa -q`` building, saving and loading the index,
+and at p = 4 (``--devices 4``), ``benchmark`` and ``benchmark-ansv``) on
+the same inputs, and ``d_check_sa`` on the file build.
 Every result is held against the native SA-IS + Kasai oracle, the
 sequential ANSV oracle, the sorting oracles or the plain path; the script
 prints the kernel table (each kernel's time beside its bound: the bytes it
@@ -955,22 +958,38 @@ def sa_bounds(tpad: np.ndarray, sa: np.ndarray, pats: np.ndarray,
     return lo
 
 
+def file_digests(prefix: str) -> dict:
+    """SHA-256 of each file of a written DESA index."""
+    import hashlib
+
+    out = {}
+    for ext in (".sa64", ".lcp64", ".lc64", ".alpha"):
+        h = hashlib.sha256()
+        with open(prefix + ext, "rb") as f:
+            for block in iter(lambda: f.read(1 << 24), b""):
+                h.update(block)
+        out[ext] = h.hexdigest()
+    return out
+
+
 def desa_phase(dev, text: bytes, sa_ref: np.ndarray, batch: int,
-               card: str, kern: dict) -> dict:
+               card: str, kern: dict) -> tuple:
     """DESA of the text on the card (``build_desa`` with no device) with
     the TLLT and the TLDT; batches of ``batch`` patterns (half text
     substrings, half random DNA) of lengths 8, 20 and 64; every range
     checked against the native SA.  K7's launches on the timed batches
     count as the main path's; the inputs of the length-20 and -64 batches'
     blind searches are recorded and K7 is checked on them
-    (``check_k7``, which adds its row to ``kern``)."""
+    (``check_k7``, which adds its row to ``kern``).  Returns the timings
+    and, for the mesh phase, the batches, their TLLT ranges and the
+    digests of the TLLT index's files (``write_desa``)."""
     import torch
 
     from unittest import mock
 
     from psac_tpu_torch import build_desa
     from psac_tpu_torch.models import desa as desa_mod
-    from psac_tpu_torch.models.desa import _sample_mask_local
+    from psac_tpu_torch.models.desa import _sample_mask_local, write_desa
     from psac_tpu_torch.models.suffix_array import (construct_device,
                                                     encode_and_shard)
     from psac_tpu_torch.ops.bansv import block_psv
@@ -1003,12 +1022,23 @@ def desa_phase(dev, text: bytes, sa_ref: np.ndarray, batch: int,
 
     xs, alpha, n_, N = encode_and_shard(text, dev)
     dsa = construct_device(xs, alpha, n_, N)
-    mask = _sample_mask_local(dsa.lcp, n=n, maxsize=n // 128)
-    plain = _sample_mask_local(dsa.lcp, n=n, maxsize=n // 128, kernels=PLAIN)
+    mask = _sample_mask_local(None, dsa.lcp, n=n, maxsize=n // 128)
+    plain = _sample_mask_local(None, dsa.lcp, n=n, maxsize=n // 128,
+                               kernels=PLAIN)
     if not torch.equal(mask, plain):
         raise AssertionError("TLDT sampling mask differs from the plain path")
     log(f"[desa] TLDT sampling mask == plain path ({int(mask.sum())} rows)")
     del xs, dsa, mask, plain
+    work = os.path.join(ROOT, "_smoke")
+    os.makedirs(work, exist_ok=True)
+    prefix = os.path.join(work, "desa1")
+    t0 = time.perf_counter()
+    write_desa(idx["tllt"], prefix)
+    ref = dict(files=file_digests(prefix), batches={}, answers={})
+    for ext in ref["files"]:
+        os.remove(prefix + ext)
+    log(f"[desa] write_desa of the TLLT index: "
+        f"{time.perf_counter() - t0:.1f} s with its digests (host)")
 
     rng = np.random.RandomState(2026)
     tarr = np.frombuffer(text, np.uint8)
@@ -1058,6 +1088,7 @@ def desa_phase(dev, text: bytes, sa_ref: np.ndarray, batch: int,
                 k7_calls[(tli, L)] = calls
         if not np.array_equal(res["tllt"], res["tldt"]):
             raise AssertionError(f"tllt and tldt ranges differ at len {L}")
+        ref["batches"][L], ref["answers"][L] = pats, res["tllt"]
         tpad = np.concatenate([tarr, np.zeros(L, np.uint8)])
         lo = sa_bounds(tpad, sa_ref, mat, False)
         hi = sa_bounds(tpad, sa_ref, mat, True)
@@ -1079,7 +1110,7 @@ def desa_phase(dev, text: bytes, sa_ref: np.ndarray, batch: int,
             f"{min(batch, 1024)} == SAIndex")
     log(f"[desa] on {card}")
     check_k7(k7_calls, card, kern)
-    return out
+    return out, ref
 
 
 def k7_reads(args, got) -> dict:
@@ -1444,17 +1475,152 @@ def mins_bound(rmq, lo, hi, valid) -> dict:
                 n_valid=int(valid.sum()), n_narrow=int(narrow.sum()))
 
 
+def mesh_desa(mesh, timed, sync, text: bytes, ref: dict, log2n: int,
+              card: str, kern: dict, out: dict) -> None:
+    """The DESA of the text at p = 4 (``[mesh]``), TLLT and TLDT: each
+    build's wall, peak and launches (``timed``: K6-mins under the
+    construction, as many as the p = 4 SA+LCP build's, K5 in the TLDT's
+    mask), its partition and sample; the
+    p = 1 batches (``ref``: lengths 8, 20 and 64) answered as p = 1
+    answered them, K7's launches counted (p^2 slab searches a batch, p
+    more of the TLDT's sample); K7 held against its plain version on the
+    shard's slab search with the most valid rows; ``write_desa`` at p = 4 byte for
+    byte the p = 1 files (their digests), and ``read_desa(mesh=)`` of them
+    answering as p = 1."""
+    import threading
+    from unittest import mock
+
+    from psac_tpu_torch.models import desa as desa_mod
+    from psac_tpu_torch.ops.blind_search import (blind_search,
+                                                 blind_search_plain,
+                                                 launch_shape)
+
+    n, p = len(text), mesh.p
+    reset7, read7 = counter((blind_search,))
+    idx = {}
+    for tli in ("tllt", "tldt"):
+        label = f"DESA {tli} 2^{log2n} p=4"
+        d = timed(label, lambda: desa_mod.build_desa(text, tli=tli,
+                                                     mesh=mesh))
+        segs = np.concatenate([d.begins_np[1:], [n]]) - d.begins_np
+        st = out[label]
+        st.update(imbalance=float(segs.max() * p / n), cap=d.cap)
+        if tli == "tldt":
+            st["samples"] = d.samp["m"]
+        log(f"[mesh] {label}: segments {segs.tolist()} (imbalance "
+            f"{st['imbalance']:.3f}), cap {d.cap}"
+            + (f", {d.samp['m']} sampled rows (M {d.samp['M']}, maxsize "
+               f"{n // p // 128})" if tli == "tldt" else ""))
+        sa_mins = out[f"SA+LCP 2^{log2n} DNA p=4"]["rmq_mins"]
+        if st["rmq_mins"] != sa_mins:
+            raise AssertionError(f"the p = 4 DESA build ({tli}) launched "
+                                 f"K6-mins {st['rmq_mins']} times, its "
+                                 f"SA+LCP build {sa_mins}")
+        if tli == "tldt" and st["block_psv"] == 0:
+            raise AssertionError("K5 was not launched by the p = 4 TLDT "
+                                 "build")
+        idx[tli] = d
+
+    for L, pats in ref["batches"].items():
+        for tli, d in idx.items():
+            label = f"DESA {tli} 2^{log2n} p=4"
+            d.bulk_locate(pats)  # warm-up at this shape
+            reset7()
+            sync()
+            t0 = time.perf_counter()
+            got = d.bulk_locate(pats)
+            sync()
+            dt = time.perf_counter() - t0
+            k7n = read7()["blind_search"]
+            add_launches({"blind_search": k7n})
+            want = p * p + (p if tli == "tldt" else 0)
+            if len(pats) // p > p and k7n != want:
+                raise AssertionError(f"K7 launched {k7n} times by the p = 4 "
+                                     f"{tli} batch at len {L}, not {want}")
+            if not np.array_equal(got, ref["answers"][L]):
+                raise AssertionError(f"p = 4 {tli} bulk_locate at len {L} "
+                                     "differs from p = 1")
+            out[label][f"qps_L{L}"] = len(pats) / dt
+            log(f"[mesh] {tli} bulk_locate p=4 {len(pats)} x len {L}: "
+                f"{dt:.3f} s, {len(pats) / dt:,.0f} patterns/s, == p = 1; "
+                f"K7 launches {k7n}, steps {d.last_stats['steps']}, "
+                f"readbacks {d.last_stats['readbacks']} on {card}")
+
+    # K7 on the slab search with the most valid rows (calls noted in an
+    # untimed run of the length-20 and -64 batches)
+    calls, lock = [], threading.Lock()
+
+    def record(*args):
+        nv = int(args[4].sum())
+        with lock:
+            calls.append((nv, args))
+        return blind_search(*args)
+
+    with mock.patch.object(desa_mod, "blind_search", record):
+        for L in (20, 64):
+            for d in idx.values():
+                d.bulk_locate(ref["batches"][L])
+    caps = {d.cap for d in idx.values()}
+    nv, args = max((c for c in calls if c[1][8] in caps), key=lambda c: c[0])
+    mdev = args[0].device
+    got = blind_search(*args)
+    err = max_abs_err(got, blind_search_plain(*args[:-1], {"readbacks": 0}))
+    b = k7_bound(args, got)
+    b.pop("reads")
+    ms = cuda_ms(lambda: blind_search(*args), 10, mdev)
+    plain_ms = cuda_ms(lambda: blind_search_plain(
+        *args[:-1], {"readbacks": 0}), 1, mdev)
+    k = kern["blind_search"]
+    k["max_abs_err"] = max(k["max_abs_err"], err)
+    grid = launch_shape(args[5].dtype, args[8], args[0].shape[0])
+    k["mesh_call"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"],
+                          B=args[0].shape[0], valid=nv,
+                          rows=args[5].shape[0], group=grid["group"])
+    if err:
+        raise AssertionError("K7 differs from its plain version on a p = 4 "
+                             "slab search")
+    log(f"[kernel] K7 blind_search == plain on the p = 4 slab search with the "
+        f"most valid rows ({nv} of {args[0].shape[0]} received rows, a "
+        f"{args[5].shape[0]}-row slab, G {grid['group']}): {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.5f} ms "
+        f"({b['bound_by']}) on {card}")
+    del calls, args, got
+
+    # write_desa at p = 4 == p = 1, and read_desa(mesh=) of the files
+    work = os.path.join(ROOT, "_smoke")
+    os.makedirs(work, exist_ok=True)
+    prefix = os.path.join(work, "desa4")
+    try:
+        desa_mod.write_desa(idx["tllt"], prefix)
+        if file_digests(prefix) != ref["files"]:
+            raise AssertionError("write_desa at p = 4 differs from p = 1")
+        r = timed(f"read_desa 2^{log2n} p=4",
+                  lambda: desa_mod.read_desa(text, prefix, mesh=mesh))
+        if not np.array_equal(r.bulk_locate(ref["batches"][20]),
+                              ref["answers"][20]):
+            raise AssertionError("read_desa(mesh=) answers differ from p = 1")
+    finally:
+        for ext in (".sa64", ".lcp64", ".lc64", ".alpha"):
+            if os.path.exists(prefix + ext):
+                os.remove(prefix + ext)
+    log("[mesh] write_desa at p = 4 == p = 1 byte for byte; read_desa(mesh=) "
+        f"of the files answers as p = 1 on {card}")
+
+
 def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
                rsa, rlcp, log2n: int, rep_log2n: int, ansv_log2n: int,
-               gsa_sets: dict, card: str, kern: dict) -> dict:
+               gsa_sets: dict, desa_ref: dict, card: str,
+               kern: dict) -> dict:
     """The mesh of p = 4 shards on the card(s), ``devices[i] = cuda:(i %
     count)``: SA+LCP of the 2^26 random DNA and of the 2^24 ``rep_dna``
     (fused, and the host-driven loop with its routed resolve and capacity
     escalation) against their native references, the 2^26 suffix tree
     against the p = 1 tree, SA+LCP at p = 3 (the odd-even sort) on 2^20
     random DNA against the native oracle, ``d_check_sa`` at p = 4 (true,
-    and false with two rows swapped), the public ``ansv`` at p = 4 against
-    p = 1, and the GSA + GLCP and the GST of each string set of
+    and false with two rows swapped), the DESA of the 2^26 text
+    (``mesh_desa``, against the p = 1 index's answers and files in
+    ``desa_ref``), the public ``ansv`` at p = 4 against p = 1, and the
+    GSA + GLCP and the GST of each string set of
     ``gsa_sets`` (label -> (strings, the p = 1 (GSA, GLCP), the p = 1 GST
     table, whether K6's min-only entry is checked there)) against the p = 1
     results, with, on the checked set, ``build_gsa_from_file`` of the set
@@ -1493,6 +1659,10 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
     reset, read = counter((rmq_mod.rmq_mins, block_psv, rmq_mod.rmq_resolve))
     out = {}
 
+    def sync():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
     def timed(label, fn):
         gc.collect()
         for d in cards:
@@ -1501,8 +1671,7 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
         reset()
         t0 = time.perf_counter()
         res = fn()
-        for d in cards:
-            torch.cuda.synchronize(d)
+        sync()
         st = dict(wall_s=time.perf_counter() - t0, peak_gib=sum(
             torch.cuda.max_memory_allocated(d) for d in cards) / 2**30,
             **read())
@@ -1599,6 +1768,9 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
     log("[mesh] d_check_sa p=4: True for the build, False with two rows "
         "swapped")
     del dsa, xs, shards
+
+    # ---- the DESA of the 2^26 text at p = 4
+    mesh_desa(mesh, timed, sync, text, desa_ref, log2n, card, kern, out)
 
     # ---- rep_dna at p = 4: fused, then the host loop (routed resolve)
     real_mins = par_rmq.rmq_mins
@@ -1881,8 +2053,9 @@ def cli_phase(text: bytes, sa_ref: np.ndarray, lcp_ref: np.ndarray,
     SA + LCP) and ``psac -f -t``; ``gsac -f -o`` of the string set written
     as lines (== the GSA phase's oracle); ``mkpattern`` of ``batch``
     length-20 patterns, ``desa -q --reps 3`` with each top-level index
-    (saving the index), then ``--load`` (matched counts, and the saved
-    index's ranges loaded in this process, == the native SA's).  Also
+    (saving the index), then ``--load``, then ``--devices 4 --device
+    cuda:0`` (matched counts, and the saved index's ranges loaded in this
+    process, == the native SA's).  Also
     ``d_check_sa`` on the file build: true, and false with two SA rows
     swapped; then ``benchmark -f --reps bench_reps`` of the text and
     ``benchmark-ansv -n 2^ansv_log2n --reps 1`` (all four engines), whose
@@ -1971,7 +2144,9 @@ def cli_phase(text: bytes, sa_ref: np.ndarray, lcp_ref: np.ndarray,
                              r"([0-9.]+) ms/rep")
         for label, extra in (("tllt", ["--tli", "tllt", "-o", ipre]),
                              ("tldt", ["--tli", "tldt"]),
-                             ("load", ["--load", ipre])):
+                             ("load", ["--load", ipre]),
+                             ("mesh", ["--devices", "4", "--device",
+                                       "cuda:0"])):
             err = run_cli(["desa", "-f", tpath, "-q", ppath, "--reps", "3"]
                           + extra, f"desa -q {' '.join(extra)}").stderr
             m = matched.search(err)
@@ -2276,7 +2451,7 @@ def main() -> int:
     ansv_times = public_ansv_phase(dev, args.ansv_log2n, card)
 
     # ---- 8. DESA of the 2^26 text: both top-level indexes, bulk_locate ---
-    desa = desa_phase(dev, text, sa_ref, args.batch, card, kern)
+    desa, desa_ref = desa_phase(dev, text, sa_ref, args.batch, card, kern)
 
     # ---- 9. generalized suffix array and tree (counted) -------------------
     small_gsa_sets(card)
@@ -2309,7 +2484,7 @@ def main() -> int:
         {rand_label: (gsa_set, gsa_rand["oracle"], gsa_rand.pop("gst"),
                       False),
          fam_label: (fam_set, gsa_fam.pop("oracle"), gsa_fam.pop("gst"),
-                     True)}, card, kern)
+                     True)}, desa_ref, card, kern)
     log(f"[mesh] phase {time.perf_counter() - t0:.1f} s")
     del rsa, rlcp, tree_p1, fam_set
 
@@ -2359,13 +2534,17 @@ def main() -> int:
         f"walks {v.get('walk_ms', 0.0):.3f} ms)"
         for k, v in mesh_res.items() if "wall_s" in v)
         + f"; host-loop resolves {mesh_res['resolves']}")
+    log("[result] mesh DESA patterns/s: " + ", ".join(
+        f"{k.split()[1]} len {q[5:]} {v[q]:,.0f}"
+        for k, v in mesh_res.items() if k.startswith("DESA")
+        for q in v if q.startswith("qps_L")))
     log("[result] CLI benchmark ms: " + ", ".join(
         f"{k} {v:.2f}" for k, v in cli["benchmark_ms"].items()))
     log("[result] CLI benchmark-ansv ms: " + ", ".join(
         f"{k} {v:.2f}" for k, v in cli["benchmark_ansv_ms"].items()))
     log(f"[result] CLI: desa -q ms/rep " + ", ".join(
         f"{k} {cli[f'desa_{k}_ms']:.2f} ({cli[f'desa_{k}_qps']:,.0f} "
-        "patterns/s)" for k in ("tllt", "tldt", "load"))
+        "patterns/s)" for k in ("tllt", "tldt", "load", "mesh"))
         + f"; d_check_sa {cli['d_check_sa_s']:.3f} s")
     log(f"[result] launches over the main-path phases: {LAUNCHES}")
     for k, v in kern.items():

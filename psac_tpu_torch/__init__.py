@@ -4,9 +4,9 @@ Suffix array + LCP construction, the suffix tree, the public ANSV and the
 DESA pattern index of one text, and the generalized suffix array and suffix
 tree of a string set, on one device; the artifact IO (``io``), the file
 inputs and the command-line tools (``python -m psac_tpu_torch.cli``).
-SA+LCP, the suffix tree, the public ANSV and ``d_check_sa`` also run on a
-mesh of p shards (``parallel.mesh.make_mesh``; ``mesh=`` of the entry
-points).  The package imports
+Every entry point also runs on a mesh of p shards
+(``parallel.mesh.make_mesh``; ``mesh=`` of the entry points, ``--devices``
+of the CLI).  The package imports
 ``torch`` only; its hand-written CUDA kernels (``csrc/``) are built with
 ``nvcc`` at first use.  Every entry point takes ``device``, the CUDA card
 when it is None: CPU tensors (``device="cpu"``) run each kernel's plain

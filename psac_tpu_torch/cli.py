@@ -1,5 +1,5 @@
 """Command-line tools (port of ``psac_tpu/cli.py``): the reference's
-``src/`` binaries as subcommands, on one device.
+``src/`` binaries as subcommands, on one device or on a mesh of P shards.
 
   psac (src/psac.cpp)              -> ``psac``        SA / SA+LCP / +suffix tree
   gsac (src/gsac.cpp)              -> ``gsac``        generalized SA of a string set
@@ -14,10 +14,15 @@
   kmer-stats (src/kmer_partition.cpp)-> ``kmer-stats`` partition imbalance study
 
 Flags, defaults, output lines and exit codes are the JAX package's, with
-``--device`` (default: the CUDA card; ``cpu`` runs the kernels' plain
-versions) in place of ``--devices``; the device-count column of the
-benchmark lines is 1.  Every timed line stops its clock after the result
-is copied to the host or the device is synchronized.
+``--device`` besides (default: the CUDA card; ``cpu`` runs the kernels'
+plain versions).  ``--devices P`` runs the subcommand on a mesh of P
+shards (``parallel.mesh.make_mesh``): with ``--device D`` all P on D (as
+the tests run it on the CPU, and one card holds four shards), else on the
+first P cards, raising with fewer.  Without ``--devices`` a subcommand
+runs on one device, where the JAX CLI takes every device it sees.  The
+device-count column of the benchmark lines is P.  Every timed line stops
+its clock after the result is copied to the host or the devices are
+synchronized.
 
 Usage: ``python -m psac_tpu_torch.cli <subcommand> [args]``.
 """
@@ -45,14 +50,25 @@ def _load_text(args) -> bytes:
     raise SystemExit("need -f FILE or -r N")
 
 
-def _sync(device) -> None:
-    """Wait for the device's queued work (a no-op on the CPU)."""
+def _mesh(args):
+    """The mesh of ``--devices P`` (None without it: one device)."""
+    p = getattr(args, "devices", None)
+    if not p:
+        return None
+    from psac_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(p, None if args.device is None else [args.device] * p)
+
+
+def _sync(device, mesh=None) -> None:
+    """Wait for the queued work of the device or of the mesh's devices (a
+    no-op on the CPU)."""
     import torch
 
     from psac_tpu_torch.config import resolve_device
 
-    if resolve_device(device).type == "cuda":
-        torch.cuda.synchronize()
+    for dev in mesh.devices if mesh is not None else [resolve_device(device)]:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def cmd_psac(args) -> int:
@@ -61,6 +77,7 @@ def cmd_psac(args) -> int:
 
     text = _load_text(args)
     dev = args.device
+    mesh = _mesh(args)
     conf = cfg.SAConfig(construct_lcp=args.lcp or args.tree, k=args.k,
                         dense_factor=args.factor,
                         resolve_div=args.rdiv,
@@ -73,8 +90,8 @@ def cmd_psac(args) -> int:
         from psac_tpu_torch.models.suffix_tree import \
             construct_suffix_tree_device
         t0 = time.time()
-        xs, alpha, n, N = encode_and_shard(text, dev)
-        dsa = construct_device(xs, alpha, n, N, conf)
+        xs, alpha, n, N = encode_and_shard(text, dev, mesh)
+        dsa = construct_device(xs, alpha, n, N, conf, mesh)
         res = dsa.materialize()
         _log(f"PSAC time: {(time.time() - t0) * 1000:.1f} ms")
         t0 = time.time()
@@ -85,12 +102,12 @@ def cmd_psac(args) -> int:
         # the file is staged raw on the device and counted there
         from psac_tpu_torch.models.suffix_array import construct_from_file
         t0 = time.time()
-        dsa, _xs = construct_from_file(args.file, dev, conf)
+        dsa, _xs = construct_from_file(args.file, dev, conf, mesh)
         res = dsa.materialize()
         _log(f"PSAC time: {(time.time() - t0) * 1000:.1f} ms")
     else:
         t0 = time.time()
-        res = build_suffix_array(text, dev, conf)
+        res = build_suffix_array(text, dev, conf, mesh)
         _log(f"PSAC time: {(time.time() - t0) * 1000:.1f} ms")
     if args.check:
         from psac_tpu_torch import native
@@ -109,11 +126,13 @@ def cmd_psac(args) -> int:
 def cmd_gsac(args) -> int:
     from psac_tpu_torch.models.gsa import build_gsa, build_gsa_from_file
 
+    mesh = _mesh(args)
     t0 = time.time()
     if getattr(args, "file", None):
-        res = build_gsa_from_file(args.file, args.device).materialize()
+        res = build_gsa_from_file(args.file, args.device,
+                                  mesh=mesh).materialize()
     else:
-        res = build_gsa(_load_text(args), args.device)
+        res = build_gsa(_load_text(args), args.device, mesh=mesh)
     _log(f"GSAC time: {(time.time() - t0) * 1000:.1f} ms "
          f"({res.nstrings} strings, {res.n} chars)")
     if args.check:
@@ -140,14 +159,16 @@ def cmd_desa(args) -> int:
 
     text = _load_text(args)
     dev = args.device
+    mesh = _mesh(args)
     if args.load:
         idx = read_desa(text, args.load, dev, tli=args.tli,
-                        maxsize=args.maxsize)
+                        maxsize=args.maxsize, mesh=mesh)
         _log(f"loaded DESA from {args.load} (tli={args.tli})")
     else:
         t0 = time.time()
-        idx = build_desa(text, dev, tli=args.tli, maxsize=args.maxsize)
-        _sync(dev)
+        idx = build_desa(text, dev, tli=args.tli, maxsize=args.maxsize,
+                         mesh=mesh)
+        _sync(dev, mesh)
         _log(f"DESA construct (tli={args.tli}): "
              f"{(time.time() - t0) * 1000:.1f} ms")
     if args.output:
@@ -172,12 +193,15 @@ def cmd_benchmark(args) -> int:
     reference's {reg, reg-fast} x {lcp, nolcp} ("reg" = the host-driven
     loop, pure doubling with no sparse tail; "fast" = the default build)
     and the SA-only construct_arr<3> and <4> rows, each as
-    ``1;<name>;<ms>``, the mean of ``--reps`` builds to host arrays after
+    ``<p>;<name>;<ms>``, the mean of ``--reps`` builds to host arrays after
     one warm-up."""
     from psac_tpu_torch import config as cfg
     from psac_tpu_torch.models.suffix_array import build_suffix_array
+    from psac_tpu_torch.parallel.mesh import num_shards
 
     text = _load_text(args)
+    mesh = _mesh(args)
+    p = num_shards(mesh)
     variants = [
         ("sa-nolcp-reg", cfg.SAConfig(construct_lcp=False,
                                       tail_threshold_frac=0.0, fused=False)),
@@ -191,11 +215,11 @@ def cmd_benchmark(args) -> int:
                                        fused=False)),
     ]
     for name, conf in variants:
-        build_suffix_array(text, args.device, conf)  # warm-up
+        build_suffix_array(text, args.device, conf, mesh)  # warm-up
         t0 = time.time()
         for _ in range(args.reps):
-            build_suffix_array(text, args.device, conf)
-        print(f"1;{name};{(time.time() - t0) / args.reps * 1000:.2f}")
+            build_suffix_array(text, args.device, conf, mesh)
+        print(f"{p};{name};{(time.time() - t0) / args.reps * 1000:.2f}")
     return 0
 
 
@@ -220,20 +244,24 @@ def cmd_benchmark_ansv(args) -> int:
     """ANSV timing: engines x inputs x match-type pairs (the reference
     sweeps 6 implementations x 3 inputs, src/benchmark_ansv.cpp:38-171;
     here the implementation axis is the engine, ``parallel.ansv``'s
-    ``engine=``).  Prints ``n;1;<engine>;<input>;<pair>;<ms>``, the mean of
-    ``--reps`` calls after one warm-up; the ``spine`` engine serves only
-    the suffix tree's pass, ``feq-sm``."""
+    ``engine=``; on a mesh of p > 1 shards the routed pipeline, where the
+    engine does not apply).  Prints ``n;p;<engine>;<input>;<pair>;<ms>``,
+    the mean of ``--reps`` calls after one warm-up; the ``spine`` engine
+    serves only the suffix tree's pass, ``feq-sm``."""
     import os
 
     from psac_tpu_torch.config import resolve_device
     from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_EQ, NEAREST_SM
     from psac_tpu_torch.parallel.ansv import ansv
+    from psac_tpu_torch.parallel.mesh import num_shards
 
     n = args.n
     inputs = ansv_inputs(n, args.seed, args.input)
+    mesh = _mesh(args)
+    p = num_shards(mesh)
     if args.engines:
         engines = args.engines.split(",")
-    elif resolve_device(args.device).type == "cuda":
+    elif p == 1 and resolve_device(args.device).type == "cuda":
         engines = ["hybrid", "scan", "block", "spine"]
     else:
         engines = [os.environ.get("PSAC_NSV", "")]
@@ -245,30 +273,33 @@ def cmd_benchmark_ansv(args) -> int:
             for cname, (lt, rt) in combos:
                 if eng == "spine" and cname != "feq-sm":
                     continue  # the spine engine serves only the ST pass
-                kw = dict(device=args.device, engine=eng or None)
+                kw = dict(device=args.device, engine=eng or None, mesh=mesh)
                 ansv(a, lt, rt, **kw)  # warm-up
                 t0 = time.time()
                 for _ in range(args.reps):
                     ansv(a, lt, rt, **kw)
-                print(f"{n};1;{eng or 'default'};{iname};{cname};"
+                print(f"{n};{p};{eng or 'default'};{iname};{cname};"
                       f"{(time.time() - t0) / args.reps * 1000:.2f}")
     return 0
 
 
 def cmd_benchmark_k(args) -> int:
     """Initial k-mer length sweep (reference src/benchmark_k.cpp); the
-    device count column is 1."""
+    device count column is p."""
     from psac_tpu_torch import config as cfg
     from psac_tpu_torch.models.suffix_array import build_suffix_array
+    from psac_tpu_torch.parallel.mesh import num_shards
 
     text = _load_text(args)
+    mesh = _mesh(args)
+    p = num_shards(mesh)
     for k in args.ks:
         conf = cfg.SAConfig(construct_lcp=args.lcp, k=k)
-        build_suffix_array(text, args.device, conf)  # warm-up
+        build_suffix_array(text, args.device, conf, mesh)  # warm-up
         t0 = time.time()
         for _ in range(args.reps):
-            build_suffix_array(text, args.device, conf)
-        print(f"1;psac;{k};{(time.time() - t0) / args.reps * 1000:.2f}")
+            build_suffix_array(text, args.device, conf, mesh)
+        print(f"{p};psac;{k};{(time.time() - t0) / args.reps * 1000:.2f}")
     return 0
 
 
@@ -291,9 +322,10 @@ def cmd_psac_vs_dss(args) -> int:
     from psac_tpu_torch.models.suffix_array import build_suffix_array
 
     text = _load_text(args)
-    build_suffix_array(text, args.device)  # warm-up
+    mesh = _mesh(args)
+    build_suffix_array(text, args.device, mesh=mesh)  # warm-up
     t0 = time.time()
-    res = build_suffix_array(text, args.device)
+    res = build_suffix_array(text, args.device, mesh=mesh)
     t_psac = time.time() - t0
     t0 = time.time()
     sa_ref = native.suffix_array(text)
@@ -349,6 +381,10 @@ def cmd_kmer_stats(args) -> int:
     return 0
 
 
+DEVICES_HELP = ("shards of a mesh: all on --device when given, else on the "
+                "first P cards (default: one device)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="psac_tpu_torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -362,6 +398,8 @@ def main(argv=None) -> int:
         s.add_argument("--device", default=None,
                        help="torch device (default: the CUDA card; cpu runs "
                             "the kernels' plain versions)")
+        s.add_argument("--devices", type=int, default=None,
+                       help=DEVICES_HELP)
 
     s = sub.add_parser("psac")
     common(s)
@@ -394,7 +432,7 @@ def main(argv=None) -> int:
     s.add_argument("--tli", choices=["tllt", "tldt"], default="tllt",
                    help="top-level index kind (reference dist_desa<_,TLI>)")
     s.add_argument("--maxsize", type=int, default=None,
-                   help="tldt sampling maxsize (default n/128)")
+                   help="tldt sampling maxsize (default n/p/128)")
     s.set_defaults(fn=cmd_desa)
 
     s = sub.add_parser("benchmark")
@@ -423,6 +461,7 @@ def main(argv=None) -> int:
     s.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; cpu runs "
                         "the kernels' plain versions)")
+    s.add_argument("--devices", type=int, default=None, help=DEVICES_HELP)
     s.set_defaults(fn=cmd_benchmark_ansv)
 
     s = sub.add_parser("dss")

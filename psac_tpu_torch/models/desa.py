@@ -1,36 +1,54 @@
 """Enhanced suffix array pattern index, the DESA (port of
-``psac_tpu/models/desa.py`` at p = 1).
+``psac_tpu/models/desa.py``), on one device or on a mesh of p shards.
 
   * **TLLT** top-level lookup table: inclusive prefix sums of the k-mer
-    histogram; ``lookup(P)`` gives the SA range of P's first k chars.
+    histogram (each shard counts the k-mers that start in its block, their
+    tails read from a halo, and the counts are summed), replicated on every
+    shard; ``lookup(P)`` gives the SA range of P's first k chars.
   * **TLDT** top-level index: the LCP rows sampled by the ANSV
     characterization of ``ops/sample_lcp.py`` (nearest smaller values on
-    both sides: the block engine, kernel K5), searched like the slab.
-  * **Slabs**: the SA/LCP/Lc rows of the text in one segment padded to a
-    capacity (the JAX package's subtree-aligned layout with one shard).
+    both sides: the block engine, kernel K5, and on a mesh the routed walks
+    of ``parallel.ansv.ansv_mesh_local``), replicated on every shard and
+    searched like a slab.
+  * **Subtree-aligned slabs**: the SA/LCP/Lc rows redistributed by one
+    routed scatter so that each top-level bucket lies wholly on one shard
+    (the reference's weighted 1-D partition, ``include/desa.hpp:128-216``),
+    each shard's segment padded to a common capacity, with a
+    leftmost-argmin RMQ per slab.
   * **Blind search**: per pattern, walk the virtual suffix-tree intervals
-    using only the leftmost-argmin RMQ over LCP and the left-branching
-    characters Lc (``ops/blind_search.py``: kernel K7 on the card, one
-    launch that walks each pattern to its end; the batched torch walk on
-    the CPU).
-  * **bulk_locate**: TLLT or TLDT lookup, blind search, then verification
-    of one candidate row per pattern against the text.  Returns the exact
-    half-open SA range of each pattern's matches.
+    using only the RMQ over LCP and the left-branching characters Lc
+    (``ops/blind_search.py``: kernel K7 on the card, one launch that walks
+    each pattern to its end; the batched torch walk on the CPU).
+  * **bulk_locate**: the top-level lookup at the pattern's origin shard,
+    then one routed pass (``route_apply`` in p chunks) to the owner of the
+    pattern's bucket, which runs the blind search on its slab and verifies
+    one candidate row against the block-distributed text with a nested
+    routed gather (this also verifies occurrences that cross a shard
+    boundary); the answers ride back.  Returns the exact half-open SA range
+    of each pattern's matches.
   * **Persistence**: ``write_desa`` / ``read_desa`` keep SA/LCP/Lc as the
-    JAX package's flat ``.sa64/.lcp64/.lc64/.alpha`` files (byte-identical;
-    either package loads the other's); the top-level index, the partition
-    and the RMQ are rebuilt on load.  ``build_desa_from_file`` and
-    ``read_desa_from_file`` stage the text from a file.
+    JAX package's flat ``.sa64/.lcp64/.lc64/.alpha`` files (byte-identical
+    at every p; either package loads the other's); the top-level index, the
+    partition and the RMQ are rebuilt on load.  ``build_desa_from_file``
+    and ``read_desa_from_file`` read the text file once (split over the
+    shards on a mesh).
 
-Left out of this port: the per-process distributed writes and reads, the
-multi-process fetch, the ``PSAC_TIMER`` lines of query-routing and
-partition imbalance (shard statistics) and the ``PSAC_DESA_RUNGS`` switch
-of the lockstep walk's compaction.
+Every step is one shard function for every p: ``ctx`` is None on one
+device, where the collectives take their p = 1 forms, and the callers reach
+it through ``parallel.mesh.run_on``.  With ``PSAC_TIMER=1`` the build
+prints the partition imbalance and each query group its routing imbalance
+(the JAX package's ``[timer] [desa]`` lines); ``PSAC_DESA_RUNGS`` sets the
+plain walk's compaction rungs (``ops.blind_search.rung_widths``).
+
+Left out of this port: the per-process distributed writes and reads and
+the multi-process fetch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import sys
 
 import numpy as np
 import torch
@@ -45,12 +63,16 @@ from psac_tpu_torch.ops.alphabet import Alphabet
 from psac_tpu_torch.ops.ansv import NEAREST_SM
 from psac_tpu_torch.ops.bitops import pow2ceil
 from psac_tpu_torch.ops.blind_search import blind_search
-from psac_tpu_torch.ops.rmq import ArgLocalRMQ, build_arg_rmq
+from psac_tpu_torch.ops.rmq import ArgLocalRMQ, block_size_for, build_arg_rmq
 from psac_tpu_torch.parallel.ansv import (KERNELS, AnsvKernels, ansv_local,
-                                          nonsv_for)
-from psac_tpu_torch.parallel.collectives import halo_from_right
-from psac_tpu_torch.parallel.mesh import single_device
-from psac_tpu_torch.parallel.route import route_apply, route_scatter
+                                          ansv_mesh_local, nonsv_for)
+from psac_tpu_torch.parallel.collectives import (global_index_base,
+                                                 halo_from_right, psum)
+from psac_tpu_torch.parallel.mesh import (Rep, Replicated, Sharded,
+                                          num_shards, run_on)
+from psac_tpu_torch.parallel.route import (gather_global, route_apply,
+                                           route_scatter)
+from psac_tpu_torch.utils.timers import timers_enabled
 
 _MAX_LEN_GROUPS = 3
 
@@ -106,22 +128,59 @@ def _length_groups(lens: np.ndarray,
 # construction
 # --------------------------------------------------------------------------
 
-def _kmer_hist_local(xs, *, n: int, k: int, bits: int, T: int,
-                     idt: torch.dtype) -> torch.Tensor:
-    """k-mer histogram of the text (positions < n, zero-padded past it)."""
+def _nshards(ctx) -> int:
+    return 1 if ctx is None else ctx.p
+
+
+def _one_device(mesh, device):
+    """An entry point's (mesh, device): a mesh of one shard is its
+    device."""
+    if mesh is not None and mesh.p == 1:
+        return None, mesh.devices[0]
+    return mesh, device
+
+
+def _replicas(x):
+    """A shard function's copies of a replicated array as ``Replicated``
+    (on one device the tensor itself)."""
+    return Replicated(x.shards) if isinstance(x, Sharded) else x
+
+
+def _replicate(mesh, x: torch.Tensor, device):
+    """``x`` on ``device`` without a mesh, a copy per shard on a mesh."""
+    return x.to(device) if mesh is None else mesh.replicate(x)
+
+
+def _whole(x) -> torch.Tensor:
+    """A shard function's output whole: a ``Sharded`` one gathered to the
+    host in shard order (shard 0's copy of a ``Replicated`` one), a tensor
+    of one device as it is."""
+    return x.gather() if isinstance(x, Sharded) else x
+
+
+def _kmer_table(ctx, xs, *, n: int, k: int, bits: int, T: int,
+                idt: torch.dtype) -> torch.Tensor:
+    """This shard's copy of the TLLT: the inclusive prefix sums of the
+    k-mer histogram of the text (positions < n, zero-padded past it), each
+    shard counting the k-mers that start in its block (JAX
+    ``_kmer_hist_local``)."""
     if k * bits >= 31:
         raise ValueError(f"k-mer of {k} x {bits} bits does not fit int32")
     s = xs.shape[0]
-    win = torch.cat([xs, halo_from_right(xs, k - 1)])
+    win = torch.cat([xs, halo_from_right(xs, k - 1, ctx=ctx)])
     km = torch.zeros(s, dtype=torch.int32, device=xs.device)
     for j in range(k):
         km = (km << bits) | win[j:j + s]
-    return torch.bincount(km[:n].long(), minlength=T).to(idt)
+    real = min(s, max(0, n - global_index_base(s, ctx)))
+    hist = torch.bincount(km[:real].long(), minlength=T).to(idt)
+    return torch.cumsum(psum(hist, ctx), 0, dtype=idt)
 
 
 def _partition_from_prefix(ps: np.ndarray, n: int, p: int):
     """Host weighted 1-D partition at bin boundaries given inclusive prefix
-    bin sizes (reference include/partition.hpp + desa.hpp:186-215)."""
+    bin sizes (reference include/partition.hpp + desa.hpp:186-215); with
+    ``PSAC_TIMER`` it prints the imbalance, as the reference does at
+    construction (include/desa.hpp:169-183)."""
     targets = (np.arange(1, p) * n) // p
     cuts = np.minimum(np.searchsorted(ps, targets, side="left"), len(ps) - 1)
     begins_np = np.zeros(p, np.int64)
@@ -129,76 +188,117 @@ def _partition_from_prefix(ps: np.ndarray, n: int, p: int):
     ends = np.concatenate([begins_np[1:], [n]])
     segs = ends - begins_np
     cap = max(8, -(-int(segs.max()) // 8) * 8)
+    if timers_enabled() and p > 0:
+        print(f"[timer] [desa] partition imbalance: max={int(segs.max())} "
+              f"avg={n / p:.0f} factor={segs.max() * p / max(n, 1):.3f}",
+              file=sys.stderr, flush=True)
     return begins_np, cap
 
 
-def _reshard_local(lcp, sa, lc, *, n: int, cap: int, idt: torch.dtype):
-    """Scatter the real SA/LCP/Lc rows into the padded slabs (one segment:
-    real row g lands at slot g - (N - n)); the first real row's LCP is 0."""
-    N = lcp.shape[0]
-    off = N - n
-    g = torch.arange(N, dtype=idt, device=lcp.device)
+def _owner(begins: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The shard whose segment holds each SA row: the last one whose
+    segment begins at or before it (int32)."""
+    return (torch.searchsorted(begins, rows, right=True) - 1).to(torch.int32)
+
+
+def _reshard_local(ctx, lcp, sa, lc, begins, *, n: int, cap: int,
+                   idt: torch.dtype):
+    """This shard's (cap,) SA/LCP/Lc slabs (JAX ``_reshard_local``): each
+    real row goes to the shard whose segment holds it, at its offset in the
+    segment, by one routed scatter; the first real row's LCP is 0, and
+    empty slots hold SA 0, LCP INF and Lc 0."""
+    lcp, sa = lcp.to(idt), sa.to(idt)
+    s, dev = lcp.shape[0], lcp.device
+    off = s * _nshards(ctx) - n
+    base = global_index_base(s, ctx)
+    g = torch.arange(base, base + s, dtype=idt, device=dev)
     real = g >= off
-    slot = torch.where(real, g - off, 0)
-    dev = lcp.device
+    rg = torch.where(real, g - off, 0)
+    owner = _owner(begins, rg).long()
+    row = owner * cap + (rg - begins[owner]).long()
     slabs = (torch.zeros(cap, dtype=idt, device=dev),
              torch.full((cap,), torch.iinfo(idt).max, dtype=idt, device=dev),
              torch.zeros(cap, dtype=torch.int32, device=dev))
     lcp_adj = torch.where(g == off, 0, lcp)
-    return route_scatter(slot, (sa, lcp_adj, lc.to(torch.int32)), slabs, real)
+    return route_scatter(row, (sa, lcp_adj, lc.to(torch.int32)), slabs, real,
+                         ctx=ctx)
 
 
-def _sample_mask_local(lcp, *, n: int, maxsize: int,
+def _rmq_tables(ctx, x):
+    """The leftmost-argmin RMQ tables (tab_v, tab_a) of this shard's block
+    or copy of ``x``."""
+    r = build_arg_rmq(x)
+    return r.tab_v, r.tab_a
+
+
+def _sample_mask_local(ctx, lcp, *, n: int, maxsize: int,
                        kernels: AnsvKernels = KERNELS) -> torch.Tensor:
-    """LCP-sampling mask by ANSV (see ``ops/sample_lcp.py`` for the
-    characterization); ``kernels=PLAIN`` runs the kernels' plain
-    versions."""
+    """This shard's LCP-sampling mask by ANSV (see ``ops/sample_lcp.py``
+    for the characterization; JAX ``_sample_mask_local``): ``ansv_local``
+    on one device, ``ansv_mesh_local`` with unbounded routing on a mesh;
+    ``kernels=PLAIN`` runs the kernels' plain versions."""
     idt = lcp.dtype
     inf = nonsv_for(idt)
-    N = lcp.shape[0]
+    s = lcp.shape[0]
+    N = s * _nshards(ctx)
     off = N - n
-    g = torch.arange(N, dtype=idt, device=lcp.device)
+    base = global_index_base(s, ctx)
+    g = torch.arange(base, base + s, dtype=idt, device=lcp.device)
     real = g >= off
     lcp_adj = torch.where(real, lcp, -1)
     lcp_adj = torch.where(g == off, 0, lcp_adj)
-    lidx, _, ridx, _ = ansv_local(lcp_adj, NEAREST_SM, NEAREST_SM, kernels)
+    if ctx is None:
+        lidx, _, ridx, _ = ansv_local(lcp_adj, NEAREST_SM, NEAREST_SM,
+                                      kernels)
+    else:
+        lidx, _, ridx, _, _ = ansv_mesh_local(ctx, lcp_adj, NEAREST_SM,
+                                              NEAREST_SM, None, kernels)
     L = torch.clamp(torch.where(lidx == inf, off, lidx), min=off)
     R = torch.where(ridx == inf, N, ridx)
     return real & ((g == off) | (lcp_adj == 0) | ((R - L) > maxsize))
 
 
-def _sample_compact_local(keep, lcp, lc, *, n: int):
-    """The sampled rows in SA order: (text-offset row, LCP, Lc); the first
-    real row's LCP is 0."""
-    N = lcp.shape[0]
-    off = N - n
-    rows = torch.nonzero(keep).squeeze(1)
-    lcp_adj = torch.where(rows == off, 0, lcp[rows])
-    return (rows - off).to(lcp.dtype), lcp_adj, lc[rows].to(torch.int32)
+def _sample_rows(ctx, keep, lcp, lc, *, n: int):
+    """This shard's sampled rows in SA order: (text-offset row, LCP, Lc),
+    the first real row's LCP 0.  Concatenated in shard order they are the
+    rows that the JAX package's 1-key distributed sort
+    (``_sample_compact_local``) brings to the front, in its order."""
+    s = lcp.shape[0]
+    off = s * _nshards(ctx) - n
+    base = global_index_base(s, ctx)
+    loc = torch.nonzero(keep).squeeze(1)
+    rows = loc + base
+    lcp_adj = torch.where(rows == off, 0, lcp[loc])
+    return (rows - off).to(lcp.dtype), lcp_adj, lc[loc].to(torch.int32)
 
 
 @dataclasses.dataclass
 class DESA:
-    """Device-resident pattern index of one text."""
+    """Device-resident pattern index of one text, on one device or on the
+    p shards of ``mesh``: there ``xs`` and the slabs are ``Sharded`` (p
+    slabs of ``cap`` rows), the RMQ holds each slab's tables, and
+    ``table``, ``begins`` and the TLDT sample are ``Replicated``."""
 
     alphabet: Alphabet
     n: int
     N: int
     k: int                    # TLLT k-mer length (= minmatch)
     table: torch.Tensor       # (T,) inclusive k-mer prefix sums
-    begins: torch.Tensor      # (1,) segment start (SA row space)
+    begins: torch.Tensor      # (p,) segment starts (SA row space)
     begins_np: np.ndarray
     cap: int                  # segment capacity
-    sa: torch.Tensor          # (cap,) SA rows
+    sa: torch.Tensor          # (cap,) SA rows of each segment
     lcp: torch.Tensor
     lc: torch.Tensor
-    rmq: ArgLocalRMQ          # leftmost-argmin RMQ over ``lcp``
+    rmq: ArgLocalRMQ          # leftmost-argmin RMQ over each ``lcp`` slab
     xs: torch.Tensor          # (N,) encoded text (verification)
     tli: str = "tllt"         # top-level index kind: "tllt" or "tldt"
     samp: dict | None = None  # tldt: sampled-LCP search structure
     idt: torch.dtype = torch.int32  # index dtype
+    mesh: object = None       # the mesh of p > 1 shards, None on one device
     #: the last query batch's blind-search steps (each search's longest
-    #: walk, summed over the searches) and the plain walk's host readbacks
+    #: walk, summed over the searches and shards) and the plain walk's
+    #: host readbacks
     last_stats: dict = dataclasses.field(default_factory=dict)
 
     # ---------------- queries ----------------
@@ -245,8 +345,7 @@ class DESA:
         """Length-bucketed dispatch: ragged batches are split into at most
         ``_MAX_LEN_GROUPS`` Lmax tiers before padding, so one long pattern
         cannot inflate the whole (B, Lmax) code matrix."""
-        stats = self.last_stats = {"steps": 0, "readbacks": 0,
-                                   "step_max": []}
+        steps, reads = [], []
         if len(patterns) == 0:
             out = np.zeros((0, 2), np.int64)
         else:
@@ -254,27 +353,53 @@ class DESA:
                                len(patterns))
             groups = _length_groups(lens)
             if len(groups) == 1:
-                out = self._run_query_group(patterns, verify)
+                out = self._run_query_group(patterns, verify, steps, reads)
             else:
                 out = np.zeros((len(patterns), 2), np.int64)
                 for idx in groups:
                     out[idx] = self._run_query_group(
-                        [patterns[i] for i in idx], verify)
-        # steps: the longest walk of each blind search, summed over them
-        step_max = stats.pop("step_max")
-        if step_max:
-            stats["steps"] = int(torch.stack(step_max).sum())
+                        [patterns[i] for i in idx], verify, steps, reads)
+        self.last_stats = {"steps": sum(int(_whole(x).sum()) for x in steps),
+                           "readbacks": sum(int(_whole(x).sum())
+                                            for x in reads)}
         return out
 
-    def _run_query_group(self, patterns, verify: bool) -> np.ndarray:
+    def _run_query_group(self, patterns, verify: bool, steps: list,
+                         reads: list) -> np.ndarray:
+        """One length group: on a mesh the batch is padded with rows of
+        length 0 as the JAX package pads it (to a power of two of at least
+        p rows; to the next multiple of an odd p) and split into p blocks;
+        each shard's step and readback counts join ``steps`` and
+        ``reads``."""
         mat, lens, bad = self.encode_patterns(patterns)
-        dev = self.xs.device
-        dmat = torch.from_numpy(mat).to(dev)
-        dlens = torch.from_numpy(lens).to(dev)
+        B = mat.shape[0]
+        p = num_shards(self.mesh)
+        if p > 1:
+            Bp = -(-max(p, pow2ceil(B)) // p) * p
+            mat = np.vstack([mat, np.zeros((Bp - B, mat.shape[1]), np.int32)])
+            lens = np.concatenate([lens, np.zeros(Bp - B, np.int32)])
+            dmat, dlens = (self.mesh.shard(torch.from_numpy(a))
+                           for a in (mat, lens))
+        else:
+            dmat, dlens = (torch.from_numpy(a).to(self.xs.device)
+                           for a in (mat, lens))
         run = _bulk_locate_local if self.tli == "tllt" else \
             _bulk_locate_tldt_local
-        l, r = run(dmat, dlens, self, verify, self.last_stats)
-        out = torch.stack([l, r], dim=1).cpu().numpy().astype(np.int64)
+        timed = timers_enabled()
+        lr, nsteps, nreads, counts = run_on(
+            self.mesh, functools.partial(run, verify=verify, stats=timed),
+            dmat, dlens, self)
+        steps.append(nsteps)
+        reads.append(nreads)
+        if timed:
+            # query load imbalance (reference bulk_rma.hpp:27-35)
+            counts = counts.cpu().numpy().astype(np.int64)
+            tot = max(int(counts.sum()), 1)
+            print(f"[timer] [desa] query routing: max={int(counts.max())} "
+                  f"avg={tot / p:.0f} "
+                  f"imbalance={counts.max() * p / tot:.3f}",
+                  file=sys.stderr, flush=True)
+        out = _whole(lr)[:B].cpu().numpy().astype(np.int64)
         out[bad] = 0
         return out
 
@@ -284,10 +409,11 @@ def build_desa(text, device=None,
                tli_bits: int = 24, tli: str = "tllt",
                maxsize: int | None = None, mesh=None) -> DESA:
     """Construct the DESA of a byte text on ``device`` (None: the CUDA
-    card; ``"cpu"`` runs the plain versions): SA+LCP+Lc, the top-level
-    index (TLLT or TLDT), the slabs and the RMQ.  A ``mesh`` of p > 1
-    raises (not ported yet)."""
-    device = single_device(mesh, device, "build_desa")
+    card; ``"cpu"`` runs the plain versions), or on the p shards of
+    ``mesh`` (``parallel.mesh.make_mesh``), which then replaces ``device``:
+    SA+LCP+Lc, the top-level index (TLLT or TLDT), the partition, the
+    slabs and the RMQ.  ``maxsize`` (TLDT) defaults to n / p / 128."""
+    mesh, device = _one_device(mesh, device)
     if not (isinstance(text, (bytes, bytearray))
             or np.asarray(text).dtype == np.uint8):
         # a TLLT of (sigma bits)^k entries over a wide integer alphabet
@@ -295,40 +421,46 @@ def build_desa(text, device=None,
         raise ValueError("build_desa requires a byte text "
                          "(bytes or uint8 array); got dtype "
                          f"{np.asarray(text).dtype}")
-    xs, alpha, n, N = encode_and_shard(text, device)
-    return _build_from_codes(xs, alpha, n, N, config, tli_bits, tli, maxsize)
+    xs, alpha, n, N = encode_and_shard(text, device, mesh)
+    return _build_from_codes(xs, alpha, n, N, config, tli_bits, tli, maxsize,
+                             mesh)
 
 
 def build_desa_from_file(path: str, device=None,
                          config: cfg_mod.SAConfig = cfg_mod.DEFAULT,
                          tli_bits: int = 24, tli: str = "tllt",
                          maxsize: int | None = None, mesh=None) -> DESA:
-    """``build_desa`` of a file's bytes: the file is staged raw on
-    ``device`` (None: the CUDA card) and its alphabet counted there.  A
-    ``mesh`` of p > 1 raises (not ported yet)."""
-    device = single_device(mesh, device, "build_desa_from_file")
-    xs, alpha, n, N = encode_and_shard_file(path, device)
-    return _build_from_codes(xs, alpha, n, N, config, tli_bits, tli, maxsize)
+    """``build_desa`` of a file's bytes: the file is read once, staged raw
+    on ``device`` (None: the CUDA card) or split over the shards of
+    ``mesh``, and its alphabet counted there."""
+    mesh, device = _one_device(mesh, device)
+    xs, alpha, n, N = encode_and_shard_file(path, device, mesh)
+    return _build_from_codes(xs, alpha, n, N, config, tli_bits, tli, maxsize,
+                             mesh)
 
 
 def _build_from_codes(xs, alpha, n: int, N: int, config, tli_bits: int,
-                      tli: str, maxsize: int | None) -> DESA:
-    dsa = construct_device(xs, alpha, n, N, config)
+                      tli: str, maxsize: int | None, mesh) -> DESA:
+    dsa = construct_device(xs, alpha, n, N, config, mesh)
     lc = dsa.lc if dsa.lc is not None else compute_lc_device(dsa, xs)
     return _assemble_desa(xs, alpha, n, N, dsa.lcp, dsa.sa, lc, tli_bits,
-                          tli, maxsize, force_int64=config.force_int64)
+                          tli, maxsize, force_int64=config.force_int64,
+                          mesh=mesh)
 
 
 def _assemble_desa(xs, alpha, n: int, N: int, lcp, sa, lc, tli_bits: int,
                    tli: str = "tllt", maxsize: int | None = None,
-                   force_int64: bool = False) -> DESA:
-    """Top-level index + slabs + RMQ from the padded (N,) SA/LCP/Lc.
+                   force_int64: bool = False, mesh=None) -> DESA:
+    """Top-level index + partition + slabs + RMQ from the padded (N,)
+    SA/LCP/Lc (``Sharded`` on a mesh).
 
     The slabs, ``table``, ``begins`` and the answers carry the index dtype
     (int64 at N >= 2^30 or with ``force_int64``); in-slab offsets, pattern
-    codes and Lc stay int32."""
+    codes and Lc stay int32.  On a mesh the replicated arrays are made on
+    the host and copied to every shard's device."""
     idt = torch.int64 if force_int64 else cfg_mod.index_dtype(N)
-    lcp, sa = lcp.to(idt), sa.to(idt)
+    p = num_shards(mesh)
+    home = xs.device if mesh is None else "cpu"
     bits = alpha.bits_per_char
     # k-mer depth of the top-level table: the reference's 2^24-entry budget,
     # capped so tiny inputs don't allocate a table vastly larger than the text
@@ -336,56 +468,79 @@ def _assemble_desa(xs, alpha, n: int, N: int, lcp, sa, lc, tli_bits: int,
     while k > 1 and (1 << (k * bits)) > max(1024, 4 * n):
         k -= 1
     samp = None
-    table = torch.zeros(1, dtype=idt, device=xs.device)
+    table = _replicate(mesh, torch.zeros(1, dtype=idt), home)
 
     if tli == "tllt":
-        T = 1 << (k * bits)
-        table = torch.cumsum(
-            _kmer_hist_local(xs, n=n, k=k, bits=bits, T=T, idt=idt), 0,
-            dtype=idt)
-        begins_np, cap = _partition_from_prefix(table.cpu().numpy(), n, 1)
+        table = _replicas(run_on(mesh, functools.partial(
+            _kmer_table, n=n, k=k, bits=bits, T=1 << (k * bits), idt=idt),
+            xs))
+        begins_np, cap = _partition_from_prefix(
+            _whole(table).cpu().numpy(), n, p)
     elif tli == "tldt":
-        # sampled-LCP top-level trie (reference tldt, maxsize = n/p/128)
-        ms = maxsize or max(2, n // 128)
-        keep = _sample_mask_local(lcp, n=n, maxsize=ms)
-        offs, s_lcp, s_lc = _sample_compact_local(keep, lcp, lc, n=n)
+        # sampled-LCP top-level trie (reference tldt, maxsize = n/p/128):
+        # the mask on the shards, their sampled rows (about n / maxsize)
+        # to one place, then replicated
+        ms = maxsize or max(2, n // p // 128)
+        keep = run_on(mesh, functools.partial(_sample_mask_local, n=n,
+                                              maxsize=ms), lcp)
+        offs, s_lcp, s_lc = (_whole(x) for x in run_on(
+            mesh, functools.partial(_sample_rows, n=n), keep, lcp, lc))
         m = offs.shape[0]
         if m < 2:
             raise ValueError("tldt sampling produced < 2 rows; lower maxsize")
         M = max(8, pow2ceil(m))
+        at = offs.device
         samp_lcp = torch.full((M,), torch.iinfo(idt).max, dtype=idt,
-                              device=xs.device)
+                              device=at)
         samp_lcp[:m] = s_lcp
-        samp_lc = torch.zeros(M, dtype=torch.int32, device=xs.device)
+        samp_lc = torch.zeros(M, dtype=torch.int32, device=at)
         samp_lc[:m] = s_lc
-        off_ext = torch.full((M + 1,), n, dtype=idt, device=xs.device)
+        off_ext = torch.full((M + 1,), n, dtype=idt, device=at)
         off_ext[:m] = offs
-        samp = {"off_ext": off_ext, "lcp": samp_lcp, "lc": samp_lc,
-                "rmq": build_arg_rmq(samp_lcp), "m": m, "M": M}
+        samp_lcp = _replicate(mesh, samp_lcp, home)
+        s_tab_v, s_tab_a = run_on(mesh, _rmq_tables, samp_lcp)
+        samp = {"off_ext": _replicate(mesh, off_ext, home), "lcp": samp_lcp,
+                "lc": _replicate(mesh, samp_lc, home),
+                "rmq": ArgLocalRMQ(x=samp_lcp, tab_v=_replicas(s_tab_v),
+                                   tab_a=_replicas(s_tab_a),
+                                   block=block_size_for(M)),
+                "m": m, "M": M}
         ps = np.concatenate([offs[1:].cpu().numpy(), [n]]).astype(np.int64)
-        begins_np, cap = _partition_from_prefix(ps, n, 1)
+        begins_np, cap = _partition_from_prefix(ps, n, p)
     else:
         raise ValueError(f"unknown tli kind {tli!r}")
 
-    begins = torch.from_numpy(begins_np).to(idt).to(xs.device)
-    sa_slab, lcp_slab, lc_slab = _reshard_local(lcp, sa, lc, n=n, cap=cap,
-                                                idt=idt)
+    begins = _replicate(mesh, torch.from_numpy(begins_np).to(idt), home)
+    sa_slab, lcp_slab, lc_slab = run_on(mesh, functools.partial(
+        _reshard_local, n=n, cap=cap, idt=idt), lcp, sa, lc, begins)
+    tab_v, tab_a = run_on(mesh, _rmq_tables, lcp_slab)
     return DESA(alphabet=alpha, n=n, N=N, k=k, table=table, begins=begins,
                 begins_np=begins_np, cap=cap, sa=sa_slab, lcp=lcp_slab,
-                lc=lc_slab, rmq=build_arg_rmq(lcp_slab), xs=xs, tli=tli,
-                samp=samp, idt=idt)
+                lc=lc_slab,
+                rmq=ArgLocalRMQ(x=lcp_slab, tab_v=tab_v, tab_a=tab_a,
+                                block=block_size_for(cap)),
+                xs=xs, tli=tli, samp=samp, idt=idt, mesh=mesh)
 
 
 def desa_arrays(desa: DESA):
-    """Host (n,) SA/LCP/Lc arrays in SA order (slab padding stripped)."""
-    return tuple(slab[:desa.n].cpu().numpy().astype(np.int64)
-                 for slab in (desa.sa, desa.lcp, desa.lc))
+    """Host (n,) SA/LCP/Lc arrays in global SA order: each segment's rows
+    (slab padding stripped), in shard order."""
+    ends = np.concatenate([desa.begins_np[1:], [desa.n]])
+    segs = (ends - desa.begins_np).astype(np.int64)
+    out = []
+    for slab in (desa.sa, desa.lcp, desa.lc):
+        slabs = slab.shards if isinstance(slab, Sharded) else [slab]
+        out.append(np.concatenate(
+            [t[:segs[r]].cpu().numpy() for r, t in enumerate(slabs)]
+        ).astype(np.int64))
+    return tuple(out)
 
 
 def write_desa(desa: DESA, prefix: str) -> None:
     """Persist the index as ``.sa64/.lcp64/.lc64/.alpha`` (the top-level
     index, the partition and the RMQ are rebuilt on load, as the
-    reference's ``dist_desa::write``, ``include/desa.hpp:366-397``)."""
+    reference's ``dist_desa::write``, ``include/desa.hpp:366-397``); the
+    files do not depend on p."""
     sa, lcp, lc = desa_arrays(desa)
     io_mod.write_u64(prefix + ".sa64", sa)
     io_mod.write_u64(prefix + ".lcp64", lcp)
@@ -394,10 +549,11 @@ def write_desa(desa: DESA, prefix: str) -> None:
 
 
 def _load_index(xs, alpha, n: int, N: int, prefix: str, tli_bits: int,
-                tli: str, maxsize: int | None, force_int64: bool) -> DESA:
+                tli: str, maxsize: int | None, force_int64: bool,
+                mesh) -> DESA:
     """The persisted SA/LCP/Lc, front-padded to the (N,) construction
-    layout on the codes' device, assembled with a top-level index chosen
-    now."""
+    layout on the codes' device (or split over the mesh's shards),
+    assembled with a top-level index chosen now."""
     sa = io_mod.read_u64(prefix + ".sa64")
     if len(sa) != n:
         raise ValueError(f"index built for n={len(sa)}, text has n={n}")
@@ -406,38 +562,41 @@ def _load_index(xs, alpha, n: int, N: int, prefix: str, tli_bits: int,
     def pad_block(a, dt):
         full = torch.zeros(N, dtype=dt)
         full[N - n:] = torch.from_numpy(a).to(dt)
-        return full.to(xs.device)
+        return full.to(xs.device) if mesh is None else mesh.shard(full)
 
     return _assemble_desa(
         xs, alpha, n, N, pad_block(io_mod.read_u64(prefix + ".lcp64"), idt),
         pad_block(sa, idt),
         pad_block(io_mod.read_u64(prefix + ".lc64"), torch.int32), tli_bits,
-        tli, maxsize, force_int64=force_int64)
+        tli, maxsize, force_int64=force_int64, mesh=mesh)
 
 
 def read_desa(text, prefix: str, device=None, tli_bits: int = 24,
               tli: str = "tllt", maxsize: int | None = None,
-              force_int64: bool = False) -> DESA:
+              force_int64: bool = False, mesh=None) -> DESA:
     """Load a persisted DESA (it needs the original text, as the
-    reference's ``desa-main -l`` does) on ``device`` (None: the CUDA card);
-    ``tli``/``maxsize`` select the top-level index rebuilt on load."""
-    xs, alpha, n, N = encode_and_shard(text, device)
+    reference's ``desa-main -l`` does) on ``device`` (None: the CUDA card)
+    or on ``mesh``, whatever p wrote it; ``tli``/``maxsize`` select the
+    top-level index rebuilt on load."""
+    mesh, device = _one_device(mesh, device)
+    xs, alpha, n, N = encode_and_shard(text, device, mesh)
     return _load_index(xs, alpha, n, N, prefix, tli_bits, tli, maxsize,
-                       force_int64)
+                       force_int64, mesh)
 
 
 def read_desa_from_file(text_path: str, prefix: str, device=None,
                         tli_bits: int = 24, tli: str = "tllt",
                         maxsize: int | None = None,
-                        force_int64: bool = False) -> DESA:
-    """``read_desa`` with the text staged from a file."""
-    xs, alpha, n, N = encode_and_shard_file(text_path, device)
+                        force_int64: bool = False, mesh=None) -> DESA:
+    """``read_desa`` with the text read once from a file."""
+    mesh, device = _one_device(mesh, device)
+    xs, alpha, n, N = encode_and_shard_file(text_path, device, mesh)
     return _load_index(xs, alpha, n, N, prefix, tli_bits, tli, maxsize,
-                       force_int64)
+                       force_int64, mesh)
 
 
 # --------------------------------------------------------------------------
-# queries
+# queries (shard functions: ``ctx`` None on one device)
 # --------------------------------------------------------------------------
 
 def _tli_lookup(mat, lens, table, k: int, bits: int):
@@ -462,113 +621,142 @@ def _tli_lookup(mat, lens, table, k: int, bits: int):
 
 
 def _search(pat, lens, l0, r0, need, lcp, lc, rmq: ArgLocalRMQ, cap: int,
-            stats: dict):
+            counts: dict):
     """The blind search (K7 on the card, its plain version on the CPU);
-    each pattern's step count stays on the device until the batch's
+    each pattern's step count stays on the device until the group's
     results are read back (``DESA._run_query``)."""
     l, r, q, nsteps = blind_search(pat, lens, l0, r0, need, lcp, lc, rmq, cap,
-                                   stats)
-    stats["step_max"].append(nsteps.max())
+                                   counts)
+    counts["step_max"].append(nsteps.max())
     return l, r, q
 
 
-def _verify_match(rp, rlen, ver_row, sa_slab, xs, *, Lmax: int, n: int,
+def _verify_match(ctx, rp, rlen, ver_row, rows, sa_slab, xs, *, n: int,
                   cap: int):
-    """Text verification of one candidate row per pattern: gather the
-    pattern-length window of the text starting at SA[ver_row] and
-    compare."""
-    N = xs.shape[0]
+    """Text verification of one candidate row per pattern: the
+    pattern-length window of the text starting at SA[ver_row], each
+    character gathered from the shard that holds it, compared with the
+    pattern.  Only the ``rows`` whose answer reads the match gather."""
+    M, Lmax = rp.shape
     sal = sa_slab[ver_row.clamp(0, cap - 1)]
-    M = ver_row.shape[0]
     cols = torch.arange(Lmax, device=xs.device)
     pos = sal.to(torch.int64)[:, None] + cols[None, :]
     in_pat = cols[None, :] < rlen[:, None]
     in_text = pos < n
-    flatpos = torch.where(in_text, pos, 0).clamp(0, N - 1).reshape(-1)
-
-    def gather(recv, recv_valid):
-        (q,) = recv
-        return (xs[q],)
-
-    (got,) = route_apply((flatpos,), gather)
+    got = gather_global(xs, pos.reshape(-1),
+                        (in_pat & in_text & rows[:, None]).reshape(-1),
+                        ctx=ctx)
     okc = torch.where(in_pat, in_text & (got.view(M, Lmax) == rp), True)
     return okc.all(dim=1)
 
 
-def _locate_in_slab(rp, rlen, rlo, rhi, need_q, search, desa: DESA,
-                    verify: bool, stats: dict, finished=None):
+def _locate_in_slab(ctx, rp, rlen, rlo, rhi, need_q, search, desa: DESA,
+                    verify: bool, counts: dict, finished=None):
     """The owner's part of a query: blind search of the candidate SA range
-    [rlo, rhi) on the slab and verification of one row.  Returns the
-    in-slab (l_loc, fl, fr, match)."""
-    begin = int(desa.begins_np[0])
+    [rlo, rhi) on this shard's slab and verification of one row.  Returns
+    the in-slab (fl, fr) and the match flags."""
     cap = desa.cap
+    begin = int(desa.begins_np[0 if ctx is None else ctx.rank])
     # in-slab coordinates are int32 (cap < 2^31) even for int64 indexes
     l_loc = (rlo - begin).clamp(0, cap - 1).to(torch.int32)
     r_loc = (rhi - 1 - begin).clamp(0, cap - 1).to(torch.int32)
     search = search & (l_loc < r_loc)
-    fl, fr, _ = _search(rp, rlen, l_loc, r_loc, search, desa.lcp, desa.lc,
-                        desa.rmq, cap, stats)
+    # a row not searched (most of a received buffer on a mesh) starts on
+    # one row, so the walk's first range minimum reads one word; its
+    # outputs are not used
+    fl, fr, _ = _search(rp, rlen, l_loc, torch.where(search, r_loc, l_loc),
+                        search, desa.lcp, desa.lc, desa.rmq, cap, counts)
     fl = torch.where(search, fl, l_loc)
     fr = torch.where(search, fr, r_loc)
     if verify:
         ver_row = fl if finished is None else torch.where(finished, l_loc, fl)
-        match = _verify_match(rp, rlen, ver_row, desa.sa, desa.xs,
-                              Lmax=rp.shape[1], n=desa.n, cap=cap)
+        match = _verify_match(ctx, rp, rlen, ver_row, need_q, desa.sa,
+                              desa.xs, n=desa.n, cap=cap)
     else:
         match = torch.ones_like(need_q)
     return fl, fr, match
 
 
-def _bulk_locate_local(mat, lens, desa: DESA, verify: bool, stats: dict):
-    """bulk_locate with the TLLT: the table gives each pattern's range of
-    its first k chars; longer patterns continue by blind search."""
-    idt, k, begin = desa.idt, desa.k, int(desa.begins_np[0])
+def _group_out(ctx, l, r, need, dest, counts: dict, stats: bool):
+    """A query shard function's outputs: the (b, 2) ranges, its blind
+    searches' longest walks summed, the plain walk's readbacks and, with
+    ``stats``, the patterns routed to each shard (replicated, None
+    without)."""
+    routed = None
+    if stats:
+        routed = psum(torch.zeros(_nshards(ctx), dtype=torch.int32,
+                                  device=need.device).index_add_(
+            0, dest.long(), need.to(torch.int32)), ctx)
+    return (torch.stack([l, r], dim=1),
+            torch.stack(counts["step_max"]).sum().reshape(1),
+            torch.tensor([counts["readbacks"]]), Rep(routed))
+
+
+def _bulk_locate_local(ctx, mat, lens, desa: DESA, *, verify: bool,
+                       stats: bool):
+    """bulk_locate with the TLLT (JAX ``_bulk_locate_local``): the table
+    gives each pattern's range of its first k chars; longer patterns go to
+    the owner of that range and continue by blind search there."""
+    counts = {"readbacks": 0, "step_max": []}
+    idt, k = desa.idt, desa.k
+    begin = int(desa.begins_np[0 if ctx is None else ctx.rank])
     lo, hi = _tli_lookup(mat, lens, desa.table, k,
                          desa.alphabet.bits_per_char)
     need = (lens > k) & (lo < hi)
+    dest = torch.where(need, _owner(desa.begins, lo),
+                       0 if ctx is None else ctx.rank)
 
     def answer(recv, recv_valid):
         rp, rlen, rlo, rhi = recv
         need_q = recv_valid & (rlen > k) & (rlo < rhi)
-        fl, fr, match = _locate_in_slab(rp, rlen, rlo, rhi, need_q, need_q,
-                                        desa, verify, stats)
+        fl, fr, match = _locate_in_slab(ctx, rp, rlen, rlo, rhi, need_q,
+                                        need_q, desa, verify, counts)
         out_l = fl.to(idt) + begin
         out_r = torch.where(need_q & match, fr.to(idt) + begin + 1, out_l)
         return (torch.where(need_q, out_l, 0), torch.where(need_q, out_r, 0))
 
-    al, ar = route_apply((mat, lens, lo, hi), answer)
-    return torch.where(need, al, lo), torch.where(need, ar, hi)
+    al, ar = route_apply((mat, lens, lo, hi), answer, dest=dest, ctx=ctx)
+    return _group_out(ctx, torch.where(need, al, lo), torch.where(need, ar, hi),
+                      need, dest, counts, stats)
 
 
-def _bulk_locate_tldt_local(mat, lens, desa: DESA, verify: bool,
-                            stats: dict):
-    """bulk_locate with the TLDT (reference ``tldt::lookup``): the sampled
-    LCP rows are searched first; if that consumed the whole pattern the
-    owner only verifies, otherwise it continues the search on the slab.
-    Every result is verified against the text."""
-    idt, begin = desa.idt, int(desa.begins_np[0])
+def _bulk_locate_tldt_local(ctx, mat, lens, desa: DESA, *, verify: bool,
+                            stats: bool):
+    """bulk_locate with the TLDT (JAX ``_bulk_locate_tldt_local``, the
+    reference's ``tldt::lookup``): the replicated sample is searched at the
+    pattern's origin shard; if that consumed the whole pattern the owner
+    only verifies, otherwise it continues the search on its slab.  Every
+    result is verified against the text."""
+    counts = {"readbacks": 0, "step_max": []}
+    idt = desa.idt
+    begin = int(desa.begins_np[0 if ctx is None else ctx.rank])
     samp = desa.samp
     M_samp = samp["M"]
     zero = torch.zeros_like(lens)
     need0 = lens > 0
-    ls, rs, qf = _search(mat, lens, zero, zero + (samp["m"] - 1), need0,
-                         samp["lcp"], samp["lc"], samp["rmq"], M_samp, stats)
+    ls, rs, qf = _search(mat, lens, zero,
+                         torch.where(need0, samp["m"] - 1, zero), need0,
+                         samp["lcp"], samp["lc"], samp["rmq"], M_samp, counts)
     glo = samp["off_ext"][ls.clamp(0, M_samp)]
     ghi = samp["off_ext"][(rs + 1).clamp(0, M_samp)]
     finished = (qf >= lens) | (ghi <= glo)
     need = need0 & (glo < ghi)
+    dest = torch.where(need, _owner(desa.begins, glo),
+                       0 if ctx is None else ctx.rank)
 
     def answer(recv, recv_valid):
         rp, rlen, rlo, rhi, rfin = recv
         need_q = recv_valid & (rlen > 0) & (rlo < rhi)
-        fl, fr, match = _locate_in_slab(rp, rlen, rlo, rhi, need_q,
-                                        need_q & ~rfin, desa, verify, stats,
+        fl, fr, match = _locate_in_slab(ctx, rp, rlen, rlo, rhi, need_q,
+                                        need_q & ~rfin, desa, verify, counts,
                                         finished=rfin)
         out_l = torch.where(rfin, rlo, fl.to(idt) + begin)
         out_r_full = torch.where(rfin, rhi, fr.to(idt) + begin + 1)
         out_r = torch.where(need_q & match, out_r_full, out_l)
         return (torch.where(need_q, out_l, 0), torch.where(need_q, out_r, 0))
 
-    al, ar = route_apply((mat, lens, glo, ghi, finished), answer)
+    al, ar = route_apply((mat, lens, glo, ghi, finished), answer, dest=dest,
+                         ctx=ctx)
     # unrouted patterns have an empty lookup range -> empty result
-    return torch.where(need, al, glo), torch.where(need, ar, glo)
+    return _group_out(ctx, torch.where(need, al, glo),
+                      torch.where(need, ar, glo), need, dest, counts, stats)

@@ -18,6 +18,7 @@ for bit.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -28,7 +29,9 @@ from psac_tpu_torch.parallel.route import route_scatter
 
 I32_MAX = torch.iinfo(torch.int32).max
 
-#: Active-set compaction rungs of the plain walk: batch-width divisors.
+#: Active-set compaction rungs of the plain walk: batch-width divisors;
+#: ``PSAC_DESA_RUNGS="2,8,64"`` sets others at call time (K7 has no rungs
+#: and ignores it).
 _COMPACT_RUNGS = (2, 8, 64)
 #: Plain-walk steps between readbacks of the exit and compaction tests.
 _CHECK_EVERY = 4
@@ -43,6 +46,22 @@ def max_steps_for(cap: int) -> int:
     return 2 * cap + 64
 
 
+def rung_widths(M: int) -> list[int]:
+    """The widths the plain walk of ``M`` patterns compacts to, one per
+    rung (``PSAC_DESA_RUNGS``, read now, else ``_COMPACT_RUNGS``): each
+    ``M / divisor`` rounded up to a power of two, at least 256, narrower
+    than ``M`` and than the rung before."""
+    spec = os.environ.get("PSAC_DESA_RUNGS")
+    rungs = tuple(int(v) for v in spec.split(",")) if spec else \
+        _COMPACT_RUNGS
+    widths = []
+    for dv in rungs:
+        w = max(256, pow2ceil(-(-M // dv)))
+        if w < M and (not widths or w < widths[-1]):
+            widths.append(w)
+    return widths
+
+
 def blind_search_plain(pat, lens, l0, r0, need, lcp_slab, lc_slab,
                        rmq: ArgLocalRMQ, cap: int, stats: dict):
     """Plain version of K7: the batched walk in inclusive in-slab
@@ -51,9 +70,9 @@ def blind_search_plain(pat, lens, l0, r0, need, lcp_slab, lc_slab,
     count (int32).
 
     The walk is lockstep over the batch.  Once the active count drops to a
-    rung's width the state is compacted to that width (a 1-key sort) and
-    the walk continues there; results are scattered back through one drop
-    slot.  ``stats`` counts ``readbacks``."""
+    rung's width (``rung_widths``) the state is compacted to that width (a
+    1-key sort) and the walk continues there; results are scattered back
+    through one drop slot.  ``stats`` counts ``readbacks``."""
     M = l0.shape[0]
 
     def lcp_at(i):
@@ -140,11 +159,7 @@ def blind_search_plain(pat, lens, l0, r0, need, lcp_slab, lc_slab,
                   widths[1:])
         return route_scatter(idxc, stc, st, valid)
 
-    widths = []
-    for dv in _COMPACT_RUNGS:
-        w = max(256, pow2ceil(-(-M // dv)))
-        if w < M and (not widths or w < widths[-1]):
-            widths.append(w)
+    widths = rung_widths(M)
     i0 = rmq_q(l0 + 1, r0)
     q0 = lcp_at(i0)
     done0 = (~need) | ~((q0 < lens) & (l0 < r0) & (l0 < i0))

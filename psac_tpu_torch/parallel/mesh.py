@@ -8,9 +8,13 @@ counterpart of ``jit(shard_map(fn))``: p persistent worker threads, one per
 shard and each pinned to its shard's device, call ``fn(ctx, *local_args)``
 together, and the collectives of ``ctx`` (``Ctx``: ``ppermute``,
 ``all_gather``, ``psum``, ``pmax``, ``all_to_all``) exchange tensors
-between them.  A mesh may put several shards on one device (``["cuda:0"]
-* 4`` on a one-card machine, ``["cpu"] * 8`` in the tests), as the JAX
-package's tests run on virtual CPU devices.
+between them.  A replicated array (the JAX ``P()``) is held as one copy
+per shard on the shard's device (``Replicated``, ``Mesh.replicate``), and
+a dataclass argument of ``Mesh.run`` reaches each shard with its
+``Sharded`` fields replaced by the shard's block.  A mesh may put several
+shards on one device (``["cuda:0"] * 4`` on a one-card machine, ``["cpu"]
+* 8`` in the tests), as the JAX package's tests run on virtual CPU
+devices.
 
 The collectives are methods of a group object; the one implementation here
 (``ThreadGroup``) posts each rank's tensor into a slot, meets at a barrier,
@@ -23,6 +27,7 @@ collective, and ``Mesh.run`` raises the first error in the caller.
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 
@@ -66,6 +71,19 @@ class Sharded:
     def __repr__(self):
         return (f"Sharded(p={self.p}, len={len(self)}, dtype={self.dtype}, "
                 f"devices={[str(t.device) for t in self.shards]})")
+
+
+class Replicated(Sharded):
+    """A replicated array held as one copy per shard, each on its shard's
+    device (the JAX ``P()`` that a shard function reads): ``Mesh.run``
+    hands shard r ``shards[r]``, as it does a ``Sharded`` block."""
+
+    def __len__(self) -> int:
+        return self.shards[0].shape[0]
+
+    def gather(self) -> torch.Tensor:
+        """The array (shard 0's copy) as a CPU tensor."""
+        return self.shards[0].cpu()
 
 
 class Rep:
@@ -170,6 +188,13 @@ def _to_local(obj, rank: int):
         return [_to_local(o, rank) for o in obj]
     if isinstance(obj, dict):
         return {k: _to_local(v, rank) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        fields = {f.name: getattr(obj, f.name)
+                  for f in dataclasses.fields(obj) if f.init}
+        local = {k: _to_local(v, rank) for k, v in fields.items()}
+        if all(local[k] is v for k, v in fields.items()):
+            return obj
+        return dataclasses.replace(obj, **local)
     return obj
 
 
@@ -310,6 +335,11 @@ class Mesh:
         return Sharded([x[r * s:(r + 1) * s].to(d, copy=True)
                         for r, d in enumerate(self.devices)])
 
+    def replicate(self, x: torch.Tensor) -> Replicated:
+        """``x`` on every shard's device (shards on one device share one
+        copy: a replicated array is only read)."""
+        return Replicated([x.to(d) for d in self.devices])
+
 
 def make_mesh(p: int, devices=None) -> Mesh:
     """A mesh of ``p`` shards: on ``devices`` when given (a list of p
@@ -327,17 +357,6 @@ def make_mesh(p: int, devices=None) -> Mesh:
     if len(devices) != p:
         raise ValueError(f"make_mesh({p}): {len(devices)} devices given")
     return Mesh(devices)
-
-
-def single_device(mesh, device, what: str):
-    """The device of an entry point that runs on one device only: ``device``
-    without a mesh, the mesh's device at p = 1; raises at p > 1 rather than
-    running there on one shard."""
-    if mesh is None:
-        return device
-    if mesh.p > 1:
-        raise ValueError(f"{what}: p > 1 is not ported yet (ROADMAP Queue 1)")
-    return mesh.devices[0]
 
 
 def num_shards(mesh) -> int:

@@ -1,7 +1,8 @@
 """The port's command-line tools and artifact IO against the JAX package's
 (``tests/test_cli_io.py`` case by case with ``--device cpu``): the files
 both packages write for one input are byte-identical, and each package
-loads what the other wrote.  Also the from-file entry points
+loads what the other wrote; with ``--devices P`` (P shards on the CPU)
+against the JAX CLI at the same ``--devices``.  Also the from-file entry points
 (``construct_from_file``, ``build_gsa_from_file``, the DESA's) against the
 JAX package's at p = 1.  Exact equality (integers and bytes only)."""
 
@@ -22,9 +23,10 @@ def run_cli(argv):
         else main(argv)
 
 
-def run_jax_cli(argv):
+def run_jax_cli(argv, devices: int = 1):
     from psac_tpu.cli import main
-    return main(argv + (["--devices", "1"] if argv[0] != "print64" else []))
+    return main(argv + (["--devices", str(devices)] if argv[0] != "print64"
+                        else []))
 
 
 def _same_files(a: str, b: str, exts) -> None:
@@ -155,6 +157,95 @@ def test_benchmark_ansv_rows_as_jax(capsys):
     assert [r[:5] for r in got] == [r[:5] for r in want]
     assert len(got) == 3 * 3 * 3 + 3
     assert all(float(r[5]) > 0 for r in got)
+
+
+# ---------------------------------------------------------------------------
+# --devices P: a mesh of P shards, all on --device
+# ---------------------------------------------------------------------------
+
+_MATCHED = r"bulk_locate: (\d+) patterns, (\d+) matched"
+
+
+def test_desa_cli_on_a_mesh_as_jax(tmp_path, capsys):
+    """``desa --devices 4`` builds, saves, queries and loads as the JAX
+    CLI at ``--devices 4``: byte-identical files, the same matched
+    counts, each loading the other's index."""
+    import re
+
+    text = rand_dna(3000, seed=21)
+    f = tmp_path / "t.txt"
+    f.write_bytes(text)
+    pat = tmp_path / "p.txt"
+    run_cli(["mkpattern", "-f", str(f), "-n", "40", "-l", "12", "-o",
+             str(pat)])
+    with open(pat, "ab") as fp:
+        fp.write(b"ACGTACGTACGTACGTACGT\n" + text[1490:1510] + b"\n")
+    tpre, jpre = str(tmp_path / "t"), str(tmp_path / "j")
+    base = ["desa", "-f", str(f), "-q", str(pat), "--reps", "1"]
+    capsys.readouterr()
+    assert run_cli(base + ["-o", tpre, "--devices", "4"]) == 0
+    got = re.findall(_MATCHED, capsys.readouterr().err)
+    assert run_jax_cli(base + ["-o", jpre], devices=4) == 0
+    want = re.findall(_MATCHED, capsys.readouterr().err)
+    assert got == want and len(got) == 1 and int(got[0][0]) == 42
+    _same_files(jpre, tpre, (".sa64", ".lcp64", ".lc64", ".alpha"))
+    for pre, tli in ((jpre, "tldt"), (tpre, "tllt")):
+        assert run_cli(base + ["--load", pre, "--tli", tli,
+                               "--devices", "4"]) == 0
+        assert re.findall(_MATCHED, capsys.readouterr().err) == want
+    assert run_jax_cli(base + ["--load", tpre], devices=4) == 0
+    assert re.findall(_MATCHED, capsys.readouterr().err) == want
+
+
+def test_psac_cli_on_a_mesh_as_jax(tmp_path):
+    """``psac --devices 2 -l -o`` writes the JAX CLI's files at
+    ``--devices 2``, byte for byte, from ``-r`` and from ``-f``."""
+    jpre, tpre, fpre = (str(tmp_path / x) for x in ("jax", "torch", "file"))
+    argv = ["psac", "-r", "3000", "--seed", "5", "-l", "-o"]
+    assert run_jax_cli(argv + [jpre], devices=2) == 0
+    assert run_cli(argv + [tpre, "--devices", "2"]) == 0
+    f = tmp_path / "r.txt"
+    f.write_bytes(rand_dna(3000, seed=5))
+    assert run_cli(["psac", "-f", str(f), "-l", "-o", fpre, "-c",
+                    "--devices", "2"]) == 0
+    _same_files(jpre, tpre, (".sa64", ".lcp64", ".alpha"))
+    _same_files(jpre, fpre, (".sa64", ".lcp64", ".alpha"))
+    assert run_cli(["psac", "-f", str(f), "-t", "--devices", "2"]) == 0
+    g = tmp_path / "ss.txt"
+    g.write_bytes(b"banana\nana\nnab\nbanana\n")
+    assert run_cli(["gsac", "-f", str(g), "-c", "--devices", "2"]) == 0
+
+
+def test_benchmark_rows_print_the_devices(capsys):
+    """``benchmark``, ``benchmark-k`` and ``benchmark-ansv`` print P in
+    their device column; ``benchmark-ansv`` on a mesh runs the routed
+    pipeline once per input and pair, as the JAX CLI does."""
+    assert run_cli(["benchmark", "-r", "2000", "--reps", "1",
+                    "--devices", "2"]) == 0
+    rows = [r.split(";") for r in capsys.readouterr().out.split()]
+    assert [r[0] for r in rows] == ["2"] * 6
+    assert run_cli(["benchmark-k", "-r", "2000", "--ks", "0", "4",
+                    "--reps", "1", "--devices", "3"]) == 0
+    rows = [r.split(";") for r in capsys.readouterr().out.split()]
+    assert [r[:3] for r in rows] == [["3", "psac", "0"], ["3", "psac", "4"]]
+    argv = ["benchmark-ansv", "-n", "4096", "-i", "peaks", "--reps", "1"]
+    assert run_cli(argv + ["--devices", "2"]) == 0
+    got = [r.split(";") for r in capsys.readouterr().out.split()]
+    assert run_jax_cli(argv, devices=2) == 0
+    want = [r.split(";") for r in capsys.readouterr().out.split()]
+    assert [r[:5] for r in got] == [r[:5] for r in want]
+    assert [r[:3] for r in got] == [["4096", "2", "default"]] * 3
+
+
+def test_devices_without_a_device_takes_the_cards():
+    """Without ``--device`` the P shards go on the first P cards: with
+    fewer cards ``make_mesh`` raises rather than guessing a device."""
+    from psac_tpu_torch.cli import main
+
+    if torch.cuda.is_available() and torch.cuda.device_count() >= 64:
+        pytest.skip("this machine has 64 cards")
+    with pytest.raises(ValueError, match="CUDA device"):
+        main(["psac", "-r", "100", "--devices", "64"])
 
 
 def test_cli_errors(tmp_path):

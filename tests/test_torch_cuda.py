@@ -1080,3 +1080,101 @@ def test_mesh_worker_error_on_the_card_does_not_hang(cuda):
     assert time.perf_counter() - t0 < 30
     assert mesh.run(lambda ctx, x: Rep(int(ctx.psum(x.sum()))), xs) == 2016
     mesh.close()
+
+
+def _mesh_desa_patterns(text: bytes, seed: int) -> list:
+    rng = np.random.RandomState(seed)
+    return [text[i:i + ln] for ln in (5, 12, 30)
+            for i in rng.randint(0, len(text) - ln, 300)] + [
+        b"G" * 40, b"", b"AC\x01", b"ACGT" * 10]
+
+
+@pytest.mark.parametrize("tli", ["tllt", "tldt"])
+def test_mesh_desa_on_the_card_equals_cpu(cuda, tli):
+    """A p = 4 DESA on four shards of the one card equals the same build on
+    four CPU shards (slabs, table, answers verified and not), launching K7
+    on the shards' slabs (and on the TLDT's sample) and, with the TLDT, K5
+    in the sampling mask; the ranges are the host index's."""
+    from psac_tpu_torch.models import desa as desa_mod
+    from psac_tpu_torch.ops import blind_search as k7
+    from psac_tpu_torch.ops.alphabet import rand_dna
+    from psac_tpu_torch.parallel.mesh import make_mesh
+    from psac_tpu_torch.seq import SAIndex
+
+    text = rand_dna(1 << 15, seed=11)
+    pats = _mesh_desa_patterns(text, 12)
+    kw = dict(tli=tli, maxsize=64) if tli == "tldt" else {}
+    outs = {}
+    for name, devs in (("cuda", ["cuda:0"] * 4), ("cpu", ["cpu"] * 4)):
+        mesh = make_mesh(4, devs)
+        before = (k7.blind_search.launches, bansv.block_psv.launches)
+        d = desa_mod.build_desa(text, mesh=mesh, **kw)
+        got = d.bulk_locate(pats)
+        launched = (k7.blind_search.launches - before[0],
+                    bansv.block_psv.launches - before[1])
+        assert all(t.device.type == name for t in d.sa.shards)
+        outs[name] = [getattr(d, f).gather() for f in
+                      ("sa", "lcp", "lc", "table")] + [
+            torch.from_numpy(got),
+            torch.from_numpy(d.bulk_locate_possible(pats)), launched]
+        mesh.close()
+    for g, w in zip(outs["cuda"][:6], outs["cpu"][:6]):
+        assert torch.equal(g, w)
+    assert outs["cuda"][6][0] > 0
+    assert outs["cuda"][6][1] > 0 or tli == "tllt"
+    assert outs["cpu"][6] == (0, 0)
+    idx = SAIndex(text)
+    for pat, (l, r) in zip(pats, outs["cuda"][4].numpy()):
+        if not pat or b"\x01" in pat:  # no answer for these: (0, 0)
+            assert (l, r) == (0, 0), pat
+            continue
+        want = idx.locate(pat)
+        assert (l, r) == want or (l == r and want[0] == want[1]), pat
+
+
+@pytest.mark.parametrize("force_int64", [False, True])
+def test_blind_search_kernel_on_mesh_shapes(cuda, monkeypatch, force_int64):
+    """K7 equals its plain version on the shapes only a mesh gives it: an
+    owner's received buffer, most of whose rows are invalid (the chunked
+    pass's p chunks of ceil(b / p) rows), the same buffer with no valid
+    row, and a TLDT sample of M = 8 rows; int32 and int64 slabs."""
+    import threading
+
+    from psac_tpu_torch import SAConfig
+    from psac_tpu_torch.models import desa as desa_mod
+    from psac_tpu_torch.ops import blind_search as k7
+    from psac_tpu_torch.ops.alphabet import rand_dna
+    from psac_tpu_torch.parallel.mesh import make_mesh
+
+    text = rand_dna(1 << 14, seed=5)
+    conf = SAConfig(force_int64=force_int64)
+    mesh = make_mesh(4, ["cuda:0"] * 4)
+    calls, lock = [], threading.Lock()
+
+    def record(*args):
+        with lock:
+            calls.append(args)
+        return k7.blind_search(*args)
+
+    monkeypatch.setattr(desa_mod, "blind_search", record)
+    d = desa_mod.build_desa(text, mesh=mesh, config=conf)
+    # a skewed batch: nearly every pattern's bucket lies on one shard
+    pats = [b"A" * 12] * 500 + _mesh_desa_patterns(text, 3)[:40]
+    d.bulk_locate(pats)
+    s = desa_mod.build_desa(text, mesh=mesh, config=conf, tli="tldt",
+                            maxsize=len(text))
+    assert s.samp["M"] == 8
+    s.bulk_locate(pats)
+    mesh.close()
+    slab = [a for a in calls if a[8] == d.cap]
+    sample = [a for a in calls if a[8] == 8]
+    assert slab and sample
+    sparse = min(slab, key=lambda a: int(a[4].sum()))
+    assert int(sparse[4].sum()) < sparse[0].shape[0] // 2
+    empty = sparse[:4] + (torch.zeros_like(sparse[4]),) + sparse[5:]
+    for args in (sparse, empty, max(slab, key=lambda a: int(a[4].sum())),
+                 sample[0]):
+        got = k7.blind_search(*args)
+        want = k7.blind_search_plain(*args[:-1], {"readbacks": 0})
+        assert got[2].dtype == args[5].dtype
+        _same(got, want)

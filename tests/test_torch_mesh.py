@@ -7,8 +7,8 @@ transposition at p = 3, 6) against ``np.lexsort``; ``route_apply`` (echo,
 the chunked full-capacity pass, the overflow count at a forced small
 capacity), ``route_scatter`` and ``bulk_rmq_local`` with its capacity
 retry; and the mesh itself: a worker that raises makes ``Mesh.run`` raise,
-``make_mesh`` never guesses a device, and the entry points not ported to
-p > 1 refuse a mesh.  Exact equality (integers only)."""
+and ``make_mesh`` never guesses a device.  Exact equality (integers
+only)."""
 
 import functools
 import threading
@@ -456,13 +456,31 @@ def test_replicated_outputs_must_agree():
         mesh.run(lambda ctx, x: Rep(ctx.rank), mesh.shard(torch.arange(4)))
 
 
-@pytest.mark.parametrize("entry", ["build_desa"])
-def test_unported_entry_points_refuse_a_mesh(entry):
-    import psac_tpu_torch as pt
+def test_replicate_and_dataclass_arguments():
+    """``Mesh.replicate`` holds one copy per shard; a dataclass argument of
+    ``Mesh.run`` reaches each shard with its ``Sharded`` fields as the
+    shard's block (a ``Replicated`` one as its copy) and its other fields
+    as they are, and one without a sharded field as itself."""
+    import dataclasses
 
-    fn = {"build_desa": pt.build_desa}[entry]
-    arg = b"banana"
-    with pytest.raises(ValueError, match="p > 1 is not ported yet"):
-        fn(arg, mesh=make_mesh(2, ["cpu"] * 2))
-    # a mesh of one shard is its device
-    assert fn(arg, mesh=make_mesh(1, ["cpu"])) is not None
+    from psac_tpu_torch.parallel.mesh import Replicated
+
+    @dataclasses.dataclass
+    class Box:
+        block: object
+        copy: object
+        tag: str
+
+    mesh = make_mesh(3, ["cpu"] * 3)
+    x = torch.arange(12)
+    rep = mesh.replicate(torch.tensor([7, 8]))
+    assert isinstance(rep, Replicated) and rep.p == 3 and len(rep) == 2
+    assert torch.equal(rep.gather(), torch.tensor([7, 8]))
+    got = mesh.run(lambda ctx, b: b.block + b.copy.sum() + ctx.rank
+                   + (0 if b.tag == "t" else 100), Box(mesh.shard(x), rep,
+                                                       "t"))
+    assert torch.equal(got.gather(),
+                       x + 15 + torch.arange(3).repeat_interleave(4))
+    plain = Box(1, 2, "u")
+    assert mesh.run(lambda ctx, b: Rep(b is plain), plain) is True
+    mesh.close()
