@@ -25,7 +25,13 @@ and host-driven, the 2^26 suffix tree, ``d_check_sa``, the DESA of the
 p = 1 (K7 on every shard's slab, held against its plain version there)
 and its files written and read back, the public ANSV, SA+LCP at p = 3,
 and GSA + GLCP and the GST of both string sets; K6's min-only entry,
-``rmq_mins``, held against its plain version there); each ANSV engine
+``rmq_mins``, held against its plain version there); the mesh of 4 shards
+across 2 processes of this script (``[procs]``: gloo on ``cuda:0``, and
+NCCL with a card per process where there are two: SA+LCP of the 2^26
+file, ``d_check_sa``, the per-shard SA files and their reload, the DESA
+from the file answering the length-20 batch, its per-shard files and
+reload, and GSA + GLCP and the GST of the family's file, against p = 1 and
+``[mesh]``); each ANSV engine
 (hybrid, scan, block, spine) against the plain path on 2^24 values; then
 the command-line tools in processes of their own (``psac -f``, ``gsac
 -f``, ``mkpattern``, ``desa -q`` building, saving and loading the index,
@@ -958,12 +964,13 @@ def sa_bounds(tpad: np.ndarray, sa: np.ndarray, pats: np.ndarray,
     return lo
 
 
-def file_digests(prefix: str) -> dict:
-    """SHA-256 of each file of a written DESA index."""
+def file_digests(prefix: str,
+                 exts=(".sa64", ".lcp64", ".lc64", ".alpha")) -> dict:
+    """SHA-256 of each file of a written index (a DESA's by default)."""
     import hashlib
 
     out = {}
-    for ext in (".sa64", ".lcp64", ".lc64", ".alpha"):
+    for ext in exts:
         h = hashlib.sha256()
         with open(prefix + ext, "rb") as f:
             for block in iter(lambda: f.read(1 << 24), b""):
@@ -1916,6 +1923,10 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
         if tree.N != gst_p1.shape[0] // (tree.sigma + 1) or \
                 not torch.equal(tree.nodes.gather(), gst_p1):
             raise AssertionError(f"p = 4 GST of {label} differs from p = 1")
+        if check:  # the [procs] phase's reference
+            out["fam_shards"] = dict(
+                n=dg.n, N=dg.N, sa=shard_digests(dg.sa),
+                lcp=shard_digests(dg.lcp), nodes=shard_digests(tree.nodes))
         del tree
         walks(tlabel, lambda: st_mod.construct_gst_device(dg))
         log(f"[mesh] {label} p=4: GSA + GLCP == p = 1 (== host oracle), "
@@ -1967,6 +1978,265 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
             "build (padded sa, lcp, eos, xs)")
         del fd, dg
     mesh.close()
+    return out
+
+
+def shard_digests(x) -> list:
+    """SHA-256 of each local block of a ``Sharded`` array."""
+    import hashlib
+
+    return [hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+            for t in x.shards]
+
+
+PROCS_KERNELS = ("rmq_mins", "block_psv", "blind_search")
+
+
+def procs_worker(rank: int, port: str, work: str, backend: str) -> int:
+    """One process of the ``[procs]`` phase (``chip_smoke.py --procs-worker
+    RANK PORT WORK BACKEND``): 2 shards of a global mesh of 4 spread over 2
+    processes, on ``cuda:0`` under gloo (host-staged) or on this process's
+    card under NCCL.  Builds from the files in ``work`` against the
+    references there (``ref.json``), each step timed with its peak and its
+    launches of K6-mins, K5 and K7, and writes ``report.RANK.json``.  Any
+    mismatch raises (the exit code is then non-zero)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from psac_tpu_torch import io as io_mod
+    from psac_tpu_torch.models import desa as desa_mod
+    from psac_tpu_torch.models import gsa as gsa_mod
+    from psac_tpu_torch.models import suffix_tree as st_mod
+    from psac_tpu_torch.models.suffix_array import construct_from_file
+    from psac_tpu_torch.ops import bansv, blind_search, rmq
+    from psac_tpu_torch.parallel import dist as pdist
+    from psac_tpu_torch.parallel.mesh import Sharded, make_mesh
+    from psac_tpu_torch.verify.check_sa import d_check_sa
+
+    with open(os.path.join(work, "ref.json")) as f:
+        ref = json.load(f)
+    pdist.init_distributed(backend, rank=rank, world_size=2,
+                           init_method=f"tcp://127.0.0.1:{port}",
+                           timeout=600)
+    dev = torch.device("cuda", 0 if backend == "gloo" else rank)
+    torch.cuda.set_device(dev)
+    mesh = make_mesh(4, [dev] * 2)
+    reset, read = counter((rmq.rmq_mins, bansv.block_psv,
+                           blind_search.blind_search))
+    report = dict(rank=rank, backend=backend, device=str(dev), steps={})
+
+    def step(label, fn):
+        pdist.barrier(label)
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        st = dict(wall_s=time.perf_counter() - t0,
+                  peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+                  **read())
+        report["steps"][label] = st
+        log(f"[procs] rank {rank} {backend}: {label} {st['wall_s']:.3f} s, "
+            f"peak {st['peak_gib']:.2f} GiB, K6-mins {st['rmq_mins']}, K5 "
+            f"{st['block_psv']}, K7 {st['blind_search']}")
+        return res
+
+    def same_files(prefix, want, exts):
+        pdist.barrier(prefix)
+        if rank == 0 and file_digests(prefix, exts) != want:
+            raise AssertionError(f"{prefix}: files differ from p = 1")
+
+    text_path = os.path.join(work, "text.bin")
+    dsa, xs = step("SA+LCP from file",
+                   lambda: construct_from_file(text_path, mesh=mesh))
+    if not step("d_check_sa", lambda: d_check_sa(dsa, xs)):
+        raise AssertionError("d_check_sa failed on the process mesh")
+    shards = [t.clone() for t in dsa.sa.shards]
+    if dsa.sa.first == 2:  # two rows of the last shard swapped
+        a, b = shards[-1][-1].item(), shards[-1][-7].item()
+        shards[-1][-1], shards[-1][-7] = b, a
+    if d_check_sa(dataclasses.replace(
+            dsa, sa=Sharded(shards, dsa.sa.first, dsa.sa.p)), xs):
+        raise AssertionError("d_check_sa passed with two rows swapped")
+    del shards
+    sa_exts = (".sa64", ".lcp64", ".alpha")
+    pre = os.path.join(work, "sa4")
+    step("write_suffix_array_distributed",
+         lambda: io_mod.write_suffix_array_distributed(pre, dsa))
+    same_files(pre, ref["sa_files"], sa_exts)
+    back = step("read_suffix_array_distributed",
+                lambda: io_mod.read_suffix_array_distributed(pre, mesh))
+    off = dsa.N - dsa.n
+    s = dsa.N // 4
+    for r in range(2):
+        g = torch.arange((dsa.sa.first + r) * s, (dsa.sa.first + r + 1) * s,
+                         device=dev)
+        real = g >= off
+        lcp_want = torch.where(g == off, 0, dsa.lcp.shards[r])
+        for got, want in ((back.sa.shards[r], dsa.sa.shards[r]),
+                          (back.lcp.shards[r], lcp_want)):
+            if not torch.equal(torch.where(real, want, 0).to(got.dtype),
+                               got):
+                raise AssertionError("the reloaded SA/LCP differ")
+    del dsa, xs, back
+    log(f"[procs] rank {rank}: d_check_sa True (False with two rows "
+        "swapped); the distributed SA files == p = 1 (digests); the reload "
+        "== the build")
+
+    pats = [row.tobytes() for row in np.load(os.path.join(work, "pats.npy"))]
+    want = np.load(os.path.join(work, "answers.npy"))
+    idx = step("DESA tllt from file",
+               lambda: desa_mod.build_desa_from_file(text_path, mesh=mesh))
+    idx.bulk_locate(pats)  # warm-up at this shape
+    got = step(f"bulk_locate {len(pats)} x len {len(pats[0])}",
+               lambda: idx.bulk_locate(pats))
+    if not np.array_equal(got, want):
+        raise AssertionError("the process mesh's bulk_locate differs from "
+                             "p = 1")
+    dpre = os.path.join(work, "desa4")
+    step("write_desa_distributed",
+         lambda: desa_mod.write_desa_distributed(idx, dpre))
+    same_files(dpre, ref["desa_files"], (".sa64", ".lcp64", ".lc64",
+                                         ".alpha"))
+    del idx
+    idx = step("read_desa_from_file",
+               lambda: desa_mod.read_desa_from_file(text_path, dpre,
+                                                    mesh=mesh))
+    if not np.array_equal(idx.bulk_locate(pats), want):
+        raise AssertionError("the reloaded DESA answers differ from p = 1")
+    del idx
+    log(f"[procs] rank {rank}: bulk_locate == p = 1; the distributed DESA "
+        "files == p = 1 (digests); the reload answers as p = 1")
+
+    fam = ref["fam"]
+    dg = step("GSA+GLCP family from file", lambda: gsa_mod.build_gsa_from_file(
+        os.path.join(work, "fam.txt"), mesh=mesh))
+    tree = step("GST family", lambda: st_mod.construct_gst_device(dg))
+    first = dg.sa.first
+    for key, x in (("sa", dg.sa), ("lcp", dg.lcp), ("nodes", tree.nodes)):
+        if shard_digests(x) != fam[key][first:first + 2]:
+            raise AssertionError(f"the process mesh's family {key} differs "
+                                 "from the [mesh] p = 4 build")
+    if (dg.n, dg.N) != (fam["n"], fam["N"]):
+        raise AssertionError("the family's padded size differs")
+    log(f"[procs] rank {rank}: family GSA + GLCP and GST == [mesh] p = 4 "
+        "(shard digests)")
+    with open(os.path.join(work, f"report.{rank}.json"), "w") as f:
+        json.dump(report, f)
+    pdist.barrier("end")
+    pdist.shutdown()
+    return 0
+
+
+def procs_phase(text: bytes, sa_ref, lcp_ref, desa_ref: dict, fam_set: list,
+                fam_ref: dict, card: str) -> dict:
+    """The mesh across processes (``[procs]``): 2 processes of this script
+    (``--procs-worker``), each holding 2 shards of a global mesh of 4, on
+    ``cuda:0`` over gloo, host-staged (NCCL refuses two ranks on one card);
+    under NCCL too, one card per process, where there are two cards.  The
+    workers build SA+LCP of the text from its file (``d_check_sa``, the
+    distributed files against the p = 1 files' digests, the reload), the
+    DESA (TLLT) from the file answering the p = 1 length-20 batch as p = 1,
+    its distributed files against ``write_desa``'s at p = 1, the reload,
+    and GSA + GLCP and the GST of the family from its file against the
+    ``[mesh]`` p = 4 shards.  Each reports its walls, peaks and launches;
+    the launches join the kernel table's.  A failing worker fails the
+    script."""
+    import socket
+
+    import torch
+
+    from psac_tpu_torch import io as io_mod
+    from psac_tpu_torch.models.suffix_array import SuffixArray
+    from psac_tpu_torch.ops.alphabet import Alphabet
+
+    work = os.path.join(ROOT, "_smoke", "procs")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "text.bin"), "wb") as f:
+        f.write(text)
+    with open(os.path.join(work, "fam.txt"), "wb") as f:
+        f.write(b"\n".join(fam_set) + b"\n")
+    pats = desa_ref["batches"][20]
+    np.save(os.path.join(work, "pats.npy"),
+            np.frombuffer(b"".join(pats), np.uint8).reshape(len(pats), -1))
+    np.save(os.path.join(work, "answers.npy"), desa_ref["answers"][20])
+    pre = os.path.join(work, "sa1")
+    io_mod.write_suffix_array(pre, SuffixArray(
+        sa=sa_ref, lcp=lcp_ref, alphabet=Alphabet.from_bytes(text),
+        n=len(text)))
+    sa_exts = (".sa64", ".lcp64", ".alpha")
+    ref = dict(sa_files=file_digests(pre, sa_exts),
+               desa_files=desa_ref["files"], fam=fam_ref)
+    for ext in sa_exts:
+        os.remove(pre + ext)
+    with open(os.path.join(work, "ref.json"), "w") as f:
+        json.dump(ref, f)
+    log(f"[procs] inputs and p = 1 references written: "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+
+    backends = ["gloo"]
+    if torch.cuda.device_count() >= 2:
+        backends.append("nccl")
+    out = {}
+    try:
+        for backend in backends:
+            log(f"[procs] {backend}: 2 processes x 2 shards, P = 4, "
+                + ("on cuda:0, host-staged (NCCL refuses two ranks on one "
+                   "card)" if backend == "gloo" else "one card each")
+                + f"; {card}")
+            with socket.socket() as sk:
+                sk.bind(("127.0.0.1", 0))
+                port = str(sk.getsockname()[1])
+            env = dict(os.environ)
+            env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--procs-worker",
+                 str(r), port, work, backend], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for r in range(2)]
+            try:
+                outs = [p.communicate(timeout=900)[0] for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            wall = time.perf_counter() - t0
+            for r, (p, o) in enumerate(zip(procs, outs)):
+                for line in o.splitlines():
+                    if line.startswith("[procs]"):
+                        log(line)
+                if p.returncode != 0:
+                    raise AssertionError(f"[procs] {backend} worker {r} "
+                                         f"failed ({p.returncode}):\n"
+                                         f"{o[-6000:]}")
+            reports = []
+            for r in range(2):
+                with open(os.path.join(work, f"report.{r}.json")) as f:
+                    reports.append(json.load(f))
+                os.remove(os.path.join(work, f"report.{r}.json"))
+            launched = {k: sum(st[k] for rep in reports
+                               for st in rep["steps"].values())
+                        for k in PROCS_KERNELS}
+            add_launches(launched)
+            for k, v in launched.items():
+                if v == 0:
+                    raise AssertionError(f"{k} was not launched in the "
+                                         f"[procs] {backend} workers")
+            out[backend] = dict(wall_s=wall, reports=reports,
+                                launches=launched)
+            log(f"[procs] {backend}: both processes == p = 1 / [mesh] p = 4; "
+                f"launches {launched}; phase {wall:.1f} s on {card}")
+    finally:
+        for name in os.listdir(work):
+            os.remove(os.path.join(work, name))
+        os.rmdir(work)
+    if len(backends) == 1:
+        log("[procs] nccl: not run, 1 card")
     return out
 
 
@@ -2210,6 +2480,8 @@ def main() -> int:
                     help="near-identical family size (log2 chars, 64 strings)")
     ap.add_argument("--bench-reps", type=int, default=3,
                     help="--reps of the CLI phase's benchmark run")
+    ap.add_argument("--procs-worker", nargs=4, help=argparse.SUPPRESS,
+                    metavar=("RANK", "PORT", "WORK", "BACKEND"))
     args = ap.parse_args()
 
     # ---- 1. device ------------------------------------------------------
@@ -2218,6 +2490,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.procs_worker:
+        rank, port, work, backend = args.procs_worker
+        return procs_worker(int(rank), port, work, backend)
     sys.path.insert(0, ROOT)
     import psac_tpu_torch  # noqa: F401  (fails outside a checkout)
     from psac_tpu_torch import native
@@ -2486,7 +2761,14 @@ def main() -> int:
          fam_label: (fam_set, gsa_fam.pop("oracle"), gsa_fam.pop("gst"),
                      True)}, desa_ref, card, kern)
     log(f"[mesh] phase {time.perf_counter() - t0:.1f} s")
-    del rsa, rlcp, tree_p1, fam_set
+    del rsa, rlcp, tree_p1
+
+    # ---- 9d. the mesh across processes (counted in the workers) ---------
+    t0 = time.perf_counter()
+    procs = procs_phase(text, sa_ref, lcp_ref, desa_ref, fam_set,
+                        mesh_res.pop("fam_shards"), card)
+    log(f"[procs] phase {time.perf_counter() - t0:.1f} s")
+    del fam_set
 
     # ---- 10. the ANSV engines, then the command-line tools at full size ---
     engines_phase(dev, args.ansv_log2n, card)
@@ -2538,6 +2820,14 @@ def main() -> int:
         f"{k.split()[1]} len {q[5:]} {v[q]:,.0f}"
         for k, v in mesh_res.items() if k.startswith("DESA")
         for q in v if q.startswith("qps_L")))
+    for backend, res in procs.items():
+        for rep in res["reports"]:
+            log(f"[result] procs {backend} rank {rep['rank']} "
+                f"({rep['device']}): " + ", ".join(
+                    f"{k} {v['wall_s']:.3f} s ({v['peak_gib']:.2f} GiB)"
+                    for k, v in rep["steps"].items()))
+        log(f"[result] procs {backend}: phase {res['wall_s']:.1f} s, "
+            f"launches {res['launches']}")
     log("[result] CLI benchmark ms: " + ", ".join(
         f"{k} {v:.2f}" for k, v in cli["benchmark_ms"].items()))
     log("[result] CLI benchmark-ansv ms: " + ", ".join(

@@ -60,7 +60,8 @@ def _mesh(args):
 
 
 def _sync(device, mesh=None) -> None:
-    """Wait for the queued work of the device or of the mesh's devices (a
+    """Wait for the queued work of the device or of the mesh's devices
+    (this process's: a mesh that spans processes lists only its own; a
     no-op on the CPU)."""
     import torch
 

@@ -29,25 +29,28 @@
   * **Persistence**: ``write_desa`` / ``read_desa`` keep SA/LCP/Lc as the
     JAX package's flat ``.sa64/.lcp64/.lc64/.alpha`` files (byte-identical
     at every p; either package loads the other's); the top-level index, the
-    partition and the RMQ are rebuilt on load.  ``build_desa_from_file``
-    and ``read_desa_from_file`` read the text file once (split over the
-    shards on a mesh).
+    partition and the RMQ are rebuilt on load.  ``write_desa_distributed``
+    writes the same files with each process writing only its own slabs'
+    segments (a mesh that spans processes); the loads, and
+    ``build_desa_from_file``, stage the text and the files per shard, each
+    process reading only its own shards' byte ranges.
 
 Every step is one shard function for every p: ``ctx`` is None on one
 device, where the collectives take their p = 1 forms, and the callers reach
 it through ``parallel.mesh.run_on``.  With ``PSAC_TIMER=1`` the build
 prints the partition imbalance and each query group its routing imbalance
 (the JAX package's ``[timer] [desa]`` lines); ``PSAC_DESA_RUNGS`` sets the
-plain walk's compaction rungs (``ops.blind_search.rung_widths``).
-
-Left out of this port: the per-process distributed writes and reads and
-the multi-process fetch.
+plain walk's compaction rungs (``ops.blind_search.rung_widths``).  On a
+mesh that spans processes every process holds the whole pattern batch and
+gets every answer (``parallel.dist.process_allgather``), as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 import sys
 
 import numpy as np
@@ -68,6 +71,7 @@ from psac_tpu_torch.parallel.ansv import (KERNELS, AnsvKernels, ansv_local,
                                           ansv_mesh_local, nonsv_for)
 from psac_tpu_torch.parallel.collectives import (global_index_base,
                                                  halo_from_right, psum)
+from psac_tpu_torch.parallel.dist import process_allgather, process_index
 from psac_tpu_torch.parallel.mesh import (Rep, Replicated, Sharded,
                                           num_shards, run_on)
 from psac_tpu_torch.parallel.route import (gather_global, route_apply,
@@ -143,7 +147,8 @@ def _one_device(mesh, device):
 def _replicas(x):
     """A shard function's copies of a replicated array as ``Replicated``
     (on one device the tensor itself)."""
-    return Replicated(x.shards) if isinstance(x, Sharded) else x
+    return Replicated(x.shards, x.first, x.p) if isinstance(x, Sharded) \
+        else x
 
 
 def _replicate(mesh, x: torch.Tensor, device):
@@ -152,10 +157,11 @@ def _replicate(mesh, x: torch.Tensor, device):
 
 
 def _whole(x) -> torch.Tensor:
-    """A shard function's output whole: a ``Sharded`` one gathered to the
-    host in shard order (shard 0's copy of a ``Replicated`` one), a tensor
+    """A shard function's output whole on every process: a ``Sharded``
+    one gathered to the host in shard order (from every process that
+    holds blocks of it), the local copy of a ``Replicated`` one, a tensor
     of one device as it is."""
-    return x.gather() if isinstance(x, Sharded) else x
+    return process_allgather(x) if isinstance(x, Sharded) else x
 
 
 def _kmer_table(ctx, xs, *, n: int, k: int, bits: int, T: int,
@@ -259,17 +265,29 @@ def _sample_mask_local(ctx, lcp, *, n: int, maxsize: int,
 
 
 def _sample_rows(ctx, keep, lcp, lc, *, n: int):
-    """This shard's sampled rows in SA order: (text-offset row, LCP, Lc),
-    the first real row's LCP 0.  Concatenated in shard order they are the
-    rows that the JAX package's 1-key distributed sort
-    (``_sample_compact_local``) brings to the front, in its order."""
+    """Every shard's sampled rows in SA order, the same on each shard:
+    (text-offset row, LCP, Lc), the first real row's LCP 0.  Each shard's
+    rows, concatenated in shard order: the rows that the JAX package's
+    1-key distributed sort (``_sample_compact_local``) brings to the
+    front, in its order.  The shards exchange their rows padded to the
+    largest count (an exchange's buffers match in shape)."""
     s = lcp.shape[0]
     off = s * _nshards(ctx) - n
     base = global_index_base(s, ctx)
     loc = torch.nonzero(keep).squeeze(1)
     rows = loc + base
     lcp_adj = torch.where(rows == off, 0, lcp[loc])
-    return (rows - off).to(lcp.dtype), lcp_adj, lc[loc].to(torch.int32)
+    out = ((rows - off).to(lcp.dtype), lcp_adj, lc[loc].to(torch.int32))
+    if ctx is None or ctx.p == 1:
+        return out
+    counts = ctx.all_gather(torch.tensor(loc.shape[0], device=lcp.device))
+    cmax = int(counts.max())
+    padded = tuple(torch.cat([t, t.new_zeros(cmax - t.shape[0])])
+                   for t in out)
+    got = ctx.all_gather(padded)
+    keep_all = (torch.arange(cmax, device=lcp.device)[None, :]
+                < counts[:, None]).reshape(-1)
+    return tuple(g.reshape(-1)[keep_all] for g in got)
 
 
 @dataclasses.dataclass
@@ -430,9 +448,10 @@ def build_desa_from_file(path: str, device=None,
                          config: cfg_mod.SAConfig = cfg_mod.DEFAULT,
                          tli_bits: int = 24, tli: str = "tllt",
                          maxsize: int | None = None, mesh=None) -> DESA:
-    """``build_desa`` of a file's bytes: the file is read once, staged raw
-    on ``device`` (None: the CUDA card) or split over the shards of
-    ``mesh``, and its alphabet counted there."""
+    """``build_desa`` of a file's bytes, staged raw on ``device`` (None:
+    the CUDA card; one read) or over the shards of ``mesh`` (each process
+    reading only its own shards' byte ranges), and its alphabet counted
+    there."""
     mesh, device = _one_device(mesh, device)
     xs, alpha, n, N = encode_and_shard_file(path, device, mesh)
     return _build_from_codes(xs, alpha, n, N, config, tli_bits, tli, maxsize,
@@ -483,7 +502,7 @@ def _assemble_desa(xs, alpha, n: int, N: int, lcp, sa, lc, tli_bits: int,
         ms = maxsize or max(2, n // p // 128)
         keep = run_on(mesh, functools.partial(_sample_mask_local, n=n,
                                               maxsize=ms), lcp)
-        offs, s_lcp, s_lc = (_whole(x) for x in run_on(
+        offs, s_lcp, s_lc = (_whole(_replicas(x)) for x in run_on(
             mesh, functools.partial(_sample_rows, n=n), keep, lcp, lc))
         m = offs.shape[0]
         if m < 2:
@@ -522,18 +541,31 @@ def _assemble_desa(xs, alpha, n: int, N: int, lcp, sa, lc, tli_bits: int,
                 xs=xs, tli=tli, samp=samp, idt=idt, mesh=mesh)
 
 
+def _segments(desa: DESA) -> np.ndarray:
+    """The real rows of each shard's slab (its segment's length)."""
+    ends = np.concatenate([desa.begins_np[1:], [desa.n]])
+    return (ends - desa.begins_np).astype(np.int64)
+
+
+def _slabs(slab) -> list:
+    """(global shard, local slab) of each slab this process holds."""
+    if isinstance(slab, Sharded):
+        return list(enumerate(slab.shards, start=slab.first))
+    return [(0, slab)]
+
+
 def desa_arrays(desa: DESA):
     """Host (n,) SA/LCP/Lc arrays in global SA order: each segment's rows
-    (slab padding stripped), in shard order."""
-    ends = np.concatenate([desa.begins_np[1:], [desa.n]])
-    segs = (ends - desa.begins_np).astype(np.int64)
-    out = []
-    for slab in (desa.sa, desa.lcp, desa.lc):
-        slabs = slab.shards if isinstance(slab, Sharded) else [slab]
-        out.append(np.concatenate(
-            [t[:segs[r]].cpu().numpy() for r, t in enumerate(slabs)]
-        ).astype(np.int64))
-    return tuple(out)
+    (slab padding stripped), in shard order.  Raises on a mesh that spans
+    processes (no process holds every slab): ``write_desa_distributed``
+    writes the files there."""
+    if desa.mesh is not None and desa.mesh.multiprocess:
+        raise ValueError("desa_arrays: the slabs span processes; use "
+                         "write_desa_distributed")
+    segs = _segments(desa)
+    return tuple(np.concatenate(
+        [t[:segs[g]].cpu().numpy() for g, t in _slabs(slab)]
+    ).astype(np.int64) for slab in (desa.sa, desa.lcp, desa.lc))
 
 
 def write_desa(desa: DESA, prefix: str) -> None:
@@ -548,27 +580,47 @@ def write_desa(desa: DESA, prefix: str) -> None:
     io_mod.write_alphabet(prefix, desa.alphabet)
 
 
+def write_desa_distributed(desa: DESA, prefix: str) -> None:
+    """``write_desa``'s files, byte for byte, with each process writing
+    only its own slabs' segments at their ``begins`` file rows (the JAX
+    package's ``write_desa_distributed``); process 0 writes ``.alpha``.
+    Call ``parallel.dist.barrier`` before reading them on another
+    process."""
+    segs = _segments(desa)
+    for ext, slab in ((".sa64", desa.sa), (".lcp64", desa.lcp),
+                      (".lc64", desa.lc)):
+        fd = os.open(prefix + ext, os.O_RDWR | os.O_CREAT, 0o644)
+        try:
+            os.truncate(fd, 8 * desa.n)
+            for g, t in _slabs(slab):
+                if segs[g]:
+                    io_mod.pwrite_rows(fd, t[:segs[g]].cpu().numpy(),
+                                        int(desa.begins_np[g]))
+        finally:
+            os.close(fd)
+    if process_index() == 0:
+        io_mod.write_alphabet(prefix, desa.alphabet)
+
+
 def _load_index(xs, alpha, n: int, N: int, prefix: str, tli_bits: int,
                 tli: str, maxsize: int | None, force_int64: bool,
                 mesh) -> DESA:
-    """The persisted SA/LCP/Lc, front-padded to the (N,) construction
-    layout on the codes' device (or split over the mesh's shards),
-    assembled with a top-level index chosen now."""
-    sa = io_mod.read_u64(prefix + ".sa64")
-    if len(sa) != n:
-        raise ValueError(f"index built for n={len(sa)}, text has n={n}")
+    """The persisted SA/LCP/Lc in the (N,) construction layout, staged on
+    the codes' device or per shard of the mesh (each process reading only
+    its own shards' rows), assembled with a top-level index chosen now."""
+    n_art = os.path.getsize(prefix + ".sa64") // 8
+    if n_art != n:
+        raise ValueError(f"index built for n={n_art}, text has n={n}")
     idt = torch.int64 if force_int64 else cfg_mod.index_dtype(N)
+    where = xs.device if mesh is None else mesh
 
-    def pad_block(a, dt):
-        full = torch.zeros(N, dtype=dt)
-        full[N - n:] = torch.from_numpy(a).to(dt)
-        return full.to(xs.device) if mesh is None else mesh.shard(full)
+    def stage(ext, dt):
+        return io_mod.stage_u64_front_padded(prefix + ext, where, dt)[0]
 
     return _assemble_desa(
-        xs, alpha, n, N, pad_block(io_mod.read_u64(prefix + ".lcp64"), idt),
-        pad_block(sa, idt),
-        pad_block(io_mod.read_u64(prefix + ".lc64"), torch.int32), tli_bits,
-        tli, maxsize, force_int64=force_int64, mesh=mesh)
+        xs, alpha, n, N, stage(".lcp64", idt), stage(".sa64", idt),
+        stage(".lc64", torch.int32), tli_bits, tli, maxsize,
+        force_int64=force_int64, mesh=mesh)
 
 
 def read_desa(text, prefix: str, device=None, tli_bits: int = 24,
@@ -588,7 +640,9 @@ def read_desa_from_file(text_path: str, prefix: str, device=None,
                         tli_bits: int = 24, tli: str = "tllt",
                         maxsize: int | None = None,
                         force_int64: bool = False, mesh=None) -> DESA:
-    """``read_desa`` with the text read once from a file."""
+    """``read_desa`` with the text read from a file: on a mesh each
+    process reads only its own shards' byte ranges of the text and rows of
+    the files (the JAX package's ``read_desa_from_file``)."""
     mesh, device = _one_device(mesh, device)
     xs, alpha, n, N = encode_and_shard_file(text_path, device, mesh)
     return _load_index(xs, alpha, n, N, prefix, tli_bits, tli, maxsize,

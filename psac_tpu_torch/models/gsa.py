@@ -356,7 +356,7 @@ def _gsa_tiefix(mesh, lcp, sa, eos, capscales=(6, None)):
 def _decode(xb, alpha: Alphabet):
     """Staged uint8 bytes (a tensor, or ``Sharded``) -> int32 codes."""
     if isinstance(xb, Sharded):
-        return Sharded([_decode_staged(t, alpha) for t in xb.shards])
+        return xb.map(lambda t: _decode_staged(t, alpha))
     return _decode_staged(xb, alpha)
 
 
@@ -456,8 +456,9 @@ def build_gsa_from_file(path: str, device=None,
                         sep: int = 0x0A, mesh=None) -> DeviceGSA:
     """GSA (+GLCP) of a ``sep``-delimited file (the reference's ``gsac
     -f``) on ``device`` (None: the CUDA card) or on the p shards of
-    ``mesh``.  The file is read once and staged raw (on a mesh split over
-    the shards), its bytes counted on the device(s); the separators are
+    ``mesh``.  The file is staged raw, one read on a device and on a mesh
+    each process reading only its own shards' byte ranges, and its bytes
+    counted on the device(s), summed over the mesh; the separators are
     dropped there (``_drop_separators``), and only their positions (O(m)
     metadata) come back, to make the string lengths on the host.  Empty
     strings are dropped; a trailing separator is optional."""
@@ -469,9 +470,8 @@ def build_gsa_from_file(path: str, device=None,
             path, cfg_mod.resolve_device(device))
         hist = staged_histogram(xbf)
     else:
-        xbf, n_file, N_file = stage_file_block(path, "cpu", p)
-        xbf = mesh.shard(xbf)
-        hist = sum(staged_histogram(t) for t in xbf.shards)
+        xbf, n_file, N_file = stage_file_block(path, mesh)
+        hist = staged_histogram(xbf, mesh)
     nsep = int(hist[sep])
     n_flat = n_file - nsep
     if n_flat <= 0:

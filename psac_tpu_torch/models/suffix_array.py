@@ -108,7 +108,10 @@ class SuffixArray:
 
 
 def host_tensor(x) -> torch.Tensor:
-    """A device tensor, or a ``Sharded`` array gathered, as a CPU tensor."""
+    """A device tensor, or a ``Sharded`` array gathered, as a CPU tensor
+    (raises for an array whose shards span processes, as the JAX
+    ``device_get`` does: ``parallel.dist.process_allgather`` gathers
+    it)."""
     return x.gather() if isinstance(x, Sharded) else x.cpu()
 
 
@@ -135,7 +138,9 @@ class DeviceSuffixArray:
                    device, mesh=None) -> "DeviceSuffixArray":
         """Wrap padded (N,) host arrays (e.g. the JAX package's device
         arrays after ``jax.device_get``, in its index dtype) as a
-        device-resident result, on ``device`` or sharded over ``mesh``."""
+        device-resident result, on ``device`` or sharded over ``mesh`` (on
+        a mesh that spans processes, each keeps its own blocks of the
+        arrays that every process holds)."""
 
         def put(a):
             if a is None:
@@ -767,14 +772,11 @@ def _decode_staged(xb: torch.Tensor, alpha: Alphabet) -> torch.Tensor:
     return mapping[xb.to(torch.int32)]
 
 
-def _shard_staged(xb: torch.Tensor, n: int, mesh):
-    """Staged host bytes -> (xs, alpha) on a mesh: each shard's block goes
-    to its device, the histograms of the blocks are summed, and each block
-    is decoded there."""
-    xb = mesh.shard(xb)
-    hist = sum(staged_histogram(t) for t in xb.shards)
-    alpha = Alphabet.from_hist(hist, pad_zeros=len(xb) - n)
-    return Sharded([_decode_staged(t, alpha) for t in xb.shards]), alpha
+def _decode_shards(xb: Sharded, n: int, N: int, mesh):
+    """Staged bytes on a mesh -> (xs, alpha): the alphabet from the
+    histogram summed over every shard, each block decoded on its device."""
+    alpha = Alphabet.from_hist(staged_histogram(xb, mesh), pad_zeros=N - n)
+    return xb.map(lambda t: _decode_staged(t, alpha)), alpha
 
 
 def encode_and_shard(text, device=None, mesh=None):
@@ -795,10 +797,11 @@ def encode_and_shard(text, device=None, mesh=None):
         raise ValueError(f"text too large: {len(text)} (2^40 char ceiling)")
     if isinstance(text, (bytes, bytearray)) or \
             np.asarray(text).dtype == np.uint8:
-        xb, n, N = stage_bytes_block(text, device, p)
         if p > 1:
-            xs, alpha = _shard_staged(xb, n, mesh)
+            xb, n, N = stage_bytes_block(text, mesh)
+            xs, alpha = _decode_shards(xb, n, N, mesh)
             return xs, alpha, n, N
+        xb, n, N = stage_bytes_block(text, device)
         alpha = Alphabet.from_hist(staged_histogram(xb), pad_zeros=N - n)
         xs = _decode_staged(xb, alpha)
     else:
@@ -814,14 +817,13 @@ def encode_and_shard(text, device=None, mesh=None):
 
 
 def encode_and_shard_file(path: str, device=None, mesh=None):
-    """``encode_and_shard`` of a file's bytes: the file is read once
-    (``np.fromfile``), staged raw on ``device`` and its alphabet counted
-    there; on a mesh the one read is then split over the shards (each
-    shard reading its own byte range waits for the port's per-shard IO).
-    Returns (xs, alpha, n, N)."""
+    """``encode_and_shard`` of a file's bytes, staged raw on ``device``
+    (one read) or over ``mesh``, where each process reads only its own
+    shards' byte ranges (``parallel.staging``), and the alphabet counted
+    there.  Returns (xs, alpha, n, N)."""
     if mesh is not None and mesh.p > 1:
-        xb, n, N = stage_file_block(path, "cpu", mesh.p)
-        xs, alpha = _shard_staged(xb, n, mesh)
+        xb, n, N = stage_file_block(path, mesh)
+        xs, alpha = _decode_shards(xb, n, N, mesh)
         return xs, alpha, n, N
     if mesh is not None:
         device = mesh.devices[0]

@@ -41,6 +41,19 @@ def lcp_bitwise32(a: torch.Tensor, b: torch.Tensor, k: int, bits: int):
     return torch.where(x == 0, torch.full_like(lcp, k), lcp)
 
 
+def lcp_bitwise_pair(ahi, alo, bhi, blo, k1: int, k2: int, bits: int):
+    """LCP of two (k1 + k2)-char k-mers packed as (hi, lo) int32 pairs."""
+    return lcp_bitwise_words((ahi, alo), (bhi, blo), (k1, k2), bits)
+
+
+def kmer_char_at(kmer: torch.Tensor, k: int, bits: int, pos):
+    """The char at position ``pos`` (0-based from the left) of k-mers
+    packed in the low ``k * bits`` bits of int32 words (reference
+    ``include/kmer.hpp:65``, ``get_kmer_char``)."""
+    shift = (k - 1 - pos) * bits
+    return torch.bitwise_right_shift(kmer, shift) & ((1 << bits) - 1)
+
+
 def lcp_bitwise_words(a_words, b_words, ks: tuple[int, ...], bits: int):
     """LCP of two sum(ks)-char k-mers packed as tuples of int32 words
     (MSB-first word order)."""

@@ -6,6 +6,7 @@ of the tuple is k-mer order (reference ``include/kmer.hpp:25-40,119-177``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -28,5 +29,23 @@ def pack_kmers_local(chars_with_halo: torch.Tensor, s: int,
         for j in range(off, off + kw):
             w = torch.bitwise_left_shift(w, bits) | chars_with_halo[j:j + s]
         words.append(w)
+        off += kw
+    return tuple(words)
+
+
+def pack_kmers_host(codes, ks: tuple[int, ...], bits: int):
+    """NumPy reference of ``pack_kmers_local`` over a whole host code
+    array (zeros past its end): a tuple of len(ks) (n,) int32 words."""
+    n = len(codes)
+    k = sum(ks)
+    padded = np.concatenate([np.asarray(codes, np.int64),
+                             np.zeros(k - 1, np.int64)])
+    words = []
+    off = 0
+    for kw in ks:
+        w = np.zeros(n, np.int64)
+        for j in range(off, off + kw):
+            w = (w << bits) | padded[j:j + n]
+        words.append(w.astype(np.int32))
         off += kw
     return tuple(words)

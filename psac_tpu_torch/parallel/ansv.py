@@ -449,6 +449,10 @@ def ansv(arr, left_type: int = NEAREST_SM, right_type: int = NEAREST_SM,
     p = 1 if mesh is None else mesh.p
     if mesh is not None and p == 1:
         device = mesh.devices[0]
+    if mesh is not None and mesh.multiprocess:
+        raise ValueError("ansv gathers its answers to the caller: on a mesh "
+                         "that spans processes call ansv_mesh_local in "
+                         "Mesh.run")
     N = padded_size(max(n, 1), p)
     xp = np.full(N, infd, dt)
     xp[:n] = vals.astype(dt)

@@ -1178,3 +1178,33 @@ def test_blind_search_kernel_on_mesh_shapes(cuda, monkeypatch, force_int64):
         want = k7.blind_search_plain(*args[:-1], {"readbacks": 0})
         assert got[2].dtype == args[5].dtype
         _same(got, want)
+
+
+def test_two_processes_on_the_card_equal_the_thread_mesh(cuda, tmp_path):
+    """2 processes x 1 shard on the one card over gloo (NCCL refuses two
+    ranks on one card): SA+LCP of a repetitive file staged per process and
+    its suffix tree equal the thread mesh of 2 shards on the card, with
+    K6's min-only entry and K5 launched in the workers."""
+    from psac_tpu_torch.models import suffix_array as sa_mod
+    from psac_tpu_torch.models import suffix_tree as st_mod
+    from psac_tpu_torch.ops import cuda_lib
+    from psac_tpu_torch.ops.alphabet import rep_dna
+    from psac_tpu_torch.parallel.mesh import make_mesh
+    from test_torch_multiprocess import found, run_workers
+
+    cuda_lib.lib()  # one build before the workers start
+    path = tmp_path / "corpus.bin"
+    path.write_bytes(rep_dna(1 << 15, unit_len=512, seed=3, mutations=40))
+    run_workers(tmp_path, "build", 2, 1, device="cuda:0")
+    mesh = make_mesh(2, ["cuda:0"] * 2)
+    dsa, xs = sa_mod.construct_from_file(str(path), mesh=mesh)
+    tree = st_mod.construct_suffix_tree_device(dsa, xs)
+    want = [a.gather() for a in (dsa.isa, dsa.sa, dsa.lcp, tree.nodes)]
+    mesh.close()
+    got = found(tmp_path, "build")
+    for g in got:
+        assert g["devices"] == ["cuda:0"]
+        for a, w in zip(g["arrays"], want):
+            assert torch.equal(a, w)
+        assert g["launches"][1] > 0  # K5: each shard's ANSV
+    assert sum(g["launches"][0] for g in got) > 0  # K6-mins at the owners

@@ -1,5 +1,6 @@
 """Parity of the port's small ops with the JAX package: bitops (with the
-clz edge cases), k-mer packing, RMQ queries (min and leftmost argmin), the
+clz edge cases, the pair LCP and the char extraction), k-mer packing (and
+its host reference), RMQ queries (min and leftmost argmin), the
 multi-key sort, the p = 1 collectives and routing, the config converter,
 and the numpy helpers and modules the port copies.  Integers only: every
 comparison is exact."""
@@ -85,6 +86,60 @@ def test_lcp_bitwise_words(bits, ks):
     got = t_bitops.lcp_bitwise_words(tuple(map(_t, aw)), tuple(map(_t, bw)),
                                      ks, bits).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("bits,k1,k2", [(3, 10, 10), (2, 15, 15), (8, 3, 3),
+                                        (5, 6, 1)])
+def test_lcp_bitwise_pair(bits, k1, k2):
+    from psac_tpu.ops.bitops import lcp_bitwise_pair
+
+    rng = np.random.RandomState(k1 + k2)
+    m = 2000
+    hi = rng.randint(0, 1 << (k1 * bits), (2, m)).astype(np.int32)
+    lo = rng.randint(0, 1 << (k2 * bits), (2, m)).astype(np.int32)
+    hi[1, :700] = hi[0, :700]  # equal high words: the low words decide
+    lo[1, :300] = lo[0, :300]
+    hi[1, :5] = lo[1, :5] = 0
+    want = lcp_bitwise_pair(*(jnp.asarray(a) for a in (hi[0], lo[0], hi[1],
+                                                       lo[1])), k1, k2, bits)
+    got = t_bitops.lcp_bitwise_pair(*(_t(a) for a in (hi[0], lo[0], hi[1],
+                                                      lo[1])), k1, k2, bits)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("bits,k", [(2, 15), (3, 10), (8, 3), (5, 6)])
+def test_kmer_char_at(bits, k):
+    from psac_tpu.ops.bitops import kmer_char_at
+
+    rng = np.random.RandomState(bits)
+    km = rng.randint(0, 1 << (k * bits), 1000).astype(np.int32)
+    pos = rng.randint(0, k, 1000).astype(np.int32)
+    for p_ in (pos, 0, k - 1):
+        want = kmer_char_at(jnp.asarray(km), k, bits,
+                            jnp.asarray(p_) if isinstance(p_, np.ndarray)
+                            else p_)
+        got = t_bitops.kmer_char_at(_t(km), k, bits,
+                                    _t(p_) if isinstance(p_, np.ndarray)
+                                    else p_)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("bits,words", [(3, 2), (2, 3), (8, 1)])
+def test_pack_kmers_host(bits, words):
+    from psac_tpu.ops.kmer import optimal_k, pack_kmers_host
+
+    ks = optimal_k(bits, words=words)
+    rng = np.random.RandomState(bits)
+    codes = rng.randint(1, 1 << bits, 777)
+    want = pack_kmers_host(codes, ks, bits)
+    got = t_kmer.pack_kmers_host(codes, ks, bits)
+    local = t_kmer.pack_kmers_local(
+        _t(np.concatenate([codes, np.zeros(sum(ks) - 1, np.int64)])
+           .astype(np.int32)), len(codes), ks, bits)
+    for g, w, lw in zip(got, want, local):
+        assert g.dtype == w.dtype == np.int32
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(lw.numpy(), w)
 
 
 @pytest.mark.parametrize("bits,words", [(3, 2), (2, 3), (8, 1)])
