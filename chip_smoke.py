@@ -20,12 +20,15 @@ sets (SA+LCP at tail thresholds 0.1 and 0.0, SA-only at factors 2-4, K6 in
 every doubling step of ``rep_dna``, the GSA of both sets) and
 ``pack_keys`` at ``dense_factor=5``; the mesh of p = 4 shards on the
 card(s) (``[mesh]``: SA+LCP of the 2^26 text and of ``rep_dna``, fused
-and host-driven, the 2^26 suffix tree, ``d_check_sa``, the DESA of the
-2^26 text with both top-level indexes answering the same batches as at
-p = 1 (K7 on every shard's slab, held against its plain version there)
-and its files written and read back, the public ANSV, SA+LCP at p = 3,
-and GSA + GLCP and the GST of both string sets; K6's min-only entry,
-``rmq_mins``, held against its plain version there); the mesh of 4 shards
+and host-driven, the 2^26 suffix tree (the walks K8 in every shard's
+ANSV, held against their plain version on one shard's full-width walks
+and on the largest routed one), ``d_check_sa``, the DESA of the 2^26 text
+with both top-level indexes answering the same batches as at p = 1 (K7 on
+every shard's slab, held against its plain version there) and its files
+written and read back, the public ANSV (and on 2^20 int64 values, K8
+held against its plain version there), SA+LCP at p = 3, and GSA + GLCP
+and the GST of both string sets; K6's min-only entry, ``rmq_mins``, held
+against its plain version there); the mesh of 4 shards
 across 2 processes of this script (``[procs]``: gloo on ``cuda:0``, and
 NCCL with a card per process where there are two: SA+LCP of the 2^26
 file, ``d_check_sa``, the per-shard SA files and their reload, the DESA
@@ -175,8 +178,13 @@ def tansv_cases():
     return {k: v.astype(np.int32) for k, v in cases.items()}
 
 
+# K8's two wrappers are one row of the kernel table
+TABLE_NAME = {"levels_prev_lt": "walks", "levels_next_leq": "walks"}
+
+
 def counter(fns):
-    """(reset, read) over the launch counts of kernel wrappers.  Each
+    """(reset, read) over the launch counts of kernel wrappers, read under
+    their kernel-table names (K8's two walks summed as ``walks``).  Each
     main-path phase adds what it read into ``LAUNCHES``, the count the
     kernel table reports."""
     def reset():
@@ -184,7 +192,11 @@ def counter(fns):
             fn.launches = 0
 
     def read():
-        return {fn.__name__: fn.launches for fn in fns}
+        out = {}
+        for fn in fns:
+            k = TABLE_NAME.get(fn.__name__, fn.__name__)
+            out[k] = out.get(k, 0) + fn.launches
+        return out
 
     return reset, read
 
@@ -1614,6 +1626,77 @@ def mesh_desa(mesh, timed, sync, text: bytes, ref: dict, log2n: int,
         f"of the files answers as p = 1 on {card}")
 
 
+def walk_rows(field: str, levels, start, ans) -> int:
+    """The distinct level rows that K8 reads for one walk call, derived
+    from its answers: the ascent reads the row of the own position's
+    ancestor at each level up to the first row that holds the answer
+    (every level on a miss), the descent the rows of the answer's
+    ancestors below that level.  Each row is counted once per call."""
+    import torch
+
+    s = levels[0].numel()
+    st = start.to(torch.int64)
+    if field == "walk_next_leq":
+        live = st < s
+        own, hit = st.clamp(min=0), ans < s
+    else:
+        live = st > 0
+        own, hit = st - 1, ans >= 0
+    own, a, hit = own[live], ans[live], hit[live]
+    L = len(levels)
+    K = torch.full_like(own, L)  # the level the ascent stops at
+    for k in reversed(range(L)):
+        sh = 7 * (k + 1)
+        K = torch.where(hit & ((a >> sh) == (own >> sh)), k, K)
+    rows = 0
+    for k, lv in enumerate(levels):
+        sh = 7 * (k + 1)
+        up = (own[K >= k] >> sh).clamp(0, lv.shape[0] - 1)
+        down = a[hit & (K > k)] >> sh
+        rows += torch.unique(torch.cat([up, down])).numel()
+    return rows
+
+
+def walk_bound(calls, answers) -> dict:
+    """K8's bound over walk calls ``(field, levels, start, v, strict)`` and
+    their answers: per call each query's start (8 B), value and answer
+    (8 B) once and each level row that the call's walks read
+    (``walk_rows``) once; one comparison a query."""
+    nbytes = ops = 0
+    for (field, levels, start, v, _), ans in zip(calls, answers):
+        q = start.shape[0]
+        row_bytes = levels[0].shape[1] * levels[0].element_size()
+        nbytes += q * (16 + v.element_size()) + row_bytes * walk_rows(
+            field, levels, start, ans)
+        ops += q
+    return bound(nbytes, ops)
+
+
+def k8_held(calls, label: str, card: str) -> dict:
+    """K8 against its plain version on walk calls (answers exactly equal),
+    both timed on the calls' card: the kernel a mean over 10 runs, the
+    plain version one run.  These launches are not counted."""
+    from psac_tpu_torch.parallel.ansv import KERNELS, PLAIN
+
+    def run(table):
+        return [getattr(table, f)(lv, st, v, sr)
+                for f, lv, st, v, sr in calls]
+
+    got = run(KERNELS)
+    err = max_abs_err(tuple(got), tuple(run(PLAIN)))
+    dev = calls[0][2].device
+    res = dict(calls=len(calls), queries=sum(c[2].shape[0] for c in calls),
+               rows=calls[0][1][0].numel(), dtype=str(calls[0][3].dtype),
+               max_abs_err=err, ms=cuda_ms(lambda: run(KERNELS), 10, dev),
+               plain_ms=cuda_ms(lambda: run(PLAIN), 1, dev),
+               **walk_bound(calls, got))
+    log(f"[kernel] K8 walks == plain on {label} ({res['calls']} calls, "
+        f"{res['queries']} queries over {res['rows']} {res['dtype']} rows): "
+        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.6f} ms ({res['bound_by']}) on {card}")
+    return res
+
+
 def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
                rsa, rlcp, log2n: int, rep_log2n: int, ansv_log2n: int,
                gsa_sets: dict, desa_ref: dict, card: str,
@@ -1626,18 +1709,21 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
     random DNA against the native oracle, ``d_check_sa`` at p = 4 (true,
     and false with two rows swapped), the DESA of the 2^26 text
     (``mesh_desa``, against the p = 1 index's answers and files in
-    ``desa_ref``), the public ``ansv`` at p = 4 against p = 1, and the
-    GSA + GLCP and the GST of each string set of
+    ``desa_ref``), the public ``ansv`` at p = 4 against p = 1 (on the int32
+    values and on 2^20 int64 values), and the GSA + GLCP and the GST of
+    each string set of
     ``gsa_sets`` (label -> (strings, the p = 1 (GSA, GLCP), the p = 1 GST
     table, whether K6's min-only entry is checked there)) against the p = 1
     results, with, on the checked set, ``build_gsa_from_file`` of the set
     written as lines against the in-memory build.  Each build's wall, peak
-    memory and its launches of K6's min-only entry, K5 and K6 (counted
+    memory and its launches of K6's min-only entry, K5, K6 and K8 (counted
     into the kernel table); K6's min-only entry held against its plain
     version on the largest call of the rep_dna build and of the checked
     GSA build and on small adversaries, K5 on one shard's suffix tree
-    input; the walks' time in each tree's ANSV (their calls replayed one
-    by one with CUDA events)."""
+    input, K8 on one shard's three full-width walks of the 2^26 tree, on
+    its largest routed walk and on the int64 ANSV's largest walk; the
+    walks' time in each tree's and ANSV's run, K8 against the plain
+    version (their calls replayed one by one with CUDA events)."""
     import threading
     from unittest import mock
 
@@ -1649,6 +1735,7 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
     from psac_tpu_torch.models import suffix_array as sa_mod
     from psac_tpu_torch.models import suffix_tree as st_mod
     from psac_tpu_torch.ops import rmq as rmq_mod
+    from psac_tpu_torch.ops import walk as walk_mod
     from psac_tpu_torch.ops.alphabet import rand_dna
     from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_EQ, NEAREST_SM
     from psac_tpu_torch.ops.bansv import block_psv, block_psv_plain
@@ -1663,7 +1750,9 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
     cards = sorted(set(devices))
     log(f"[mesh] p = 4 shards on {devices} ({count} card(s)); {card}")
     mesh = make_mesh(4, devices)
-    reset, read = counter((rmq_mod.rmq_mins, block_psv, rmq_mod.rmq_resolve))
+    reset, read = counter((rmq_mod.rmq_mins, block_psv, rmq_mod.rmq_resolve,
+                           walk_mod.levels_prev_lt,
+                           walk_mod.levels_next_leq))
     out = {}
 
     def sync():
@@ -1683,11 +1772,12 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
             torch.cuda.max_memory_allocated(d) for d in cards) / 2**30,
             **read())
         add_launches({k: st[k] for k in ("rmq_mins", "block_psv",
-                                         "rmq_resolve")})
+                                         "rmq_resolve", "walks")})
         out[label] = st
         log(f"[mesh] {label}: {st['wall_s']:.3f} s, peak "
             f"{st['peak_gib']:.2f} GiB, launches K6-mins {st['rmq_mins']}, "
-            f"K5 {st['block_psv']}, K6 {st['rmq_resolve']}")
+            f"K5 {st['block_psv']}, K6 {st['rmq_resolve']}, K8 "
+            f"{st['walks']}")
         return res
 
     def build(t, cfg=None, m=mesh):
@@ -1715,26 +1805,36 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
         raise AssertionError("p = 4 suffix tree differs from the p = 1 tree")
     del tree, got, want
     log(f"[mesh] ST 2^{log2n} DNA p=4 == p = 1 tree")
+    if out[f"ST 2^{log2n} DNA p=4"]["walks"] == 0:
+        raise AssertionError("K8 was not launched by the p = 4 suffix tree")
 
-    def walks(label, fn):
+    walk_fields = ("walk_prev_lt", "walk_next_leq")
+
+    def walks(label, fn, plain=False):
         """The walks' time inside ``fn()``: a second run with the walk calls
-        noted, then replayed one by one (one card's stream is shared by the
-        shards, so events around a call in the run would time the other
-        shards' work too)."""
+        noted (``KERNELS``' walk fields swapped for spies), then replayed
+        one by one on K8, and with ``plain`` on the plain versions too (one
+        card's stream is shared by the shards, so events around a call in
+        the run would time the other shards' work too).  Returns the calls,
+        ``(field, levels, start, v, strict)``."""
         calls, lock = [], threading.Lock()
+        real = {f: getattr(ansv_mod.KERNELS, f) for f in walk_fields}
 
-        def spy(walk):
-            def wrapped(levels, start, v, strict=walk.__defaults__[0]):
+        def spy(field):
+            def wrapped(levels, start, v, strict):
                 with lock:
-                    calls.append((walk, levels, start, v, strict))
-                return walk(levels, start, v, strict)
+                    calls.append((field, levels, start, v, strict))
+                return real[field](levels, start, v, strict)
             return wrapped
 
-        with mock.patch.object(ansv_mod, "levels_prev_lt",
-                               spy(ansv_mod.levels_prev_lt)), \
-                mock.patch.object(ansv_mod, "levels_next_leq",
-                                  spy(ansv_mod.levels_next_leq)):
+        # KERNELS is frozen, and every caller holds this one instance
+        try:
+            for f in walk_fields:
+                object.__setattr__(ansv_mod.KERNELS, f, spy(f))
             fn()
+        finally:
+            for f in walk_fields:
+                object.__setattr__(ansv_mod.KERNELS, f, real[f])
         for d in cards:
             torch.cuda.synchronize(d)
         n_walk = sum(c[2].shape[0] for c in calls)
@@ -1742,16 +1842,47 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
         by_card = {}
         for c in calls:
             by_card.setdefault(c[3].device, []).append(c)
-        ms = sum(cuda_ms(lambda cs=cs: [w(lv, st, v, sr) for w, lv, st, v, sr
-                                        in cs], 1, d)
-                 for d, cs in by_card.items())
-        out[label]["walk_ms"] = ms
-        out[label]["walk_queries"] = n_walk
-        log(f"[mesh] walks in {label}: {len(calls)} calls, {n_walk} "
-            f"queries, {ms:.3f} ms replayed on {card}")
 
-    walks(f"ST 2^{log2n} DNA p=4",
-          lambda: st_mod.construct_suffix_tree_device(dsa, xs))
+        def replay(table, cs):
+            return [getattr(table, f)(lv, st, v, sr)
+                    for f, lv, st, v, sr in cs]
+
+        def total(table):
+            return sum(cuda_ms(lambda cs=cs: replay(table, cs), 1, d)
+                       for d, cs in by_card.items())
+
+        st = out[label]
+        st.update(walk_ms=total(ansv_mod.KERNELS), walk_queries=n_walk,
+                  walk_calls=len(calls))
+        if plain:
+            st["walk_plain_ms"] = total(ansv_mod.PLAIN)
+        log(f"[mesh] walks in {label}: {len(calls)} calls, {n_walk} "
+            f"queries, {st['walk_ms']:.3f} ms on K8"
+            + (f", {st['walk_plain_ms']:.3f} ms plain" if plain else "")
+            + f", replayed on {card}")
+        return calls
+
+    calls = walks(f"ST 2^{log2n} DNA p=4",
+                  lambda: st_mod.construct_suffix_tree_device(dsa, xs),
+                  plain=True)
+    # K8 on one shard's three full-width walks (j0_l, eh_l, e_loc of
+    # _left_furthest_eq) and on the largest routed walk (the valid rows of
+    # a mostly-padding exchange buffer)
+    by_table = {}
+    for c in calls:
+        if c[2].shape[0] == c[1][0].numel():
+            by_table.setdefault(id(c[1]), []).append(c)
+    full = next(cs for cs in by_table.values() if len(cs) == 3)
+    routed = max((c for c in calls if 0 < c[2].shape[0] < c[1][0].numel()),
+                 key=lambda c: c[2].shape[0])
+    k8 = k8_held(full, f"one shard's full-width walks of the p = 4 tree of "
+                 f"2^{log2n} DNA", card)
+    k8["routed"] = k8_held([routed], "the p = 4 tree's largest routed walk",
+                           card)
+    kern["walks"] = dict(
+        route="cuda", source="psac_tpu_torch/csrc/walk.cu",
+        replaces="psac_tpu/ops/walk.py:84", **k8)
+    del calls, by_table, full, routed
 
     # K5 at the shape each shard gives it: shard 1's suffix tree input
     lcp1 = dsa.lcp.shards[1]
@@ -1898,8 +2029,29 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
         if not all(np.array_equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"p = 4 ansv {name} differs from p = 1")
         walks(label, lambda: ansv_mod.ansv(vals, lt, rt, mesh=mesh))
+    if out[f"ansv 2^{ansv_log2n} FEQ,NSM p=4"]["walks"] == 0:
+        raise AssertionError("K8 was not launched by the p = 4 ansv FEQ,NSM")
     log(f"[mesh] public ansv 2^{ansv_log2n} p=4 == p = 1 for NSM,NSM, "
         "FEQ,NSM and NEQ,NEQ")
+    # int64 values (the public ANSV phase's wide input): K8's int64 walks
+    wide = ansv_values(20).astype(np.int64) << 33
+    label = "ansv 2^20 int64 FEQ,NSM p=4"
+    got = timed(label, lambda: ansv_mod.ansv(wide, FURTHEST_EQ, NEAREST_SM,
+                                             mesh=mesh))
+    want = ansv_mod.ansv(wide, FURTHEST_EQ, NEAREST_SM, device=dev)
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("p = 4 ansv of int64 values differs from p = 1")
+    if out[label]["walks"] == 0:
+        raise AssertionError("K8 was not launched by the p = 4 int64 ansv")
+    calls = walks(label, lambda: ansv_mod.ansv(wide, FURTHEST_EQ, NEAREST_SM,
+                                               mesh=mesh))
+    k = kern["walks"]
+    k["int64"] = k8_held([max(calls, key=lambda c: c[2].shape[0])],
+                         "the p = 4 int64 ansv's largest walk", card)
+    k["max_abs_err"] = max(k["max_abs_err"], k["routed"]["max_abs_err"],
+                           k["int64"]["max_abs_err"])
+    del calls
+    log("[mesh] public ansv 2^20 int64 FEQ,NSM p=4 == p = 1")
 
     # ---- GSA + GLCP, GST and the file input at p = 4
     for label, (strings, (want_sa, want_lcp), gst_p1, check) in \
@@ -1917,9 +2069,10 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
             raise AssertionError(f"K6's min-only entry was not launched by "
                                  f"the p = 4 GSA of {label}")
         tree = timed(tlabel, lambda: st_mod.construct_gst_device(dg))
-        if out[tlabel]["block_psv"] == 0:
-            raise AssertionError(f"K5 was not launched by the p = 4 GST of "
-                                 f"{label}")
+        for k, name in (("block_psv", "K5"), ("walks", "K8")):
+            if out[tlabel][k] == 0:
+                raise AssertionError(f"{name} was not launched by the p = 4 "
+                                     f"GST of {label}")
         if tree.N != gst_p1.shape[0] // (tree.sigma + 1) or \
                 not torch.equal(tree.nodes.gather(), gst_p1):
             raise AssertionError(f"p = 4 GST of {label} differs from p = 1")
@@ -1989,7 +2142,7 @@ def shard_digests(x) -> list:
             for t in x.shards]
 
 
-PROCS_KERNELS = ("rmq_mins", "block_psv", "blind_search")
+PROCS_KERNELS = ("rmq_mins", "block_psv", "blind_search", "walks")
 
 
 def procs_worker(rank: int, port: str, work: str, backend: str) -> int:
@@ -1998,7 +2151,7 @@ def procs_worker(rank: int, port: str, work: str, backend: str) -> int:
     processes, on ``cuda:0`` under gloo (host-staged) or on this process's
     card under NCCL.  Builds from the files in ``work`` against the
     references there (``ref.json``), each step timed with its peak and its
-    launches of K6-mins, K5 and K7, and writes ``report.RANK.json``.  Any
+    launches of K6-mins, K5, K7 and K8, and writes ``report.RANK.json``.  Any
     mismatch raises (the exit code is then non-zero)."""
     import torch
 
@@ -2008,7 +2161,7 @@ def procs_worker(rank: int, port: str, work: str, backend: str) -> int:
     from psac_tpu_torch.models import gsa as gsa_mod
     from psac_tpu_torch.models import suffix_tree as st_mod
     from psac_tpu_torch.models.suffix_array import construct_from_file
-    from psac_tpu_torch.ops import bansv, blind_search, rmq
+    from psac_tpu_torch.ops import bansv, blind_search, rmq, walk
     from psac_tpu_torch.parallel import dist as pdist
     from psac_tpu_torch.parallel.mesh import Sharded, make_mesh
     from psac_tpu_torch.verify.check_sa import d_check_sa
@@ -2022,7 +2175,8 @@ def procs_worker(rank: int, port: str, work: str, backend: str) -> int:
     torch.cuda.set_device(dev)
     mesh = make_mesh(4, [dev] * 2)
     reset, read = counter((rmq.rmq_mins, bansv.block_psv,
-                           blind_search.blind_search))
+                           blind_search.blind_search, walk.levels_prev_lt,
+                           walk.levels_next_leq))
     report = dict(rank=rank, backend=backend, device=str(dev), steps={})
 
     def step(label, fn):
@@ -2040,7 +2194,8 @@ def procs_worker(rank: int, port: str, work: str, backend: str) -> int:
         report["steps"][label] = st
         log(f"[procs] rank {rank} {backend}: {label} {st['wall_s']:.3f} s, "
             f"peak {st['peak_gib']:.2f} GiB, K6-mins {st['rmq_mins']}, K5 "
-            f"{st['block_psv']}, K7 {st['blind_search']}")
+            f"{st['block_psv']}, K7 {st['blind_search']}, K8 "
+            f"{st['walks']}")
         return res
 
     def same_files(prefix, want, exts):
@@ -2180,6 +2335,9 @@ def procs_phase(text: bytes, sa_ref, lcp_ref, desa_ref: dict, fam_set: list,
     backends = ["gloo"]
     if torch.cuda.device_count() >= 2:
         backends.append("nccl")
+    # the workers share this process's card: give its cached blocks back
+    gc.collect()
+    torch.cuda.empty_cache()
     out = {}
     try:
         for backend in backends:
@@ -2812,8 +2970,11 @@ def main() -> int:
                 f"{turns['peak_gib']:.2f} GiB)")
     log("[result] mesh: " + ", ".join(
         f"{k} {v['wall_s']:.3f} s ({v['peak_gib']:.2f} GiB; K6-mins "
-        f"{v['rmq_mins']}, K5 {v['block_psv']}, K6 {v['rmq_resolve']}; "
-        f"walks {v.get('walk_ms', 0.0):.3f} ms)"
+        f"{v['rmq_mins']}, K5 {v['block_psv']}, K6 {v['rmq_resolve']}, "
+        f"K8 {v['walks']}"
+        + (f"; walks {v['walk_ms']:.3f} ms" if "walk_ms" in v else "")
+        + (f", plain {v['walk_plain_ms']:.3f} ms"
+           if "walk_plain_ms" in v else "") + ")"
         for k, v in mesh_res.items() if "wall_s" in v)
         + f"; host-loop resolves {mesh_res['resolves']}")
     log("[result] mesh DESA patterns/s: " + ", ".join(

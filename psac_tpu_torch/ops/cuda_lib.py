@@ -48,6 +48,10 @@ _SIGNATURES = {
     "psac_blind_search_i64": [_P] * 13 + [_I64, _I32, _I64, _I64, _I32, _I32,
                                           _I64, _P],
     "psac_blind_search_shape": [_I64, _I32, _P],
+    "psac_walk_prev_lt_i32": [_P, _P, _I32] + [_P] * 3 + [_I64, _I32, _P],
+    "psac_walk_prev_lt_i64": [_P, _P, _I32] + [_P] * 3 + [_I64, _I32, _P],
+    "psac_walk_next_leq_i32": [_P, _P, _I32] + [_P] * 3 + [_I64, _I32, _P],
+    "psac_walk_next_leq_i64": [_P, _P, _I32] + [_P] * 3 + [_I64, _I32, _P],
 }
 
 _lib = None

@@ -18,7 +18,7 @@ explicit ``engine=`` argument here (None reads ``PSAC_NSV``, and
 - ``block``: every side on the block engine (K5), furthest_eq through its
   run-head table;
 - ``walk``: every side on the hierarchical-window walks (``ops/walk.py``,
-  plain torch; the JAX ``_left_match_local_only``).
+  kernel K8; the JAX ``_left_match_local_only``).
 
 int64 values (the public ``ansv`` keeps values that do not fit int32 in
 int64) run every side on the block engine under every engine but
@@ -33,7 +33,7 @@ On a mesh (JAX ``_left_nearest`` / ``_left_furthest_eq``, ``:52-233``)
 every shard finds its elements' in-shard matches with K5 ``block_psv``;
 an element without one picks the shard that holds its match from the
 replicated shard minima, and the query goes there by ``route_apply``,
-where the walks answer it.  The right side is the left side of the
+where the walks (K8) answer it.  The right side is the left side of the
 block-reversed array.  The engine selector does not apply there.
 """
 
@@ -56,7 +56,8 @@ from psac_tpu_torch.ops.nsv_scan import (CHUNK, nsv_scan_dual,
 from psac_tpu_torch.ops.tansv import (I32_INF, tansv_feq_nsm, tile_side,
                                       tile_side_plain)
 from psac_tpu_torch.ops.walk import (build_levels, levels_next_leq,
-                                     levels_prev_lt)
+                                     levels_next_leq_plain, levels_prev_lt,
+                                     levels_prev_lt_plain)
 from psac_tpu_torch.parallel.mesh import Rep, padded_size
 from psac_tpu_torch.parallel.route import cap_for, route_apply
 
@@ -64,23 +65,28 @@ from psac_tpu_torch.parallel.route import cap_for, route_apply
 @dataclasses.dataclass(frozen=True)
 class AnsvKernels:
     """The functions ANSV runs: the tile phase (K4), the spine scan (K1),
-    the dual scan (K2), the left scan (K3) and the block engine's
-    previous-smaller pass (K5)."""
+    the dual scan (K2), the left scan (K3), the block engine's
+    previous-smaller pass (K5) and the two walks (K8), each walk called
+    ``(levels, start, v, strict)``."""
 
     tile_side: Callable
     spine_scan: Callable
     dual_scan: Callable
     left_scan: Callable
     block_psv: Callable
+    walk_prev_lt: Callable
+    walk_next_leq: Callable
 
 
 KERNELS = AnsvKernels(tile_side, nsv_scan_spine, nsv_scan_dual,
-                      nsv_scan_left, block_psv)
+                      nsv_scan_left, block_psv, levels_prev_lt,
+                      levels_next_leq)
 # the kernels' plain versions, called explicitly: the reference the kernels
 # are held against on the card
 PLAIN = AnsvKernels(tile_side_plain, nsv_scan_spine_plain,
                     nsv_scan_dual_plain, nsv_scan_left_plain,
-                    block_psv_plain)
+                    block_psv_plain, levels_prev_lt_plain,
+                    levels_next_leq_plain)
 
 
 def nonsv_for(dt: torch.dtype) -> int:
@@ -95,22 +101,22 @@ def _left_side(x: torch.Tensor, typ: int, kernels: AnsvKernels):
     return nsv_left(x, typ, kernels.block_psv)
 
 
-def _walk_side(x: torch.Tensor, typ: int):
+def _walk_side(x: torch.Tensor, typ: int, kernels: AnsvKernels):
     """Left matches of one side on the hierarchical-window walks (the JAX
     ``_left_match_local_only``): (idx, val), idx -1 when none."""
     s = x.shape[0]
     table = build_levels(x)
     i_loc = torch.arange(s, device=x.device)
     if typ != FURTHEST_EQ:
-        jl = levels_prev_lt(table, i_loc, x, strict=(typ == NEAREST_SM))
+        jl = kernels.walk_prev_lt(table, i_loc, x, typ == NEAREST_SM)
         return jl, torch.where(jl >= 0, x[jl.clamp(min=0)], 0)
-    jstar = levels_prev_lt(table, i_loc, x, strict=True)
-    e_loc = levels_next_leq(table, jstar + 1, x)
+    jstar = kernels.walk_prev_lt(table, i_loc, x, True)
+    e_loc = kernels.walk_next_leq(table, jstar + 1, x, False)
     has_eq = e_loc < i_loc
     jsafe = jstar.clamp(min=0)
     v2 = x[jsafe]
-    j0 = levels_prev_lt(table, jsafe + 1, v2, strict=True) + 1
-    eh = levels_next_leq(table, j0, v2).clamp(max=s - 1)
+    j0 = kernels.walk_prev_lt(table, jsafe + 1, v2, True) + 1
+    eh = kernels.walk_next_leq(table, j0, v2, False).clamp(max=s - 1)
     idx = torch.where(has_eq, e_loc, torch.where(jstar >= 0, eh, -1))
     val = torch.where(has_eq, x, torch.where(jstar >= 0, v2, 0))
     return idx, val
@@ -135,7 +141,8 @@ def _matches(x: torch.Tensor, left_type: int, right_type: int,
     side in reversed coordinates; idx -1 when none."""
     pair = (left_type, right_type)
     if engine == "walk":
-        return (*_walk_side(x, left_type), *_walk_side(x.flip(0), right_type))
+        return (*_walk_side(x, left_type, kernels),
+                *_walk_side(x.flip(0), right_type, kernels))
     if x.dtype == torch.int32 and engine == "scan":
         return kernels.dual_scan(x, x.flip(0), left_type, right_type)[:4]
     if x.dtype == torch.int32 and engine == "block":
@@ -240,8 +247,8 @@ def _left_nearest(ctx, x, table, sm, strict: bool, cap, kernels):
     C = _shard_last_lt(sm, x, torch.full_like(jl, ctx.rank), strict)
 
     def walk(qv):
-        j = levels_prev_lt(table, torch.full_like(qv, s, dtype=torch.int64),
-                           qv, strict=strict)
+        j = kernels.walk_prev_lt(
+            table, torch.full_like(qv, s, dtype=torch.int64), qv, strict)
         ok = j >= 0
         return (torch.where(ok, base + j, inf).to(idt),
                 torch.where(ok, x[j.clamp(min=0)], 0).to(idt))
@@ -279,17 +286,17 @@ def _left_furthest_eq(ctx, x, table, sm, cap, kernels):
     has_rem = ~has_loc & (C >= 0)
 
     def walk1(qv):
-        j = levels_prev_lt(table, torch.full_like(qv, s, dtype=torch.int64),
-                           qv, strict=True)
+        j = kernels.walk_prev_lt(
+            table, torch.full_like(qv, s, dtype=torch.int64), qv, True)
         jsafe = j.clamp(min=0)
         v2 = x[jsafe]
         # leftmost visible member of j*'s run in this block, and whether
         # the run reaches the block's left edge (may go on further left)
-        j0 = levels_prev_lt(table, jsafe + 1, v2, strict=True) + 1
-        e_home = levels_next_leq(table, j0, v2)
+        j0 = kernels.walk_prev_lt(table, jsafe + 1, v2, True) + 1
+        e_home = kernels.walk_next_leq(table, j0, v2, False)
         # leftmost occurrence of the query value after j* (everything in
         # (j*, i) is >= qv, so the first <= qv is an equal, and visible)
-        e_after = levels_next_leq(table, jsafe + 1, qv)
+        e_after = kernels.walk_next_leq(table, jsafe + 1, qv, False)
         return ((base + j).to(idt), v2,
                 (base + e_home.clamp(max=s - 1)).to(idt),
                 (j0 == 0).to(torch.int32),
@@ -306,8 +313,8 @@ def _left_furthest_eq(ctx, x, table, sm, cap, kernels):
     # the same run facts for elements whose j* is in this shard
     jsafe = jstar.clamp(min=0)
     v2_l = x[jsafe]
-    j0_l = levels_prev_lt(table, jsafe + 1, v2_l, strict=True) + 1
-    eh_l = levels_next_leq(table, j0_l, v2_l)
+    j0_l = kernels.walk_prev_lt(table, jsafe + 1, v2_l, True) + 1
+    eh_l = kernels.walk_next_leq(table, j0_l, v2_l, False)
 
     has_star = has_loc | has_rem
     gstar = torch.where(has_loc, base + jstar, g1)
@@ -321,7 +328,7 @@ def _left_furthest_eq(ctx, x, table, sm, cap, kernels):
     # (b) shard(j*)'s suffix (e_after), whole shards strictly between (any
     # equal there is visible), then this shard's prefix (e_loc)
     startpos = torch.where(has_loc, jstar + 1, 0)
-    e_loc = levels_next_leq(table, startpos, v)
+    e_loc = kernels.walk_next_leq(table, startpos, v, False)
     e_loc_ok = e_loc < i_loc
     t_eq = _shard_first_eq(sm, v, shard_g, r_vec)
     t_eq_ok = t_eq < p
@@ -339,9 +346,9 @@ def _left_furthest_eq(ctx, x, table, sm, cap, kernels):
     def walk2(qv):
         # the leftmost visible occurrence of qv in this block: the first
         # qv after the block's last element < qv
-        j0 = levels_prev_lt(table, torch.full_like(qv, s, dtype=torch.int64),
-                            qv, strict=True) + 1
-        e = levels_next_leq(table, j0, qv)
+        j0 = kernels.walk_prev_lt(
+            table, torch.full_like(qv, s, dtype=torch.int64), qv, True) + 1
+        e = kernels.walk_next_leq(table, j0, qv, False)
         return ((base + e.clamp(max=s - 1)).to(idt),
                 (e < s).to(torch.int32))
 

@@ -1,5 +1,5 @@
 """Seeded inputs for checking the previous-smaller pass (K5), the LCP
-resolve (K6) and the generalized suffix array, shared by the CPU tests, the GPU tests and ``chip_smoke.py``
+resolve (K6), the walks (K8) and the generalized suffix array, shared by the CPU tests, the GPU tests and ``chip_smoke.py``
 so that all three drive the same cases."""
 
 from __future__ import annotations
@@ -144,3 +144,42 @@ def psv_adversaries(n: int, seed: int) -> dict:
             "decreasing": n - np.arange(n, dtype=np.int64),
             "far_min": far, "sparse_tiny": sparse,
             "plateaus": np.repeat(rng.randint(0, 4, n // 7 + 1), 7)[:n]}
+
+
+WALK_KINDS = ("random", "constant", "sorted", "reversed", "runs")
+
+
+def walk_case(kind: str, n: int, dtype, q: int, seed: int):
+    """(x, start, v) for the walks (K8): x of length n and ``dtype`` (int32,
+    or int64 values below -2^31 and above 2^32), q int64 starts (the first
+    three 0, n and the padded length n rounded up to 128, the rest in
+    [0, padded]) and q query values: entries of x, one below and one above
+    them, and the dtype's minimum and maximum (with which the padding
+    qualifies for a non-strict compare)."""
+    rng = np.random.RandomState(seed)
+    if kind == "random":
+        x = rng.randint(0, 1000, n)
+    elif kind == "constant":
+        x = np.full(n, 7)
+    elif kind == "sorted":
+        x = np.sort(rng.randint(0, 1000, n))
+    elif kind == "reversed":
+        x = np.sort(rng.randint(0, 1000, n))[::-1]
+    elif kind == "runs":
+        x = np.repeat(rng.randint(0, 6, -(-n // 37)), 37)[:n]
+    else:
+        raise ValueError(f"unknown walk case {kind!r}")
+    step = 1
+    x = x.astype(np.int64)
+    if np.dtype(dtype) == np.int64:
+        step = 1 << 33
+        x = x * step - (1 << 40)
+    padded = -(-n // 128) * 128
+    start = np.concatenate([[0, n, padded],
+                            rng.randint(0, padded + 1, max(0, q - 3))])[:q]
+    v = x[rng.randint(0, n, q)] + rng.randint(-1, 2, q) * step
+    info = np.iinfo(dtype)
+    v[rng.rand(q) < 0.02] = info.max
+    v[rng.rand(q) < 0.02] = info.min
+    return (np.ascontiguousarray(x.astype(dtype)), start.astype(np.int64),
+            v.astype(dtype))

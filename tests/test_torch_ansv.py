@@ -261,7 +261,8 @@ def test_unported_and_unknown_engines_raise(monkeypatch, engine):
 
 def test_walk_engine_from_the_environment(monkeypatch):
     """``PSAC_NSV=walk`` selects the walk engine (``ops/walk.py``), which
-    answers as ``ansv_seq`` does, as ``engine="walk"`` does."""
+    answers as ``ansv_seq`` does, as ``engine="walk"`` does, through the
+    kernels' walk fields only (one previous-smaller walk a side)."""
     a = np.random.RandomState(8).randint(0, 9, 500).astype(np.int32)
     want = ansv_seq(a, NEAREST_SM, NEAREST_SM, nonsv=len(a))
     monkeypatch.setenv("PSAC_NSV", "walk")
@@ -271,4 +272,4 @@ def test_walk_engine_from_the_environment(monkeypatch):
                 t_ansv.ansv(a, device="cpu", engine="walk")):
         for g, o in zip(got, want):
             np.testing.assert_array_equal(g, o)
-    assert calls == {}
+    assert calls == {"walk_prev_lt": 2}

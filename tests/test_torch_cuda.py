@@ -1208,3 +1208,168 @@ def test_two_processes_on_the_card_equal_the_thread_mesh(cuda, tmp_path):
             assert torch.equal(a, w)
         assert g["launches"][1] > 0  # K5: each shard's ANSV
     assert sum(g["launches"][0] for g in got) > 0  # K6-mins at the owners
+
+
+# ---------------------------------------------------------------------------
+# K8, the walks
+# ---------------------------------------------------------------------------
+
+_WALK_CASES = [(k, n, dt) for dt in (np.int32, np.int64)
+               for n in (1, 127, 128, 129, (1 << 21) + 1)
+               for k in cases.WALK_KINDS]
+
+
+def _walk_inputs(kind, n, dtype, cuda, q=1500, seed=None):
+    from psac_tpu_torch.ops import walk
+
+    x, start, v = cases.walk_case(kind, n, dtype, q, seed=n if seed is None
+                                  else seed)
+    xt = torch.from_numpy(x).to(cuda)
+    return (walk.build_levels(xt), torch.from_numpy(start).to(cuda),
+            torch.from_numpy(v).to(cuda))
+
+
+def _walks_equal_plain(levels, start, v):
+    from psac_tpu_torch.ops import walk
+
+    for name in ("prev_lt", "next_leq"):
+        fn = getattr(walk, f"levels_{name}")
+        plain = getattr(walk, f"levels_{name}_plain")
+        for strict in (True, False):
+            before = fn.launches
+            got = fn(levels, start, v, strict)
+            assert fn.launches == before + (start.shape[0] > 0)
+            assert got.dtype == torch.int64 and got.device == start.device
+            _same((got,), (plain(levels, start, v, strict),))
+
+
+@pytest.mark.parametrize("kind,n,dtype", _WALK_CASES,
+                         ids=[f"{k}-{n}-{np.dtype(d).name}"
+                              for k, n, d in _WALK_CASES])
+def test_walk_kernel_vs_plain(cuda, kind, n, dtype):
+    """K8 equals its plain version, both walks, strict and not, on the CPU
+    tests' cases (starts 0, n, the padded length and random ones; values
+    with the dtype's extremes), one launch a call."""
+    _walks_equal_plain(*_walk_inputs(kind, n, dtype, cuda))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_walk_kernel_in_start_order(cuda, dtype):
+    """The full-width calls' shape: one query per element in start order
+    over 2^20 + 3 values (four levels' worth of climbs on runs)."""
+    from psac_tpu_torch.ops import walk
+
+    n = (1 << 20) + 3
+    x, _, _ = cases.walk_case("runs", n, dtype, 8, seed=5)
+    xt = torch.from_numpy(x).to(cuda)
+    levels = walk.build_levels(xt)
+    start = torch.arange(n + 1, device=cuda)
+    v = torch.cat([xt, xt[:1]])
+    _walks_equal_plain(levels, start, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_walk_kernel_on_misaligned_levels(cuda, dtype):
+    """Levels that start past a 16-byte boundary are refused without a
+    launch; ``build_levels`` of such a view (an input into a larger tensor)
+    copies it, and the walks over its levels equal the plain version."""
+    from psac_tpu_torch.ops import walk
+
+    x, start, v = cases.walk_case("random", 128 * 300, np.dtype(
+        str(dtype).split(".")[1]), 4000, seed=3)
+    host = torch.from_numpy(x)
+    shifted = torch.cat([host[:1], host]).to(cuda)[1:]
+    assert shifted.data_ptr() % 16 != 0
+    levels = walk.build_levels(shifted)
+    assert all(lv.data_ptr() % 16 == 0 for lv in levels)
+    start, v = torch.from_numpy(start).to(cuda), torch.from_numpy(v).to(cuda)
+    _walks_equal_plain(levels, start, v)
+    bad = (shifted.view(-1, 128),) + levels[1:]
+    for fn in (walk.levels_prev_lt, walk.levels_next_leq):
+        before = fn.launches
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(bad, start, v, True)
+        assert fn.launches == before
+
+
+def test_walk_kernel_without_a_query_launches_nothing(cuda):
+    levels, _, _ = _walk_inputs("random", 1000, np.int32, cuda)
+    _walks_equal_plain(levels, torch.zeros(0, dtype=torch.int64, device=cuda),
+                       torch.zeros(0, dtype=torch.int32, device=cuda))
+
+
+def test_walk_wrappers_reject_what_the_kernel_does_not_take(cuda):
+    from psac_tpu_torch.ops import walk
+
+    levels, start, v = _walk_inputs("random", 1000, np.int32, cuda)
+    bad = [
+        (levels, start.to(torch.int32), v),           # int32 starts
+        (levels, start, v.to(torch.int64)),           # values of another type
+        (levels, start, v.to(torch.int16)),
+        (levels, start, v[:-1]),                      # shapes differ
+        (levels, start[::2], v[::2]),                 # not contiguous
+        ((levels[0].cpu(),) + levels[1:], start, v),  # a level on the host
+        ((levels[0].t().contiguous(),) + levels[1:], start, v),
+        (tuple(lv.to(torch.int64) for lv in levels), start, v),
+        ((), start, v),
+    ]
+    for fn in (walk.levels_prev_lt, walk.levels_next_leq):
+        before = fn.launches
+        for args in bad:
+            with pytest.raises(ValueError):
+                fn(*args, True)
+        assert fn.launches == before
+
+
+def test_mesh_suffix_tree_on_the_card_launches_the_walks(cuda):
+    """A p = 4 suffix tree of random DNA on four shards of the one card
+    equals the same build on four CPU shards, with K8 launched for the
+    full-width and the routed walks (none on the CPU), and the plain
+    reference tree (``PLAIN``) launches no K8."""
+    from psac_tpu_torch.models import suffix_array as sa_mod
+    from psac_tpu_torch.models import suffix_tree as st_mod
+    from psac_tpu_torch.ops import walk
+    from psac_tpu_torch.ops.alphabet import rand_dna
+    from psac_tpu_torch.parallel.ansv import PLAIN
+    from psac_tpu_torch.parallel.mesh import make_mesh
+
+    def launches():
+        return walk.levels_prev_lt.launches + walk.levels_next_leq.launches
+
+    text = rand_dna(1 << 16, seed=21)
+    outs = {}
+    for name, devs in (("cuda", ["cuda:0"] * 4), ("cpu", ["cpu"] * 4)):
+        mesh = make_mesh(4, devs)
+        xs, alpha, n, N = sa_mod.encode_and_shard(text, mesh=mesh)
+        dsa = sa_mod.construct_device(xs, alpha, n, N, mesh=mesh)
+        before = launches()
+        tree = st_mod.construct_suffix_tree_device(dsa, xs)
+        outs[name] = (tree.nodes.gather(), launches() - before)
+        if name == "cuda":
+            before = launches()
+            plain = st_mod._st_local(dsa, xs, PLAIN, mesh)
+            assert launches() == before
+            assert torch.equal(plain.nodes.gather(), outs[name][0])
+        mesh.close()
+    assert torch.equal(outs["cuda"][0], outs["cpu"][0])
+    assert outs["cuda"][1] > 0 and outs["cpu"][1] == 0
+
+
+def test_mesh_public_ansv_int64_on_the_card(cuda):
+    """The public ``ansv`` at p = 4 on int64 values on the card equals the
+    p = 1 answer and ``ansv_seq``, launching K8."""
+    from psac_tpu_torch.ops import walk
+    from psac_tpu_torch.parallel.ansv import ansv
+    from psac_tpu_torch.parallel.mesh import make_mesh
+
+    a = np.random.RandomState(12).randint(0, 50, 20000).astype(np.int64) << 33
+    mesh = make_mesh(4, ["cuda:0"] * 4)
+    for lt, rt in ((FURTHEST_EQ, NEAREST_SM), (NEAREST_EQ, FURTHEST_EQ)):
+        before = walk.levels_next_leq.launches
+        got = ansv(a, lt, rt, mesh=mesh)
+        assert walk.levels_next_leq.launches > before
+        for g, w, o in zip(got, ansv(a, lt, rt, device=cuda),
+                           ansv_seq(a, lt, rt, nonsv=len(a))):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(g, o)
+    mesh.close()
