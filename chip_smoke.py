@@ -1742,6 +1742,7 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
     from psac_tpu_torch.parallel import ansv as ansv_mod
     from psac_tpu_torch.parallel import par_rmq
     from psac_tpu_torch.parallel.mesh import Sharded, make_mesh
+    from psac_tpu_torch.tools.k8_sweep import held_calls, recorded
     from psac_tpu_torch.verify.cases import resolve_lcp
     from psac_tpu_torch.verify.check_sa import d_check_sa
 
@@ -1808,8 +1809,6 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
     if out[f"ST 2^{log2n} DNA p=4"]["walks"] == 0:
         raise AssertionError("K8 was not launched by the p = 4 suffix tree")
 
-    walk_fields = ("walk_prev_lt", "walk_next_leq")
-
     def walks(label, fn, plain=False):
         """The walks' time inside ``fn()``: a second run with the walk calls
         noted (``KERNELS``' walk fields swapped for spies), then replayed
@@ -1817,24 +1816,7 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
         card's stream is shared by the shards, so events around a call in
         the run would time the other shards' work too).  Returns the calls,
         ``(field, levels, start, v, strict)``."""
-        calls, lock = [], threading.Lock()
-        real = {f: getattr(ansv_mod.KERNELS, f) for f in walk_fields}
-
-        def spy(field):
-            def wrapped(levels, start, v, strict):
-                with lock:
-                    calls.append((field, levels, start, v, strict))
-                return real[field](levels, start, v, strict)
-            return wrapped
-
-        # KERNELS is frozen, and every caller holds this one instance
-        try:
-            for f in walk_fields:
-                object.__setattr__(ansv_mod.KERNELS, f, spy(f))
-            fn()
-        finally:
-            for f in walk_fields:
-                object.__setattr__(ansv_mod.KERNELS, f, real[f])
+        calls = recorded(fn)
         for d in cards:
             torch.cuda.synchronize(d)
         n_walk = sum(c[2].shape[0] for c in calls)
@@ -1865,16 +1847,9 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
     calls = walks(f"ST 2^{log2n} DNA p=4",
                   lambda: st_mod.construct_suffix_tree_device(dsa, xs),
                   plain=True)
-    # K8 on one shard's three full-width walks (j0_l, eh_l, e_loc of
-    # _left_furthest_eq) and on the largest routed walk (the valid rows of
-    # a mostly-padding exchange buffer)
-    by_table = {}
-    for c in calls:
-        if c[2].shape[0] == c[1][0].numel():
-            by_table.setdefault(id(c[1]), []).append(c)
-    full = next(cs for cs in by_table.values() if len(cs) == 3)
-    routed = max((c for c in calls if 0 < c[2].shape[0] < c[1][0].numel()),
-                 key=lambda c: c[2].shape[0])
+    # K8 on one shard's three full-width walks and on the largest routed
+    # walk
+    full, routed = held_calls(calls)
     k8 = k8_held(full, f"one shard's full-width walks of the p = 4 tree of "
                  f"2^{log2n} DNA", card)
     k8["routed"] = k8_held([routed], "the p = 4 tree's largest routed walk",
@@ -1882,7 +1857,7 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
     kern["walks"] = dict(
         route="cuda", source="psac_tpu_torch/csrc/walk.cu",
         replaces="psac_tpu/ops/walk.py:84", **k8)
-    del calls, by_table, full, routed
+    del calls, full, routed
 
     # K5 at the shape each shard gives it: shard 1's suffix tree input
     lcp1 = dsa.lcp.shards[1]

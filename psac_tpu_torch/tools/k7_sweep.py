@@ -58,14 +58,14 @@ def variants() -> dict:
     return out
 
 
-def ptxas_report(log: str) -> list:
-    """(kernel, registers, spill bytes) of each K7 kernel of an ``nvcc
-    -Xptxas -v`` log."""
+def ptxas_report(log: str, match: str = "blind_search_kernel") -> list:
+    """(kernel, registers, spill bytes) of each kernel of an ``nvcc -Xptxas
+    -v`` log whose name holds ``match`` (by default K7's)."""
     out, cur, spill = [], None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            cur = m.group(1) if "blind_search_kernel" in m.group(1) else None
+            cur = m.group(1) if match in m.group(1) else None
             spill = 0
         m = re.search(r"(\d+) bytes spill stores", line)
         if cur and m:
@@ -77,14 +77,15 @@ def ptxas_report(log: str) -> list:
     return out
 
 
-def start_build(tag: str, src: str, defs: dict) -> tuple:
+def start_build(tag: str, src: str, defs: dict, kernel: str = "k7") -> tuple:
     """Start compiling ``src`` with the macros ``defs`` into
-    ``_build/libpsac_k7_<tag>.so``; returns (process, path)."""
+    ``_build/libpsac_<kernel>_<tag>.so``; returns (process, path)."""
     from psac_tpu_torch.ops import cuda_lib
 
     os.makedirs(cuda_lib.BUILD_DIR, exist_ok=True)
     so = os.path.join(cuda_lib.BUILD_DIR,
-                      f"libpsac_k7_{re.sub(r'[^A-Za-z0-9]', '_', tag)}.so")
+                      f"libpsac_{kernel}_"
+                      f"{re.sub(r'[^A-Za-z0-9]', '_', tag)}.so")
     proc = subprocess.Popen(
         [cuda_lib._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
          "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared", "-Xptxas",

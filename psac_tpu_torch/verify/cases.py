@@ -146,7 +146,44 @@ def psv_adversaries(n: int, seed: int) -> dict:
             "plateaus": np.repeat(rng.randint(0, 4, n // 7 + 1), 7)[:n]}
 
 
-WALK_KINDS = ("random", "constant", "sorted", "reversed", "runs")
+WALK_KINDS = ("random", "constant", "sorted", "reversed", "runs", "near")
+#: offsets from a row's start of the ``near`` kind's fixed starts: the
+#: edges of a 128-byte window of int32 (32 entries) and of int64 (16) and
+#: the row's ends
+NEAR_OFFSETS = (0, 1, 15, 16, 17, 31, 32, 33, 127, 128, 129)
+
+
+def _prev_smaller(x: np.ndarray, at: np.ndarray, t: np.ndarray,
+                  top: int) -> np.ndarray:
+    """For each query k: the largest j <= at[k] with x[j] < t[k], -1 if
+    none; x and t in [0, top]."""
+    out = np.full(at.shape[0], -1, np.int64)
+    idx = np.arange(x.shape[0])
+    for c in range(top + 1):
+        sel = (t == c) & (at >= 0)
+        if sel.any():
+            last = np.maximum.accumulate(np.where(x < c, idx, -1))
+            out[sel] = last[at[sel]]
+    return out
+
+
+def _near_starts(x: np.ndarray, q: int, rng) -> tuple:
+    """Starts and values as ``parallel/ansv.py::_left_furthest_eq`` makes
+    them for its full-width walks, over LCP-like ``x`` in [0, 20]: for
+    elements i in increasing order, j* = the previous strictly smaller,
+    then (j* + 1, x[i]) (``e_loc``), (max(j*, 0) + 1, x[j*]) (``j0_l``)
+    and (j0, x[j*]) with j0 one past the last element at or before j*
+    smaller than x[j*] (``eh_l``), a third of the queries each."""
+    n = x.shape[0]
+    m = -(-q // 3)
+    i = np.sort(rng.randint(0, n, m))
+    jstar = _prev_smaller(x, i - 1, x[i], 20)
+    jsafe = np.maximum(jstar, 0)
+    v2 = x[jsafe]
+    j0 = _prev_smaller(x, jsafe, v2, 20) + 1
+    start = np.concatenate([jstar + 1, jsafe + 1, j0])
+    v = np.concatenate([x[i], v2, v2])
+    return start[:q], v[:q]
 
 
 def walk_case(kind: str, n: int, dtype, q: int, seed: int):
@@ -155,7 +192,12 @@ def walk_case(kind: str, n: int, dtype, q: int, seed: int):
     three 0, n and the padded length n rounded up to 128, the rest in
     [0, padded]) and q query values: entries of x, one below and one above
     them, and the dtype's minimum and maximum (with which the padding
-    qualifies for a non-strict compare)."""
+    qualifies for a non-strict compare).  The ``near`` kind is a shard's
+    LCP as the ANSV's walks see it: values in [0, 20], most answers a few
+    entries from the start; after the first three, starts at
+    ``NEAR_OFFSETS`` from the first, a middle and the last row's start,
+    then the full-width walks' starts and values in their order
+    (``_near_starts``)."""
     rng = np.random.RandomState(seed)
     if kind == "random":
         x = rng.randint(0, 1000, n)
@@ -167,17 +209,28 @@ def walk_case(kind: str, n: int, dtype, q: int, seed: int):
         x = np.sort(rng.randint(0, 1000, n))[::-1]
     elif kind == "runs":
         x = np.repeat(rng.randint(0, 6, -(-n // 37)), 37)[:n]
+    elif kind == "near":
+        x = np.minimum(rng.poisson(11, n), 20)
     else:
         raise ValueError(f"unknown walk case {kind!r}")
-    step = 1
     x = x.astype(np.int64)
+    padded = -(-n // 128) * 128
+    if kind == "near":
+        rows = np.array([0, padded // 256 * 128, padded - 128])
+        fixed = np.concatenate([[0, n, padded], np.clip(
+            (rows[:, None] + np.array(NEAR_OFFSETS)).ravel(), 0, padded)])
+        fs, fv = _near_starts(x, max(0, q - fixed.shape[0]), rng)
+        start = np.concatenate([fixed, fs])[:q]
+        v = np.concatenate([x[rng.randint(0, n, fixed.shape[0])], fv])[:q]
+    else:
+        start = np.concatenate([[0, n, padded], rng.randint(
+            0, padded + 1, max(0, q - 3))])[:q]
+        v = x[rng.randint(0, n, q)] + rng.randint(-1, 2, q)
+    step = 1
     if np.dtype(dtype) == np.int64:
         step = 1 << 33
         x = x * step - (1 << 40)
-    padded = -(-n // 128) * 128
-    start = np.concatenate([[0, n, padded],
-                            rng.randint(0, padded + 1, max(0, q - 3))])[:q]
-    v = x[rng.randint(0, n, q)] + rng.randint(-1, 2, q) * step
+        v = v * step - (1 << 40)
     info = np.iinfo(dtype)
     v[rng.rand(q) < 0.02] = info.max
     v[rng.rand(q) < 0.02] = info.min

@@ -1253,18 +1253,50 @@ def test_walk_kernel_vs_plain(cuda, kind, n, dtype):
     _walks_equal_plain(*_walk_inputs(kind, n, dtype, cuda))
 
 
+@pytest.mark.parametrize("kind", ["runs", "near"])
 @pytest.mark.parametrize("dtype", [np.int32, np.int64])
-def test_walk_kernel_in_start_order(cuda, dtype):
-    """The full-width calls' shape: one query per element in start order
-    over 2^20 + 3 values (four levels' worth of climbs on runs)."""
+def test_walk_kernel_in_start_order(cuda, dtype, kind):
+    """The full-width calls' shape over 2^20 + 3 values: on runs, one query
+    per element in start order (four levels' worth of climbs); on the
+    ``near`` kind (LCP-like values), the starts and values of
+    ``_left_furthest_eq``'s three full-width walks, most answered by the
+    window next to the start."""
     from psac_tpu_torch.ops import walk
 
     n = (1 << 20) + 3
-    x, _, _ = cases.walk_case("runs", n, dtype, 8, seed=5)
-    xt = torch.from_numpy(x).to(cuda)
-    levels = walk.build_levels(xt)
-    start = torch.arange(n + 1, device=cuda)
-    v = torch.cat([xt, xt[:1]])
+    if kind == "runs":
+        x, _, _ = cases.walk_case("runs", n, dtype, 8, seed=5)
+        xt = torch.from_numpy(x).to(cuda)
+        start = torch.arange(n + 1, device=cuda)
+        v = torch.cat([xt, xt[:1]])
+    else:
+        x, start, v = cases.walk_case("near", n, dtype, n, seed=5)
+        xt = torch.from_numpy(x).to(cuda)
+        start, v = torch.from_numpy(start).to(cuda), \
+            torch.from_numpy(v).to(cuda)
+    _walks_equal_plain(walk.build_levels(xt), start, v)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_walk_kernel_raises_without_fallback(cuda, dtype):
+    """On the ``near`` kind, K8 raises on a level off a 16-byte boundary and
+    on values of another dtype than the levels', launching nothing, while
+    the same call with good inputs launches once and equals the plain
+    version: no path answers a CUDA tensor with the plain walks."""
+    from psac_tpu_torch.ops import walk
+
+    levels, start, v = _walk_inputs("near", 128 * 500 + 7, dtype, cuda)
+    other = torch.int64 if v.dtype == torch.int32 else torch.int32
+    off = torch.cat([levels[0].view(-1)[:1], levels[0].view(-1)])[1:]
+    assert off.data_ptr() % 16 != 0
+    bad = [((off.view(-1, 128),) + levels[1:], start, v),
+           (levels, start, v.to(other))]
+    for fn in (walk.levels_prev_lt, walk.levels_next_leq):
+        for args in bad:
+            before = fn.launches
+            with pytest.raises(ValueError):
+                fn(*args, True)
+            assert fn.launches == before
     _walks_equal_plain(levels, start, v)
 
 

@@ -1,8 +1,9 @@
 """K8, the hierarchical-window walks (``ops/walk.py``): the plain versions
 and the public wrappers on CPU tensors against the JAX package's
 ``psac_tpu.ops.walk`` on numpy-seeded inputs (``verify/cases.walk_case``),
-a numpy model of the kernel's group walk (``csrc/walk.cu``) against the
-same, and the ANSV's walks through ``AnsvKernels``: the p = 1 ``walk``
+a numpy model of the kernel (``csrc/walk.cu``: phase A's window, phase
+B's group walk) against the same at the built shape and the sweep's
+others, and the ANSV's walks through ``AnsvKernels``: the p = 1 ``walk``
 engine and ``ansv_mesh_local`` at p = 2 against the JAX ``ansv_local``.
 Exact equality (integers only)."""
 
@@ -157,43 +158,108 @@ def test_wrappers_on_another_device_do_not_fall_back():
 # a numpy model of the kernel (csrc/walk.cu)
 # ---------------------------------------------------------------------------
 
-G = 8  # lanes per query
+#: (vectors in phase A's window, lanes per query in phase B, vectors per
+#: lane in phase B's window) of the kernel as built (PSAC_K8_WINDOW_A,
+#: PSAC_K8_GROUP, PSAC_K8_WINDOW) and of the other shapes that
+#: tools/k8_sweep.py builds; a window of 0 reads the whole range in one
+#: round, and phase A's of 0 sends every query to phase B
+SHAPE = (8, 8, 1)
+SHAPES = [(0, 8, 0), (0, 8, 1), (8, 8, 0), (4, 8, 1), (16, 8, 1),
+          (8, 4, 2), (8, 16, 1)]
 
 
-def _lane_offsets(vec: int) -> np.ndarray:
-    """(G, T / G): the row offset of lane g's entry m (``offset_of``)."""
-    m = np.arange(T // G)[None, :]
-    g = np.arange(G)[:, None]
-    return (g + G * (m // vec)) * vec + m % vec
-
-
-def _group_pick(rows, v, lo, hi, strict: bool, last: bool, vec: int):
-    """``pick``: each lane's best qualifying offset in [lo, hi] among its
-    entries, then three xor-shuffle steps; every lane ends with the same."""
-    offs = _lane_offsets(vec)
-    assert np.array_equal(np.sort(offs.ravel()), np.arange(T))
-    ent = rows[:, offs]
-    vv = v[:, None, None]
-    qual = (ent < vv) if strict else (ent <= vv)
-    qual &= (offs[None] >= np.asarray(lo)[..., None, None]) & \
-        (offs[None] <= np.asarray(hi)[..., None, None])
+def _lane_best(rows, v, a, b, lo, hi, strict, last, vec, G, count):
+    """``lane_best``: (q, G) of each lane's last (first) qualifying offset
+    in [lo, hi] over its vectors a + g, a + g + G, ... (``count`` of them,
+    those <= b); -1 (T) when none."""
+    q = rows.shape[0]
+    c = a[:, None, None] + np.arange(G)[None, :, None] \
+        + G * np.arange(count)[None, None, :]
+    live = c <= b[:, None, None]
+    assert (c[live] >= 0).all() and (c[live] < T // vec).all()
+    j = c[..., None] * vec + np.arange(vec)
+    ent = rows[np.arange(q)[:, None, None, None], np.clip(j, 0, T - 1)]
+    vv = v[:, None, None, None]
+    qual = ((ent < vv) if strict else (ent <= vv)) & live[..., None] \
+        & (j >= lo[:, None, None, None]) & (j <= hi[:, None, None, None])
     if last:
-        best = np.where(qual, offs[None], -1).max(axis=2)
-    else:
-        best = np.where(qual, offs[None], T).min(axis=2)
-    for o in (4, 2, 1):
+        return np.where(qual, j, -1).max(axis=(2, 3))
+    return np.where(qual, j, T).min(axis=(2, 3))
+
+
+def _group_best(best, last: bool):
+    """``group_best``: log2(G) xor-shuffle steps; every lane ends with the
+    same."""
+    G = best.shape[1]
+    o = G // 2
+    while o:
         other = best[:, np.arange(G) ^ o]
         best = np.maximum(best, other) if last else np.minimum(best, other)
+        o //= 2
     assert (best == best[:, :1]).all()
     return best[:, 0]
 
 
-def _k8_model(levels, start, v, strict: bool, nxt: bool):
-    """The kernel's walk, vectorized over queries: the ascent stops at the
-    first level with a hit (queries that hit leave the batch), the descent
-    takes the last (first) qualifying child, row reads clamped."""
+def _find(rows, v, lo, hi, strict, last, vec, G, wpl):
+    """``find`` of phase B: the last (first) qualifying offset of each row
+    in [lo, hi] (lo <= hi) with G lanes, the window of G * wpl vectors next
+    to the near end first and the rest of the searched side only where the
+    window has none; -1 (T) when none."""
+    R = T // vec
+    lo, hi = np.broadcast_to(lo, v.shape), np.broadcast_to(hi, v.shape)
+    if wpl == 0:
+        return _group_best(_lane_best(rows, v, lo // vec, hi // vec, lo, hi,
+                                      strict, last, vec, G, -(-R // G)), last)
+    WV = G * wpl
+    wlo = np.maximum(hi // vec - WV + 1, 0) if last else \
+        np.minimum(lo // vec, R - WV)
+    best = _group_best(_lane_best(rows, v, wlo, wlo + WV - 1, lo, hi, strict,
+                                  last, vec, G, wpl), last)
+    miss = best < 0 if last else best >= T
+    a = lo // vec if last else wlo + WV
+    b = wlo - 1 if last else hi // vec
+    rest = miss & (a <= b)
+    if rest.any():
+        r = np.nonzero(rest)[0]
+        best = best.copy()
+        best[r] = _group_best(_lane_best(
+            rows[r], v[r], a[r], b[r], lo[r], hi[r], strict, last, vec, G,
+            -(-(R - WV) // G)), last)
+    return best
+
+
+def _window_a(row, v, pos, strict, nxt, vec, WA):
+    """``window_answer`` of phase A, one thread a query: the bit mask of
+    the WA vectors of the own row that end (prev_lt) or start at the own
+    position, on its searched side; (found, offset)."""
+    R = T // vec
+    wlo = np.minimum(pos // vec, R - WA) if nxt else \
+        np.maximum(pos // vec - WA + 1, 0)
+    bits = np.arange(WA * vec)
+    ent = row[np.arange(row.shape[0])[:, None], wlo[:, None] * vec + bits]
+    lim = pos - wlo * vec
+    assert ((lim >= 0) & (lim < WA * vec)).all()
+    qual = (ent < v[:, None]) if strict else (ent <= v[:, None])
+    qual &= (bits >= lim[:, None]) if nxt else (bits <= lim[:, None])
+    b = np.where(qual, bits, WA * vec).min(axis=1) if nxt else \
+        np.where(qual, bits, -1).max(axis=1)
+    return qual.any(axis=1), wlo * vec + b
+
+
+def _k8_model(levels, start, v, strict: bool, nxt: bool, shape=SHAPE,
+              stats=None):
+    """The kernel's walk, vectorized over queries.  Phase A answers from
+    its window where it can; phase B takes the rest with G lanes: the own
+    level-0 row without the window, then the ascent, which skips a row with
+    no entry on the searched side and stops at the first level with a hit
+    (queries that hit leave the batch), and the descent, which takes the
+    last (first) qualifying child; every row read clamped.  ``stats``
+    counts the queries phase A answers from its window and those it
+    leaves."""
+    WA, G, wpl = shape
     levels = [lv.numpy() for lv in levels]
     vec = 4 if levels[0].dtype == np.int32 else 2
+    R = T // vec
     rows = [lv.shape[0] for lv in levels]
     s = rows[0] * T
     q = start.shape[0]
@@ -205,42 +271,85 @@ def _k8_model(levels, start, v, strict: bool, nxt: bool):
         own = start - 1
     level = np.full(q, -1)
     node = np.full(q, -1, np.int64)
-    for k in range(len(levels)):
-        idx = np.nonzero(active & (level < 0))[0]
-        if idx.size == 0:
-            break
+    pos0 = own & (T - 1)
+    if WA:
+        idx = np.nonzero(active)[0]
         parent = own[idx] >> 7
-        pos = own[idx] & (T - 1)
-        row = levels[k][np.clip(parent, 0, rows[k] - 1)]
-        if nxt:
-            b = _group_pick(row, v[idx], pos if k == 0 else pos + 1, T - 1,
-                            strict, False, vec)
-            found = b < T
+        found, b = _window_a(levels[0][np.clip(parent, 0, rows[0] - 1)],
+                             v[idx], pos0[idx], strict, nxt, vec, WA)
+        level[idx[found]] = 0
+        node[idx[found]] = parent[found] * T + b[found]
+        if stats is not None:
+            stats["window"] += int(found.sum())
+            stats["rest"] += int((~found).sum())
+        # phase B's level-0 range: the searched side without the window
+        wlo = np.minimum(pos0 // vec, R - WA) if nxt else \
+            np.maximum(pos0 // vec - WA + 1, 0)
+        lo0 = (wlo + WA) * vec if nxt else np.zeros(q, np.int64)
+        hi0 = np.full(q, T - 1) if nxt else wlo * vec - 1
+    else:
+        lo0 = pos0 if nxt else np.zeros(q, np.int64)
+        hi0 = np.full(q, T - 1) if nxt else pos0
+    for k in range(len(levels)):
+        pos = own & (T - 1)
+        if k == 0:
+            lo, hi = lo0, hi0
+        elif nxt:
+            lo, hi = pos + 1, np.full(q, T - 1)
         else:
-            b = _group_pick(row, v[idx], 0, pos if k == 0 else pos - 1,
-                            strict, True, vec)
-            found = b >= 0
+            lo, hi = np.zeros(q, np.int64), pos - 1
+        idx = np.nonzero(active & (level < 0) & (lo <= hi))[0]
+        parent = own[idx] >> 7
+        row = levels[k][np.clip(parent, 0, rows[k] - 1)]
+        b = _find(row, v[idx], lo[idx], hi[idx], strict, not nxt, vec, G,
+                  wpl)
+        found = b < T if nxt else b >= 0
         level[idx[found]] = k
         node[idx[found]] = parent[found] * T + b[found]
-        own[idx] = parent
+        own = own >> 7
     for k in range(len(levels) - 1, 0, -1):
         idx = np.nonzero(level >= k)[0]
         row = levels[k - 1][np.clip(node[idx], 0, rows[k - 1] - 1)]
-        b = _group_pick(row, v[idx], 0, T - 1, strict, not nxt, vec)
+        b = _find(row, v[idx], 0, T - 1, strict, not nxt, vec, G, wpl)
         b = np.where(b < T, b, T - 1) if nxt else np.where(b >= 0, b, 0)
         node[idx] = node[idx] * T + b
     return np.where(level >= 0, node, s if nxt else -1)
 
 
-@pytest.mark.parametrize("kind,n,dtype", CASES, ids=map(_ids, CASES))
-def test_kernel_model_vs_jax(kind, n, dtype):
-    """The model of K8's group walk equals the JAX walks on every case."""
+def _model_vs_jax(kind, n, dtype, shape):
     x, start, v, levels = _case(kind, n, dtype)
     want = _jax_answers(kind, n, dtype)
+    stats = {"window": 0, "rest": 0}
     for name in ("prev_lt", "next_leq"):
         for strict in (True, False):
-            got = _k8_model(levels, start, v, strict, name == "next_leq")
+            got = _k8_model(levels, start, v, strict, name == "next_leq",
+                            shape, stats)
             np.testing.assert_array_equal(got, want[name, strict])
+    return stats
+
+
+@pytest.mark.parametrize("kind,n,dtype", CASES, ids=map(_ids, CASES))
+def test_kernel_model_vs_jax(kind, n, dtype):
+    """The model of K8 as built (phase A's 128-byte window, then 8 lanes a
+    query with 128-byte windows) equals the JAX walks on every case; on the
+    ``near`` cases above one row phase A answers most queries."""
+    stats = _model_vs_jax(kind, n, dtype, SHAPE)
+    if kind == "near" and n > T:
+        assert stats["window"] > 2 * stats["rest"], stats
+
+
+SHAPE_CASES = [(shape, *c) for shape in SHAPES for c in CASES]
+
+
+@pytest.mark.parametrize(
+    "shape,kind,n,dtype", SHAPE_CASES,
+    ids=[f"A{c[0][0]}G{c[0][1]}w{c[0][2]}-{_ids(c[1:])}"
+         for c in SHAPE_CASES])
+def test_kernel_model_shapes_vs_jax(shape, kind, n, dtype):
+    """The same at the other shapes the sweep builds: phase A's window of
+    64, 128 or 256 bytes or none, 4, 8 or 16 lanes in phase B, its windows
+    of 128 or 256 bytes or none."""
+    _model_vs_jax(kind, n, dtype, shape)
 
 
 # ---------------------------------------------------------------------------
