@@ -3,7 +3,9 @@
 
 Builds the hand-written CUDA kernels from ``psac_tpu_torch/csrc``, checks
 each against its plain PyTorch version on the card (at the main path's
-shapes and on adversaries), times the suffix tree's ANSV pass both ways
+shapes and on adversaries; the k-mer init's K9 and K10 on the arguments
+of the init of the 2^26 SA+LCP, of the random string set's GSA and of a
+2^20 ``force_int64`` build), times the suffix tree's ANSV pass both ways
 (the tile-spine pass, K4 + K1, against the dual scan K2), then drives the
 main paths through the user entry points, most with no device (the card
 is the default): SA+LCP of 2^26 random DNA, SA+LCP of 2^24 repetitive DNA
@@ -610,6 +612,115 @@ def check_k6(dev, rep_text: bytes, rep_lcp: np.ndarray, log2n: int,
         + f" on {card}")
 
 
+def kmer_bound(name: str, args: tuple) -> dict:
+    """The bound of one K9 or K10 call from its arguments: each input read
+    once and each output written once (K9: the codes, the halo, the GSA's
+    eos and one int32 word a position for each word; K10: the sorted words
+    and their halo, the GSA's rem and its halo, and one byte of newb and,
+    with the LCP, one index word a row), and as operations a shift and an
+    or a char (K9) or six a word (K10: xor, compare, clz, subtract,
+    divide, add)."""
+    if name == "kmer_pack":
+        codes, halo, ks = args[:3]
+        eos = args[7] if len(args) > 7 else None
+        s = codes.shape[0]
+        nbytes = codes.nbytes + halo.nbytes + 4 * len(ks) * s
+        nbytes += 0 if eos is None else eos.nbytes
+        return bound(nbytes, 2 * sum(ks) * s)
+    words, halo, ks = args[:3]
+    idt, with_lcp = args[7], args[8]
+    rem = args[9] if len(args) > 9 else None
+    s = words[0].shape[0]
+    nbytes = sum(w.nbytes for w in words) + halo.nbytes + s
+    nbytes += s * idt.itemsize if with_lcp else 0
+    nbytes += 0 if rem is None else rem.nbytes + args[10].nbytes
+    return bound(nbytes, 6 * len(ks) * s)
+
+
+def check_k9_k10(dev, text: bytes, gsa_set: list, card: str,
+                 kern: dict) -> None:
+    """K9 (``kmer_pack``) and K10 (``kmer_heads``) against their plain
+    versions on the card, on the arguments they were called with (noted by
+    spies) in the k-mer init of three builds: SA+LCP of the 2^26 random
+    DNA (the main path's shape, which the kernel table's times are of), the
+    GSA + GLCP of the random string set, and SA+LCP of the first 2^20
+    characters with ``force_int64``; K10 also without the LCP on the first.
+    Each call is timed both ways with CUDA events."""
+    from unittest import mock
+
+    import torch
+
+    from psac_tpu_torch.config import SAConfig
+    from psac_tpu_torch.models import gsa as gsa_mod
+    from psac_tpu_torch.models import suffix_array as sa_mod
+    from psac_tpu_torch.ops import kmer
+
+    plain = {"kmer_pack": kmer.pack_kmers_plain,
+             "kmer_heads": kmer.kmer_heads_plain}
+    wrapper = {"kmer_pack": kmer.kmer_pack, "kmer_heads": kmer.kmer_heads}
+
+    def recorded(build) -> dict:
+        calls = {k: [] for k in wrapper}
+
+        def spy(name):
+            def noted(*args):
+                calls[name].append(args)
+                return wrapper[name](*args)
+            return noted
+
+        with mock.patch.object(sa_mod, "kmer_pack", spy("kmer_pack")), \
+                mock.patch.object(sa_mod, "kmer_heads", spy("kmer_heads")), \
+                mock.patch.object(gsa_mod, "kmer_pack", spy("kmer_pack")), \
+                mock.patch.object(gsa_mod, "kmer_heads", spy("kmer_heads")):
+            build()
+        torch.cuda.synchronize()
+        return calls
+
+    def sa_build(t, cfg=None):
+        xs, alpha, n, N = sa_mod.encode_and_shard(t, dev)
+        return sa_mod.construct_device(xs, alpha, n, N, cfg or SAConfig())
+
+    builds = {
+        f"2^{len(text).bit_length() - 1} DNA SA+LCP": lambda: sa_build(text),
+        f"GSA of {len(gsa_set)} strings":
+            lambda: gsa_mod.build_gsa_device(gsa_set, dev),
+        "2^20 DNA SA+LCP int64": lambda: sa_build(
+            text[:1 << 20], SAConfig(force_int64=True)),
+    }
+    errs = {k: [] for k in wrapper}
+    for bi, (label, build) in enumerate(builds.items()):
+        calls = recorded(build)
+        for name in wrapper:
+            if not calls[name]:
+                raise AssertionError(f"{name} was not called by the {label} "
+                                     "build")
+            args = calls[name][0]
+            variants = [args]
+            if name == "kmer_heads" and bi == 0:
+                variants.append(args[:8] + (False,) + args[9:])
+            for a in variants:
+                errs[name].append(max_abs_err(wrapper[name](*a),
+                                              plain[name](*a)))
+            st = dict(ms=cuda_ms(lambda: wrapper[name](*args), 20),
+                      plain_ms=cuda_ms(lambda: plain[name](*args), 3),
+                      **kmer_bound(name, args))
+            if bi == 0:
+                kern[name] = dict(
+                    route="cuda", source="psac_tpu_torch/csrc/kmer_init.cu",
+                    replaces=("psac_tpu/ops/kmer.py:28" if name == "kmer_pack"
+                              else "psac_tpu/ops/bitops.py:21"),
+                    max_abs_err=0, **st)
+            rows = (args[0] if name == "kmer_pack" else args[0][0]).shape[0]
+            log(f"[kernel] {'K9' if name == 'kmer_pack' else 'K10'} {name} "
+                f"== plain on the {label} init ({rows} rows, "
+                f"{len(calls[name])} call(s)): kernel {st['ms']:.4f} "
+                f"ms, plain {st['plain_ms']:.3f} ms, bound "
+                f"{st['bound_ms']:.4f} ms ({st['bound_by']}) on {card}")
+        del calls
+    for name in wrapper:
+        kern[name]["max_abs_err"] = max(errs[name])
+
+
 def gsa_phase(label: str, strings: list, want_k6: bool, card: str) -> dict:
     """GSA + GLCP (``build_gsa_device``) and GST (``construct_gst_device``)
     of a string set on the card, no device given; first and second run by
@@ -625,6 +736,7 @@ def gsa_phase(label: str, strings: list, want_k6: bool, card: str) -> dict:
     from psac_tpu_torch.models.gsa import _flatten, build_gsa_device
     from psac_tpu_torch.models.suffix_tree import (_gst_local,
                                                    construct_gst_device)
+    from psac_tpu_torch.ops.kmer import kmer_heads, kmer_pack
     from psac_tpu_torch.ops.nsv_scan import nsv_scan_dual, nsv_scan_spine
     from psac_tpu_torch.ops.rmq import rmq_resolve
     from psac_tpu_torch.ops.tansv import tile_side
@@ -632,7 +744,7 @@ def gsa_phase(label: str, strings: list, want_k6: bool, card: str) -> dict:
     from psac_tpu_torch.verify.gsa_oracle import gsa_oracle_native
 
     reset, read = counter((rmq_resolve, tile_side, nsv_scan_spine,
-                           nsv_scan_dual))
+                           nsv_scan_dual, kmer_pack, kmer_heads))
     out = {}
     dgsa = tree = None
     for run in ("first", "second"):
@@ -663,6 +775,10 @@ def gsa_phase(label: str, strings: list, want_k6: bool, card: str) -> dict:
         raise AssertionError("the GSA build with no device left the card")
     if want_k6 and gsa_counts["rmq_resolve"] == 0:
         raise AssertionError(f"K6 was not launched by the GSA of {label}")
+    for k in ("kmer_pack", "kmer_heads"):
+        if gsa_counts[k] == 0:
+            raise AssertionError(f"{k} was not launched by the GSA of "
+                                 f"{label}")
     if gst_counts["tile_side"] != 2 or \
             gst_counts["nsv_scan_spine"] + gst_counts["nsv_scan_dual"] != 1:
         raise AssertionError(f"GST of {label} launched {gst_counts}")
@@ -1319,9 +1435,10 @@ def timed_build(build, label: str, card: str) -> tuple:
     import torch
 
     from psac_tpu_torch.models.suffix_array import LAST_BUILD
+    from psac_tpu_torch.ops.kmer import kmer_heads, kmer_pack
     from psac_tpu_torch.ops.rmq import rmq_resolve
 
-    reset, read = counter((rmq_resolve,))
+    reset, read = counter((rmq_resolve, kmer_pack, kmer_heads))
     LAST_BUILD.update(fused=None, host_iters=None)
     reset()
     gc.collect()  # cyclic garbage of earlier builds holds no memory
@@ -1331,11 +1448,15 @@ def timed_build(build, label: str, card: str) -> tuple:
     t0 = time.perf_counter()
     res = build()
     torch.cuda.synchronize()
-    st = dict(wall_s=time.perf_counter() - t0, k6=read()["rmq_resolve"],
+    counts = read()
+    st = dict(wall_s=time.perf_counter() - t0, k6=counts["rmq_resolve"],
               host_iters=LAST_BUILD["host_iters"], fused=LAST_BUILD["fused"],
               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
               live_gib=live / 2**30)
-    add_launches({"rmq_resolve": st["k6"]})
+    add_launches(counts)
+    if counts["kmer_pack"] == 0 or counts["kmer_heads"] == 0:
+        raise AssertionError(f"{label}: the k-mer init ran without K9 or "
+                             f"K10 ({counts})")
     log(f"[hostloop] {label}: {st['wall_s']:.3f} s, K6 launches {st['k6']}, "
         + (f"host_iters {st['host_iters']}, fused {st['fused']}, "
            if st["host_iters"] is not None else "")
@@ -1734,6 +1855,7 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
     from psac_tpu_torch.models import gsa as gsa_mod
     from psac_tpu_torch.models import suffix_array as sa_mod
     from psac_tpu_torch.models import suffix_tree as st_mod
+    from psac_tpu_torch.ops import kmer as kmer_mod
     from psac_tpu_torch.ops import rmq as rmq_mod
     from psac_tpu_torch.ops import walk as walk_mod
     from psac_tpu_torch.ops.alphabet import rand_dna
@@ -1753,7 +1875,8 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
     mesh = make_mesh(4, devices)
     reset, read = counter((rmq_mod.rmq_mins, block_psv, rmq_mod.rmq_resolve,
                            walk_mod.levels_prev_lt,
-                           walk_mod.levels_next_leq))
+                           walk_mod.levels_next_leq, kmer_mod.kmer_pack,
+                           kmer_mod.kmer_heads))
     out = {}
 
     def sync():
@@ -1773,12 +1896,13 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
             torch.cuda.max_memory_allocated(d) for d in cards) / 2**30,
             **read())
         add_launches({k: st[k] for k in ("rmq_mins", "block_psv",
-                                         "rmq_resolve", "walks")})
+                                         "rmq_resolve", "walks", "kmer_pack",
+                                         "kmer_heads")})
         out[label] = st
         log(f"[mesh] {label}: {st['wall_s']:.3f} s, peak "
             f"{st['peak_gib']:.2f} GiB, launches K6-mins {st['rmq_mins']}, "
             f"K5 {st['block_psv']}, K6 {st['rmq_resolve']}, K8 "
-            f"{st['walks']}")
+            f"{st['walks']}, K9 {st['kmer_pack']}, K10 {st['kmer_heads']}")
         return res
 
     def build(t, cfg=None, m=mesh):
@@ -2117,7 +2241,8 @@ def shard_digests(x) -> list:
             for t in x.shards]
 
 
-PROCS_KERNELS = ("rmq_mins", "block_psv", "blind_search", "walks")
+PROCS_KERNELS = ("rmq_mins", "block_psv", "blind_search", "walks",
+                 "kmer_pack", "kmer_heads")
 
 
 def procs_worker(rank: int, port: str, work: str, backend: str) -> int:
@@ -2136,7 +2261,7 @@ def procs_worker(rank: int, port: str, work: str, backend: str) -> int:
     from psac_tpu_torch.models import gsa as gsa_mod
     from psac_tpu_torch.models import suffix_tree as st_mod
     from psac_tpu_torch.models.suffix_array import construct_from_file
-    from psac_tpu_torch.ops import bansv, blind_search, rmq, walk
+    from psac_tpu_torch.ops import bansv, blind_search, kmer, rmq, walk
     from psac_tpu_torch.parallel import dist as pdist
     from psac_tpu_torch.parallel.mesh import Sharded, make_mesh
     from psac_tpu_torch.verify.check_sa import d_check_sa
@@ -2151,7 +2276,8 @@ def procs_worker(rank: int, port: str, work: str, backend: str) -> int:
     mesh = make_mesh(4, [dev] * 2)
     reset, read = counter((rmq.rmq_mins, bansv.block_psv,
                            blind_search.blind_search, walk.levels_prev_lt,
-                           walk.levels_next_leq))
+                           walk.levels_next_leq, kmer.kmer_pack,
+                           kmer.kmer_heads))
     report = dict(rank=rank, backend=backend, device=str(dev), steps={})
 
     def step(label, fn):
@@ -2170,7 +2296,7 @@ def procs_worker(rank: int, port: str, work: str, backend: str) -> int:
         log(f"[procs] rank {rank} {backend}: {label} {st['wall_s']:.3f} s, "
             f"peak {st['peak_gib']:.2f} GiB, K6-mins {st['rmq_mins']}, K5 "
             f"{st['block_psv']}, K7 {st['blind_search']}, K8 "
-            f"{st['walks']}")
+            f"{st['walks']}, K9 {st['kmer_pack']}, K10 {st['kmer_heads']}")
         return res
 
     def same_files(prefix, want, exts):
@@ -2636,6 +2762,7 @@ def main() -> int:
         _st_local, build_suffix_tree, construct_suffix_tree_device)
     from psac_tpu_torch.ops import cuda_lib
     from psac_tpu_torch.ops.alphabet import Alphabet, rand_dna, rep_dna
+    from psac_tpu_torch.ops.kmer import kmer_heads, kmer_pack
     from psac_tpu_torch.verify.cases import near_identical_family
     from psac_tpu_torch.ops.ansv import (FURTHEST_EQ, NEAREST_EQ, NEAREST_SM,
                                          ansv_seq)
@@ -2723,13 +2850,18 @@ def main() -> int:
         "two unrelated streams")
     check_k3_k5(dev, lcp_adj, args.log2n, args.ansv_log2n, kern)
     check_k6(dev, rep_text, rlcp, args.rep_log2n, card, kern)
+    whole = rand_dna(1 << args.gsa_log2n, seed=43)
+    gsa_set = [whole[i:i + 4096] for i in range(0, len(whole), 4096)]
+    del whole
+    check_k9_k10(dev, text, gsa_set, card, kern)
     label = f"2^{args.log2n} LCP"
     engines = {label: engine_comparison(lcp_adj, label, card)}
     del lcp_adj, xr, small, other, advs
 
     # ---- 4. main path (counted) ------------------------------------------
     reset_counts, read_counts = counter((tile_side, nsv_scan_spine,
-                                         nsv_scan_dual, rmq_resolve))
+                                         nsv_scan_dual, rmq_resolve,
+                                         kmer_pack, kmer_heads))
 
     # SA+LCP and suffix tree of the 2^26 text: K4 and K1 must run here
     reset_counts()
@@ -2750,7 +2882,7 @@ def main() -> int:
     main_counts = read_counts()
     add_launches(main_counts)
     log(f"[main] launches in SA+LCP+ST of 2^{args.log2n} DNA: {main_counts}")
-    for k in ("tile_side", "nsv_scan_spine"):
+    for k in ("tile_side", "nsv_scan_spine", "kmer_pack", "kmer_heads"):
         if main_counts[k] == 0:
             raise AssertionError(f"{k} was not launched on the main path")
 
@@ -2864,12 +2996,9 @@ def main() -> int:
     # ---- 9. generalized suffix array and tree (counted) -------------------
     small_gsa_sets(card)
     tail_stages_check(card)
-    whole = rand_dna(1 << args.gsa_log2n, seed=43)
-    gsa_set = [whole[i:i + 4096] for i in range(0, len(whole), 4096)]
     gsa_rand = gsa_phase(
         f"2^{args.gsa_log2n} random DNA in 4 KiB strings", gsa_set, False,
         card)
-    del whole
     # one seeded base and 63 copies with about 0.1% substitutions each
     fam_len = (1 << args.fam_log2n) // 64
     fam_set = near_identical_family(64, fam_len, max(1, fam_len // 1000))

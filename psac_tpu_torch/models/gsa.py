@@ -38,7 +38,6 @@ converge: it redoes the build).  The in-memory and the file input
 from __future__ import annotations
 
 import dataclasses
-import functools
 import sys
 
 import numpy as np
@@ -50,13 +49,15 @@ from psac_tpu_torch.models.suffix_array import (_Builder, _decode_staged,
                                                 host_tensor, index_dtype_for,
                                                 kmer_words_for)
 from psac_tpu_torch.ops.alphabet import Alphabet
-from psac_tpu_torch.ops.bitops import lcp_bitwise_words, pow2ceil
+from psac_tpu_torch.ops.bitops import pow2ceil
+from psac_tpu_torch.ops.kmer import kmer_heads, kmer_pack
 from psac_tpu_torch.parallel.collectives import (exscan_scalar,
                                                  global_cummax,
                                                  global_index_base,
                                                  global_shift_left,
-                                                 halo_from_right, next_of,
-                                                 prev_of, psum)
+                                                 halo_from_left,
+                                                 halo_from_right, left_halos,
+                                                 next_of, prev_of, psum)
 from psac_tpu_torch.parallel.mesh import (Rep, Sharded, num_shards,
                                           padded_size, run_on)
 from psac_tpu_torch.parallel.route import (cap_for, gather_global,
@@ -137,41 +138,27 @@ class _GsaBuilder(_Builder):
     # ---------------- init: masked k-mer ranking ----------------
 
     def _ginit(self, ctx, codes, eos):
-        s, N = self.s, self.N
+        s, N, idt = self.s, self.N, self.idt
         ks, bits = self.ks, self.bits
-        win = torch.cat([codes, halo_from_right(codes, sum(ks) - 1,
-                                                ctx=ctx)])
+        base = global_index_base(s, ctx)
+        # K9: chars masked past each string's end; padding rows (word0 == 0:
+        # only all-past-end windows; real suffixes start with a char >= 1)
+        # get unique final ranks before all real rows
+        words = kmer_pack(codes, halo_from_right(codes, sum(ks) - 1, ctx=ctx),
+                          ks, bits, base, N, idt, eos)
         gidx = self._gidx(ctx)
-        words = []
-        off = 0
-        for kw in ks:
-            w = torch.zeros(s, dtype=torch.int32, device=codes.device)
-            for j in range(off, off + kw):
-                c = torch.where(gidx + j < eos, win[j:j + s], 0)
-                w = torch.bitwise_left_shift(w, bits) | c
-            words.append(w)
-            off += kw
         rem = eos - gidx
-        # padding rows (word0 == 0: only all-past-end windows; real suffixes
-        # start with a char >= 1) get unique final ranks before all real rows
-        pad_rank = (N - gidx).to(torch.int32)
-        words[-1] = torch.where(words[0] == 0, pad_rank, words[-1])
         # sort by (words, gidx) with rem as payload
         wsort, sa, (rem_s,) = self._sort_keys(ctx, words, gidx, (rem,))
-        prevs = tuple(prev_of(w, ctx=ctx) for w in wsort)
-        prev_rem = prev_of(rem_s, fill=0, ctx=ctx)
-        newb = functools.reduce(
-            torch.logical_or, (w != pw for w, pw in zip(wsort, prevs)))
+        # K10: bucket heads and the bitwise k-mer LCP capped by both rows'
+        # remaining lengths
+        newb, lcp0 = kmer_heads(wsort, left_halos(wsort, -1, ctx), ks, bits,
+                                base, N, 0, idt, self.with_lcp, rem_s,
+                                halo_from_left(rem_s, 1, fill=0, ctx=ctx))
         isa, brow, active, counts = self._rebucket_and_isa(ctx, newb, gidx,
                                                            sa)
         # row-aligned end-of-string bound for direct tail entry
         eos_row = sa + rem_s
-        lcp0 = None
-        if self.with_lcp:
-            lcpv = lcp_bitwise_words(prevs, wsort, ks, bits).to(self.idt)
-            lcpv = torch.minimum(torch.minimum(lcpv, prev_rem), rem_s)
-            lcp0 = torch.where(newb, lcpv, N)
-            lcp0 = torch.where(gidx == 0, 0, lcp0)
         return isa, sa, lcp0, brow, active, eos_row, counts
 
     def _ginit_local(self, codes, eos):

@@ -47,14 +47,14 @@ import torch
 
 from psac_tpu_torch import config as cfg_mod
 from psac_tpu_torch.ops.alphabet import Alphabet, IntAlphabet
-from psac_tpu_torch.ops.bitops import lcp_bitwise_words, pow2ceil
-from psac_tpu_torch.ops.kmer import optimal_k, pack_kmers_local
+from psac_tpu_torch.ops.bitops import pow2ceil
+from psac_tpu_torch.ops.kmer import kmer_heads, kmer_pack, optimal_k
 from psac_tpu_torch.ops.rmq import build_local_rmq, rmq_resolve
 from psac_tpu_torch.parallel.collectives import (global_cummax,
                                                  global_index_base,
                                                  global_shift_left,
-                                                 halo_from_right, next_of,
-                                                 prev_of, psum,
+                                                 halo_from_right, left_halos,
+                                                 next_of, prev_of, psum,
                                                  reshard_prefix, shard_minima)
 from psac_tpu_torch.parallel.mesh import Rep, Sharded, padded_size, run_on
 from psac_tpu_torch.parallel.par_rmq import bulk_rmq_local
@@ -261,28 +261,18 @@ class _Builder:
     def _init(self, ctx, codes, n_real: int):
         s, N, idt = self.s, self.N, self.idt
         ks, bits = self.ks, self.bits
-        halo = halo_from_right(codes, sum(ks) - 1, ctx=ctx)
-        words = pack_kmers_local(torch.cat([codes, halo]), s, ks, bits)
+        base = global_index_base(s, ctx)
+        # K9: the k-mer words; padding suffixes (word0 == 0) get their final
+        # ranks now, by descending position, before every real suffix
+        words = kmer_pack(codes, halo_from_right(codes, sum(ks) - 1, ctx=ctx),
+                          ks, bits, base, N, idt)
         gidx = self._gidx(ctx)
-        # padding suffixes (word0 == 0) get their final ranks now: by
-        # descending position, before every real suffix
-        pad_rank = (N - gidx).to(torch.int32)
-        words = words[:-1] + (torch.where(words[0] == 0, pad_rank,
-                                          words[-1]),)
         wsort, sa, _ = self._sort_keys(ctx, words, gidx)
-        prevs = tuple(prev_of(w, ctx=ctx) for w in wsort)
-        newb = functools.reduce(
-            torch.logical_or, (w != pw for w, pw in zip(wsort, prevs)))
+        # K10: bucket heads and the bitwise k-mer LCP
+        newb, lcp0 = kmer_heads(wsort, left_halos(wsort, -1, ctx), ks, bits,
+                                base, N, n_real, idt, self.with_lcp)
         isa, brow, active, counts = self._rebucket_and_isa(ctx, newb, gidx,
                                                            sa)
-        lcp0 = None
-        if self.with_lcp:
-            lcpv = lcp_bitwise_words(prevs, wsort, ks, bits)
-            lcp0 = torch.where(newb, lcpv.to(idt), N)
-            # rows 0..N-n-1 are the padding suffixes: adjacent ones overlap
-            # in exactly (row) chars
-            lcp0 = torch.where(gidx < N - n_real, gidx, lcp0)
-            lcp0 = torch.where(gidx == 0, 0, lcp0)
         return isa, sa, lcp0, brow, active, counts
 
     def _init_local(self, codes, n_real: int):

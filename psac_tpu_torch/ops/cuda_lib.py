@@ -52,6 +52,12 @@ _SIGNATURES = {
     "psac_walk_prev_lt_i64": [_P, _P, _I32] + [_P] * 3 + [_I64, _I32, _P],
     "psac_walk_next_leq_i32": [_P, _P, _I32] + [_P] * 3 + [_I64, _I32, _P],
     "psac_walk_next_leq_i64": [_P, _P, _I32] + [_P] * 3 + [_I64, _I32, _P],
+    "psac_kmer_pack_i32": [_P] * 6 + [_I64] + [_I32] * 5 + [_I64, _I64, _P],
+    "psac_kmer_pack_i64": [_P] * 6 + [_I64] + [_I32] * 5 + [_I64, _I64, _P],
+    "psac_kmer_heads_i32": [_P] * 8 + [_I64] + [_I32] * 5
+                           + [_I64, _I64, _I64, _P],
+    "psac_kmer_heads_i64": [_P] * 8 + [_I64] + [_I32] * 5
+                           + [_I64, _I64, _I64, _P],
 }
 
 _lib = None

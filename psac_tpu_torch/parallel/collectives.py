@@ -59,6 +59,17 @@ def halo_from_left(x: torch.Tensor, count: int, fill=0,
     return torch.full_like(got, fill) if ctx.rank == 0 else got
 
 
+def left_halos(xs, fill, ctx=None) -> torch.Tensor:
+    """The element before this shard's block of each of the (s,) arrays
+    ``xs`` (one dtype), as one (len(xs),) tensor, ``fill`` at shard 0: one
+    exchange for all of them."""
+    if not _multi(ctx):
+        return torch.full((len(xs),), fill, dtype=xs[0].dtype,
+                          device=xs[0].device)
+    return halo_from_left(torch.stack([x[-1] for x in xs]), len(xs), fill,
+                          ctx)
+
+
 def prev_of(x: torch.Tensor, fill=-1, ctx=None) -> torch.Tensor:
     """out[i] = x[i-1] over the global index space, ``fill`` at i = 0."""
     return torch.cat([halo_from_left(x, 1, fill, ctx), x[:-1]])

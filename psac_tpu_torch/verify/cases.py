@@ -1,5 +1,6 @@
 """Seeded inputs for checking the previous-smaller pass (K5), the LCP
-resolve (K6), the walks (K8) and the generalized suffix array, shared by the CPU tests, the GPU tests and ``chip_smoke.py``
+resolve (K6), the walks (K8), the k-mer init (K9, K10) and the generalized
+suffix array, shared by the CPU tests, the GPU tests and ``chip_smoke.py``
 so that all three drive the same cases."""
 
 from __future__ import annotations
@@ -236,3 +237,128 @@ def walk_case(kind: str, n: int, dtype, q: int, seed: int):
     v[rng.rand(q) < 0.02] = info.min
     return (np.ascontiguousarray(x.astype(dtype)), start.astype(np.int64),
             v.astype(dtype))
+
+
+#: (bits per char, chars per word) of the k-mer init's cases: DNA at two and
+#: three words, bytes, the IntAlphabet's widest codes, and DNA with
+#: ``SAConfig(k=5)`` (``kmer_words_for``: (3, 2))
+KMER_SHAPES = {
+    "dna2": (3, (10, 10)),
+    "dna3": (3, (10, 10, 10)),
+    "bytes": (8, (3, 3)),
+    "int31": (31, (1, 1)),
+    "k5": (3, (3, 2)),
+}
+
+
+def kmer_init_case(shape: str, N: int, pad: int, gsa: bool, seed: int):
+    """Seeded inputs of the k-mer init at ``KMER_SHAPES[shape]``: (N,)
+    int32 codes (1 .. 2^bits - 1) of a text of n = N - pad chars, zeros
+    after it: a random twentieth, a twentieth of a repeated seven-char
+    unit, then a run of the largest code, whose equal k-mers fill the last
+    rows of the sort past the shard edges of p = 2 and 4.  With ``gsa`` the
+    first tenth is cut into strings of 1-12 chars (most end inside a k-mer
+    window), the run is one string, and ``eos`` is the (N,) int64 end of
+    each position's string (g itself past n).  Returns dict(codes, eos
+    (None without gsa), bits, ks, n, N)."""
+    bits, ks = KMER_SHAPES[shape]
+    rng = np.random.RandomState(seed)
+    n = N - pad
+    top = (1 << bits) - 1
+    sigma = min(top, 4 if bits == 3 else 1 << 20)
+    lo = 1 if bits < 31 else top - sigma
+    codes = rng.randint(lo, lo + sigma, n).astype(np.int64)
+    unit = rng.randint(lo, lo + sigma, 7)
+    a, b = n // 20, n // 10
+    codes[a:b] = np.resize(unit, b - a)
+    codes[b:] = lo + sigma - 1
+    out = np.zeros(N, np.int32)
+    out[:n] = codes
+    eos = None
+    if gsa:
+        eos = np.arange(N, dtype=np.int64)
+        start = 0
+        while start < b:
+            end = min(b, start + int(rng.randint(1, 13)))
+            eos[start:end] = end
+            start = end
+        eos[b:n] = n
+    return dict(codes=out, eos=eos, bits=bits, ks=ks, n=n, N=N)
+
+
+def _kmer_cases() -> dict:
+    out = {}
+    for shape in sorted(KMER_SHAPES):
+        for gsa in (False, True):
+            kind = "gsa" if gsa else "sa"
+            for p in (1, 2, 4):
+                # the k5 shape's pad of 70 puts pad ranks above its last
+                # word's six bits
+                out[f"{shape}-{kind}-p{p}"] = dict(
+                    shape=shape, N=1024, pad=70 if shape == "k5" else 5,
+                    gsa=gsa, p=p, int64=False)
+    for gsa in (False, True):
+        kind = "gsa" if gsa else "sa"
+        for shape in ("dna2", "int31"):
+            out[f"{shape}-{kind}-p2-int64"] = dict(
+                shape=shape, N=1024, pad=5, gsa=gsa, p=2, int64=True)
+        # s = 4 < k - 1 = 29: the halo spans the next blocks and the end
+        out[f"dna3-{kind}-short"] = dict(shape="dna3", N=16, pad=3, gsa=gsa,
+                                         p=4, int64=False)
+        # two blocks of 256 positions (csrc/kmer_init.cu) and a ragged third
+        out[f"dna2-{kind}-blocks"] = dict(shape="dna2", N=552, pad=9,
+                                          gsa=gsa, p=1, int64=False)
+    return out
+
+
+#: the k-mer init's cases by name: shape, N, pad, GSA or SA, shards p and
+#: int64 indexes
+KMER_CASES = _kmer_cases()
+
+
+def kmer_case(name: str):
+    """(parameters, ``kmer_init_case`` inputs) of ``KMER_CASES[name]``,
+    seeded by the name."""
+    c = KMER_CASES[name]
+    return c, kmer_init_case(c["shape"], c["N"], c["pad"], c["gsa"],
+                             seed=sum(map(ord, name)))
+
+
+def kmer_pack_inputs(case: dict, p: int) -> list:
+    """K9's inputs on each of p shards: (base, codes, halo, eos), the halo
+    the k - 1 codes right of the block, zeros past N (``halo_from_right``:
+    whole blocks of several neighbours where k - 1 exceeds s)."""
+    N, k = case["N"], sum(case["ks"])
+    s = N // p
+    padded = np.concatenate([case["codes"], np.zeros(k - 1, np.int32)])
+    out = []
+    for r in range(p):
+        b = r * s
+        eos = None if case["eos"] is None else case["eos"][b:b + s]
+        out.append((b, case["codes"][b:b + s], padded[b + s:b + s + k - 1],
+                    eos))
+    return out
+
+
+def kmer_heads_inputs(case: dict, words: list, p: int) -> list:
+    """K10's inputs on each of p shards from the (N,) int32 ``words`` of
+    every position: the rows sorted by (words, position) as the init's
+    sort leaves them, cut into shards of (base, words, left halo (-1 at
+    shard 0), rem, rem halo (0 at shard 0); rem and its halo None for the
+    SA)."""
+    N = case["N"]
+    g = np.arange(N, dtype=np.int64)
+    order = np.lexsort((g,) + tuple(reversed(words)))
+    ws = [w[order] for w in words]
+    rem = None if case["eos"] is None else (case["eos"] - g)[order]
+    s = N // p
+    out = []
+    for r in range(p):
+        b = r * s
+        halo = np.array([w[b - 1] if r else -1 for w in ws], np.int32)
+        rs = rh = None
+        if rem is not None:
+            rs = rem[b:b + s]
+            rh = np.array([rem[b - 1] if r else 0], np.int64)
+        out.append((b, [w[b:b + s] for w in ws], halo, rs, rh))
+    return out

@@ -1405,3 +1405,127 @@ def test_mesh_public_ansv_int64_on_the_card(cuda):
             np.testing.assert_array_equal(g, w)
             np.testing.assert_array_equal(g, o)
     mesh.close()
+
+
+def _kmer_idt(c):
+    return torch.int64 if c["int64"] else torch.int32
+
+
+@pytest.mark.parametrize("name", sorted(cases.KMER_CASES))
+def test_kmer_pack_kernel_vs_plain(cuda, name):
+    """K9 against its plain version on every shard of the k-mer init's
+    cases (``tests/test_torch_kmer.py`` holds the plain version against
+    the JAX package on the same ones)."""
+    from psac_tpu_torch.ops import kmer
+
+    c, case = cases.kmer_case(name)
+    idt = _kmer_idt(c)
+    shards = cases.kmer_pack_inputs(case, c["p"])
+    before = kmer.kmer_pack.launches
+    for b, codes, halo, eos in shards:
+        args = [torch.from_numpy(codes).to(cuda),
+                torch.from_numpy(halo).to(cuda), case["ks"], case["bits"], b,
+                case["N"], idt,
+                None if eos is None else torch.from_numpy(eos).to(cuda, idt)]
+        got = kmer.kmer_pack(*args)
+        assert all(g.dtype == torch.int32 for g in got)
+        _same(got, kmer.pack_kmers_plain(*args))
+    assert kmer.kmer_pack.launches == before + len(shards)
+
+
+@pytest.mark.parametrize("name", sorted(cases.KMER_CASES))
+def test_kmer_heads_kernel_vs_plain(cuda, name):
+    """K10 against its plain version, with and without the LCP, on every
+    shard of the sorted rows of the k-mer init's cases."""
+    from psac_tpu_torch.ops import kmer
+
+    c, case = cases.kmer_case(name)
+    idt = _kmer_idt(c)
+    words = [torch.cat(w).numpy() for w in zip(*(
+        kmer.pack_kmers_plain(torch.from_numpy(codes),
+                              torch.from_numpy(halo), case["ks"],
+                              case["bits"], b, case["N"], idt,
+                              None if eos is None
+                              else torch.from_numpy(eos).to(idt))
+        for b, codes, halo, eos in cases.kmer_pack_inputs(case, c["p"])))]
+    shards = cases.kmer_heads_inputs(case, words, c["p"])
+    before = kmer.kmer_heads.launches
+    for b, ws, halo, rs, rh in shards:
+        for with_lcp in (True, False):
+            args = [[torch.from_numpy(w).to(cuda) for w in ws],
+                    torch.from_numpy(halo).to(cuda), case["ks"],
+                    case["bits"], b, case["N"],
+                    case["n"] if rs is None else 0, idt, with_lcp,
+                    None if rs is None else torch.from_numpy(rs).to(cuda, idt),
+                    None if rh is None else torch.from_numpy(rh).to(cuda, idt)]
+            newb, lcp0 = kmer.kmer_heads(*args)
+            assert newb.dtype == torch.bool
+            assert (lcp0 is None) != with_lcp
+            if with_lcp:
+                assert lcp0.dtype == idt
+            _same((newb, lcp0), kmer.kmer_heads_plain(*args))
+    assert kmer.kmer_heads.launches == before + 2 * len(shards)
+
+
+def test_kmer_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from psac_tpu_torch.ops import kmer
+
+    codes = torch.ones(64, dtype=torch.int32, device=cuda)
+    halo = torch.zeros(19, dtype=torch.int32, device=cuda)
+    for bad in (dict(ks=(11, 10)), dict(ks=(1,) * 4), dict(bits=0),
+                dict(halo=halo[:5]), dict(codes=codes.to(torch.int64)),
+                dict(idt=torch.int16),
+                dict(eos=torch.ones(64, dtype=torch.int64, device=cuda))):
+        a = dict(codes=codes, halo=halo, ks=(10, 10), bits=3, base=0, N=64,
+                 idt=torch.int32, eos=None)
+        a.update(bad)
+        with pytest.raises(ValueError):
+            kmer.kmer_pack(**a)
+    words = [codes, codes]
+    h2 = torch.full((2,), -1, dtype=torch.int32, device=cuda)
+    rem = torch.ones(64, dtype=torch.int32, device=cuda)
+    for bad in (dict(words=[codes]), dict(halo=h2[:1]),
+                dict(words=[codes, codes[:32]]),
+                dict(rem=rem), dict(rem=rem, rem_halo=rem[:2]),
+                dict(rem=rem.to(torch.int64), rem_halo=rem[:1])):
+        a = dict(words=words, halo=h2, ks=(10, 10), bits=3, base=0, N=64,
+                 n_real=60, idt=torch.int32, with_lcp=True)
+        a.update(bad)
+        with pytest.raises(ValueError):
+            kmer.kmer_heads(**a)
+
+
+@pytest.mark.parametrize("gsa", [False, True])
+def test_kmer_init_kernels_on_every_build_path(cuda, gsa):
+    """A build on the card launches K9 and K10 once per shard on the
+    fused path, on the host loop and on a mesh of 4 shards, and gives the
+    CPU build's arrays."""
+    from psac_tpu_torch import SAConfig, build_gsa, build_suffix_array
+    from psac_tpu_torch.ops import kmer
+    from psac_tpu_torch.ops.alphabet import rand_dna
+    from psac_tpu_torch.parallel.mesh import make_mesh
+
+    text = rand_dna(1 << 14, seed=8)
+    parts = [text[i:i + 300] for i in range(0, len(text), 300)]
+
+    def build(device=None, mesh=None, **cfg):
+        if gsa:
+            r = build_gsa(parts, device=device, config=SAConfig(**cfg),
+                          mesh=mesh)
+        else:
+            r = build_suffix_array(text, device=device,
+                                   config=SAConfig(**cfg), mesh=mesh)
+        return r.sa, r.lcp
+
+    want = build("cpu")
+    for p, cfg in ((1, {}), (1, dict(fused=False)), (4, {}),
+                   (4, dict(fused=False))):
+        mesh = make_mesh(p, ["cuda:0"] * p) if p > 1 else None
+        before = (kmer.kmer_pack.launches, kmer.kmer_heads.launches)
+        got = build(None if mesh else cuda, mesh, **cfg)
+        assert (kmer.kmer_pack.launches - before[0],
+                kmer.kmer_heads.launches - before[1]) == (p, p), (p, cfg)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        if mesh is not None:
+            mesh.close()
