@@ -645,7 +645,11 @@ def check_k9_k10(dev, text: bytes, gsa_set: list, card: str,
     DNA (the main path's shape, which the kernel table's times are of), the
     GSA + GLCP of the random string set, and SA+LCP of the first 2^20
     characters with ``force_int64``; K10 also without the LCP on the first.
-    Each call is timed both ways with CUDA events."""
+    Each call is timed both ways with CUDA events.  K9 also on the first
+    call with its codes moved 4 bytes off a 16-byte boundary, and on the
+    seeded GSA cases whose string ends fall at every offset of a thread's
+    run (``dna3-gsa-runs``), across four blocks (``dna2-gsa-blocks3-int64``,
+    int64) and at k = 93 (``bin3-gsa-p1``)."""
     from unittest import mock
 
     import torch
@@ -654,6 +658,7 @@ def check_k9_k10(dev, text: bytes, gsa_set: list, card: str,
     from psac_tpu_torch.models import gsa as gsa_mod
     from psac_tpu_torch.models import suffix_array as sa_mod
     from psac_tpu_torch.ops import kmer
+    from psac_tpu_torch.verify import cases
 
     plain = {"kmer_pack": kmer.pack_kmers_plain,
              "kmer_heads": kmer.kmer_heads_plain}
@@ -698,6 +703,13 @@ def check_k9_k10(dev, text: bytes, gsa_set: list, card: str,
             variants = [args]
             if name == "kmer_heads" and bi == 0:
                 variants.append(args[:8] + (False,) + args[9:])
+            if name == "kmer_pack" and bi == 0:
+                buf = torch.empty(args[0].shape[0] + 4, dtype=torch.int32,
+                                  device=dev)
+                view = buf[1:1 + args[0].shape[0]]
+                view.copy_(args[0])
+                assert view.data_ptr() % 16 == 4
+                variants.append((view,) + tuple(args[1:]))
             for a in variants:
                 errs[name].append(max_abs_err(wrapper[name](*a),
                                               plain[name](*a)))
@@ -717,6 +729,19 @@ def check_k9_k10(dev, text: bytes, gsa_set: list, card: str,
                 f"ms, plain {st['plain_ms']:.3f} ms, bound "
                 f"{st['bound_ms']:.4f} ms ({st['bound_by']}) on {card}")
         del calls
+    for cname in ("dna3-gsa-runs", "dna2-gsa-blocks3-int64", "bin3-gsa-p1"):
+        c, case = cases.kmer_case(cname)
+        idt = torch.int64 if c["int64"] else torch.int32
+        for b, codes, halo, eos in cases.kmer_pack_inputs(case, c["p"]):
+            args = (torch.from_numpy(codes).to(dev),
+                    torch.from_numpy(halo).to(dev), case["ks"], case["bits"],
+                    b, case["N"], idt, torch.from_numpy(eos).to(dev, idt))
+            errs["kmer_pack"].append(max_abs_err(kmer.kmer_pack(*args),
+                                                 plain["kmer_pack"](*args)))
+    log("[kernel] K9 kmer_pack == plain on the first call's codes 4 bytes "
+        "off a 16-byte boundary and on the GSA cases dna3-gsa-runs (a "
+        "string end at every offset of a run), dna2-gsa-blocks3-int64 and "
+        "bin3-gsa-p1 (k = 93: the window's tail in two rounds)")
     for name in wrapper:
         kern[name]["max_abs_err"] = max(errs[name])
 

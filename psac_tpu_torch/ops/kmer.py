@@ -31,6 +31,10 @@ from psac_tpu_torch.ops import cuda_lib
 from psac_tpu_torch.ops.bitops import lcp_bitwise_words
 
 MAX_WORDS = 3  # MAX_WORDS of csrc/kmer_init.cu
+#: K9's positions per thread and threads per block as built
+#: (``PSAC_K9_RUN`` and ``PSAC_K9_THREADS`` of csrc/kmer_init.cu)
+K9_RUN = 4
+K9_THREADS = 64
 
 
 def optimal_k(bits_per_char: int, max_bits: int = 31,
@@ -80,11 +84,11 @@ def pack_kmers_plain(codes: torch.Tensor, halo: torch.Tensor,
     """Plain version of K9: the len(ks) (s,) int32 words of the
     sum(ks)-mers at a shard's s positions (global indices base ..
     base + s - 1 of N), from its (s,) int32 ``codes`` and the (sum(ks) - 1,)
-    ``halo`` codes right of it.  With ``eos`` ((s,) of ``idt``, the GSA)
-    char j of position g is taken only where g + j < eos.  Rows whose first
-    word is 0 (padding suffixes) get the pad rank (int32)(N - g) as their
-    last word: unique final ranks, by descending position, before every
-    real suffix."""
+    ``halo`` codes right of it, every code below 2^bits.  With ``eos``
+    ((s,) of ``idt``, the GSA) char j of position g is taken only where
+    g + j < eos.  Rows whose first word is 0 (padding suffixes) get the pad
+    rank (int32)(N - g) as their last word: unique final ranks, by
+    descending position, before every real suffix."""
     s = codes.shape[0]
     win = torch.cat([codes, halo])
     gidx = torch.arange(base, base + s, dtype=idt, device=codes.device)

@@ -240,9 +240,11 @@ def walk_case(kind: str, n: int, dtype, q: int, seed: int):
 
 
 #: (bits per char, chars per word) of the k-mer init's cases: DNA at two and
-#: three words, bytes, the IntAlphabet's widest codes, and DNA with
-#: ``SAConfig(k=5)`` (``kmer_words_for``: (3, 2))
+#: three words, bytes, the IntAlphabet's widest codes, DNA with
+#: ``SAConfig(k=5)`` (``kmer_words_for``: (3, 2)), and a one-symbol text
+#: at one bit a char with ``SAConfig(kmer_words=3)`` (k = 93, the longest)
 KMER_SHAPES = {
+    "bin3": (1, (31, 31, 31)),
     "dna2": (3, (10, 10)),
     "dna3": (3, (10, 10, 10)),
     "bytes": (8, (3, 3)),
@@ -251,7 +253,8 @@ KMER_SHAPES = {
 }
 
 
-def kmer_init_case(shape: str, N: int, pad: int, gsa: bool, seed: int):
+def kmer_init_case(shape: str, N: int, pad: int, gsa: bool, seed: int,
+                   cut_all: bool = False):
     """Seeded inputs of the k-mer init at ``KMER_SHAPES[shape]``: (N,)
     int32 codes (1 .. 2^bits - 1) of a text of n = N - pad chars, zeros
     after it: a random twentieth, a twentieth of a repeated seven-char
@@ -259,8 +262,9 @@ def kmer_init_case(shape: str, N: int, pad: int, gsa: bool, seed: int):
     rows of the sort past the shard edges of p = 2 and 4.  With ``gsa`` the
     first tenth is cut into strings of 1-12 chars (most end inside a k-mer
     window), the run is one string, and ``eos`` is the (N,) int64 end of
-    each position's string (g itself past n).  Returns dict(codes, eos
-    (None without gsa), bits, ks, n, N)."""
+    each position's string (g itself past n); with ``cut_all`` the whole
+    text is cut so.  Returns dict(codes, eos (None without gsa), bits, ks,
+    n, N)."""
     bits, ks = KMER_SHAPES[shape]
     rng = np.random.RandomState(seed)
     n = N - pad
@@ -277,12 +281,13 @@ def kmer_init_case(shape: str, N: int, pad: int, gsa: bool, seed: int):
     eos = None
     if gsa:
         eos = np.arange(N, dtype=np.int64)
+        cut = n if cut_all else b
         start = 0
-        while start < b:
-            end = min(b, start + int(rng.randint(1, 13)))
+        while start < cut:
+            end = min(cut, start + int(rng.randint(1, 13)))
             eos[start:end] = end
             start = end
-        eos[b:n] = n
+        eos[cut:n] = n
     return dict(codes=out, eos=eos, bits=bits, ks=ks, n=n, N=N)
 
 
@@ -305,9 +310,23 @@ def _kmer_cases() -> dict:
         # s = 4 < k - 1 = 29: the halo spans the next blocks and the end
         out[f"dna3-{kind}-short"] = dict(shape="dna3", N=16, pad=3, gsa=gsa,
                                          p=4, int64=False)
-        # two blocks of 256 positions (csrc/kmer_init.cu) and a ragged third
+        # two of K10's blocks of 256 rows and a ragged third
         out[f"dna2-{kind}-blocks"] = dict(shape="dna2", N=552, pad=9,
                                           gsa=gsa, p=1, int64=False)
+    # K9's blocks of T * R positions: three whole ones at every shape of
+    # tools/k9_sweep.py (at most 8192) and a ragged fourth
+    out["dna2-sa-blocks3"] = dict(shape="dna2", N=3 * 8192 + 1000, pad=9,
+                                  gsa=False, p=1, int64=False)
+    out["dna2-gsa-blocks3-int64"] = dict(shape="dna2", N=3 * 8192 + 1000,
+                                         pad=9, gsa=True, p=1, int64=True)
+    # a string end at every offset of a thread's run of R positions
+    out["dna3-gsa-runs"] = dict(shape="dna3", N=1000, pad=5, gsa=True, p=1,
+                                int64=False, cut_all=True)
+    # shards of s = 1001 (a multiple of no run length) and s = 3 < R
+    out["bytes-sa-ragged"] = dict(shape="bytes", N=2002, pad=5, gsa=False,
+                                  p=2, int64=False)
+    out["k5-gsa-tiny"] = dict(shape="k5", N=12, pad=3, gsa=True, p=4,
+                              int64=False, cut_all=True)
     return out
 
 
@@ -321,7 +340,8 @@ def kmer_case(name: str):
     seeded by the name."""
     c = KMER_CASES[name]
     return c, kmer_init_case(c["shape"], c["N"], c["pad"], c["gsa"],
-                             seed=sum(map(ord, name)))
+                             seed=sum(map(ord, name)),
+                             cut_all=c.get("cut_all", False))
 
 
 def kmer_pack_inputs(case: dict, p: int) -> list:

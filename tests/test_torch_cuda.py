@@ -1433,6 +1433,26 @@ def test_kmer_pack_kernel_vs_plain(cuda, name):
     assert kmer.kmer_pack.launches == before + len(shards)
 
 
+@pytest.mark.parametrize("name", ["dna2-sa-blocks3", "dna2-gsa-blocks3-int64",
+                                  "dna3-gsa-runs"])
+def test_kmer_pack_kernel_on_an_unaligned_view(cuda, name):
+    """K9 on codes that are a view 4 bytes off a 16-byte boundary (the
+    kernel reads them a code at a time) equals its plain version."""
+    from psac_tpu_torch.ops import kmer
+
+    c, case = cases.kmer_case(name)
+    idt = _kmer_idt(c)
+    for b, codes, halo, eos in cases.kmer_pack_inputs(case, c["p"]):
+        buf = torch.zeros(len(codes) + 4, dtype=torch.int32, device=cuda)
+        view = buf[1:1 + len(codes)]
+        view.copy_(torch.from_numpy(codes))
+        assert view.data_ptr() % 16 == 4
+        args = [view, torch.from_numpy(halo).to(cuda), case["ks"],
+                case["bits"], b, case["N"], idt,
+                None if eos is None else torch.from_numpy(eos).to(cuda, idt)]
+        _same(kmer.kmer_pack(*args), kmer.pack_kmers_plain(*args))
+
+
 @pytest.mark.parametrize("name", sorted(cases.KMER_CASES))
 def test_kmer_heads_kernel_vs_plain(cuda, name):
     """K10 against its plain version, with and without the LCP, on every

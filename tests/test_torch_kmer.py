@@ -1,10 +1,12 @@
 """The k-mer init of SA+LCP and of the GSA: K9 (``ops.kmer.kmer_pack``)
 and K10 (``ops.kmer.kmer_heads``), ``psac_tpu_torch/csrc/kmer_init.cu``.
 
-A numpy model of each kernel's per-thread arithmetic (the block's window
-of codes with the halo read through its own pointer, the unsigned
-shift-or, the eos mask, the pad rank mod 2^32, ``clz`` and the floored
-quotient as the kernel computes it from C's truncating ``/`` and ``%``)
+A numpy model of each kernel's per-thread arithmetic (K9: the block's
+window of codes with the halo read through its own pointer, split into
+phases, each thread's run of R positions on a k-char shift register, the
+GSA's masks from each position's cut, the pad rank mod 2^32, at the built
+shape and at the sweep's others; K10: ``clz`` and the floored quotient as
+the kernel computes it from C's truncating ``/`` and ``%``)
 and the wrappers on CPU tensors (their plain versions) are held against
 the JAX package on the same seeded inputs (``verify.cases.kmer_init_case``):
 ``psac_tpu.ops.kmer.pack_kmers_local`` with the init's pad-rank select,
@@ -27,51 +29,125 @@ from psac_tpu.models.suffix_array import _x64_ctx
 from psac_tpu.ops.bitops import lcp_bitwise_words as j_lcp_words
 from psac_tpu.ops.kmer import pack_kmers_local as j_pack
 from psac_tpu_torch.ops import kmer as t_kmer
+from psac_tpu_torch.tools import k9_sweep
 from psac_tpu_torch.verify.cases import (KMER_CASES, kmer_case,
                                          kmer_heads_inputs, kmer_pack_inputs)
 
 torch.set_num_threads(1)
 
-T = 256  # positions per block of csrc/kmer_init.cu
 I64 = {False: torch.int32, True: torch.int64}
+#: the run lengths R of tools/k9_sweep.py's variants (the sweep holds
+#: each against the plain version on the card)
+K9_SWEEP_RUNS = sorted({d["PSAC_K9_RUN"] for d in k9_sweep.variants().values()})
 
 
 # ---------------------------------------------------------------- models
 
 
-def _k9_model(codes, halo, ks, bits, base, N, eos=None):
-    """csrc/kmer_init.cu::pack_kernel, block by block: the window of
-    T + k - 1 codes (codes, then the halo, then zeros), then per thread
-    the unsigned shift-or of its k chars, masked at j >= eos - g."""
-    s, k = len(codes), sum(ks)
+def _k9_row_stride(R: int, T: int) -> int:
+    """row_stride() of csrc/kmer_init.cu: at least T + KP_MAX columns,
+    32 / R banks apart."""
+    p = T + (93 - 1 + R - 1) // R
+    while p % 32 != (32 // R) % 32:
+        p += 1
+    return p
+
+
+#: an entry of the model's shared memory that no thread stored
+_POISON = np.uint64(1 << 40)
+
+
+def _k9_model(codes, halo, ks, bits, base, N, eos=None,
+              R=t_kmer.K9_RUN, T=t_kmer.K9_THREADS):
+    """csrc/kmer_init.cu::pack_kernel, block by block, all T threads of a
+    block at once.  The window starts delta chars before the block;
+    thread t stores its chars t + m * T (m < R) and, of the R * kp chars
+    of the tail, e = t + j * T (j < TAIL_ROUNDS), each at (a % R) * PS + a // R, read as
+    window_code reads them (codes, the halo, then 0); every other entry
+    stays poisoned, and the model asserts that no thread reads one.  The
+    GSA's cut clamp(g + k - eos, 0, k) is staged where the block position
+    lies inside the shard (the rest poisoned, asserted unread where a word
+    is stored).  Then per thread the k-char shift register of the words
+    (each word shifted by a char, the next word's top char or the new char
+    in, its mask), fed kp * R chars (the full build of the run's first
+    position), then R chars with the words taken after each: masked on a
+    copy (shift of ~0 by max(cut * bits - bits after the word, 0), 0 from
+    32 on), the pad rank N - g mod 2^32 where word 0 is 0."""
+    s, k, nw = len(codes), sum(ks), len(ks)
+    codes64 = codes.astype(np.uint64)
+    halo64 = halo.astype(np.uint64)
+    delta = (R - (k - 1) % R) % R
+    kp = (k - 1 + delta) // R
+    ps = _k9_row_stride(R, T)
+    step = T // R
+    # TAIL_ROUNDS: rounds of the T threads over the tail at the longest k
+    tail_rounds = -(-R * ((93 - 1 + R - 1) // R) // T)
+    m32 = np.uint64(0xFFFFFFFF)
+    mask = [np.uint64((1 << (kw * bits)) - 1) for kw in ks]
+    top = [np.uint64((kw - 1) * bits) for kw in ks]
+    after = [bits * sum(ks[w + 1:]) for w in range(nw)]
+    b64 = np.uint64(bits)
     words = [np.zeros(s, np.int32) for _ in ks]
-    for first in range(0, s, T):
-        pos = first + np.arange(T + k - 1)
-        win = np.zeros(T + k - 1, np.uint64)
-        inc = pos < s
-        win[inc] = codes[pos[inc]].astype(np.uint64)
-        inh = ~inc & (pos - s < k - 1)
-        win[inh] = halo[pos[inh] - s].astype(np.uint64)
-        i = first + np.arange(min(T, s - first))
-        g = base + i
-        lim = (eos[i].astype(np.int64) - g if eos is not None
-               else np.full(len(i), k))
-        off = 0
-        acc_all = []
-        for kw in ks:
-            acc = np.zeros(len(i), np.uint64)
-            for j in range(off, off + kw):
-                c = win[i - first + j]
-                c = np.where(j >= lim, np.uint64(0), c)
-                acc = ((acc << np.uint64(bits)) | c) & np.uint64(0xFFFFFFFF)
-            acc_all.append(acc)
-            off += kw
-        pad = acc_all[0] == 0
-        acc_all[-1] = np.where(
-            pad, (N - g).astype(np.int64).astype(np.uint64)
-            & np.uint64(0xFFFFFFFF), acc_all[-1])
-        for w, acc in zip(words, acc_all):
-            w[i] = acc.astype(np.uint32).view(np.int32)
+
+    def window_code(gi):
+        out = np.zeros(len(gi), np.uint64)
+        own = (gi >= 0) & (gi < s)
+        out[own] = codes64[gi[own]]
+        hal = (gi >= s) & (gi - s < k - 1)
+        out[hal] = halo64[gi[hal] - s]
+        return out
+
+    def roll(reg, c):
+        assert not (c == _POISON).any(), "a read of an unloaded window entry"
+        for w in range(nw):
+            new = reg[w + 1] >> top[w + 1] if w + 1 < nw else c
+            reg[w] = ((reg[w] << b64) | new) & mask[w]
+
+    t = np.arange(T)
+    dst = (t % R) * ps + t // R
+    for first in range(0, s, T * R):
+        g0 = first - delta
+        win = np.full(R * ps, _POISON, np.uint64)
+        for m in range(R):
+            win[dst + m * step] = window_code(g0 + t + m * T)
+        for j in range(tail_rounds):
+            e = t + j * T
+            on = e < R * kp
+            win[dst[on] + T + j * step] = window_code(g0 + R * T + e[on])
+        # block position q at (q % R) * T + q // R
+        cut = np.full(R * T, -1, np.int64)
+        if eos is not None:
+            for m in range(R):
+                p = first + t + m * T
+                on = p < s
+                c = base + p[on] + k - eos[p[on]].astype(np.int64)
+                cut[(t[on] % R) * T + t[on] // R + m * step] = np.clip(c, 0,
+                                                                      k)
+        cut = cut.reshape(R, T)
+        i0 = first + R * t
+        live = i0 < s
+        reg = [np.zeros(T, np.uint64) for _ in ks]
+        for c in range(kp):
+            for f in range(R):
+                roll(reg, np.where(live, win[f * ps + t + c], 0))
+        for f in range(R):
+            roll(reg, np.where(live, win[f * ps + t + kp], 0))
+            at = live & (i0 + f < s)
+            o = list(reg)
+            if eos is not None:
+                assert (cut[f][at] >= 0).all(), "a read of an unstaged cut"
+                for w in range(nw):
+                    sh = np.maximum(cut[f] * bits - after[w], 0)
+                    keep = np.where(sh >= 32, np.uint64(0),
+                                    (m32 << np.minimum(sh, 31).astype(
+                                        np.uint64)) & m32)
+                    o[w] = o[w] & keep
+            g = (base + i0 + f).astype(np.int64)
+            pad = (np.int64(N) - g).astype(np.uint64) & m32
+            o[-1] = np.where(o[0] == 0, pad, o[-1])
+            for w in range(nw):
+                words[w][i0[at] + f] = o[w][at].astype(np.uint32).view(
+                    np.int32)
     return tuple(words)
 
 
@@ -298,7 +374,13 @@ def test_floored_lcp_before_the_rules(name):
 
 def test_cases_reach_the_edges_they_are_named_for():
     """The short shards are shorter than k - 1; the GSA strings end inside
-    k-mer windows; the int31 codes fill 31 bits."""
+    k-mer windows; the int31 codes fill 31 bits.  K9's runs: a string ends
+    at every offset of a run of R positions, at every R of the sweep; the
+    ragged shards are a multiple of no R, the tiny ones shorter than any;
+    the blocks3 cases hold three whole blocks of K9's largest (8192
+    positions) and a ragged fourth; at k = 93 (bin3) the window's tail
+    past a block's own positions is longer than the block's threads, so
+    the kernel loads it in more than one round."""
     c, case = kmer_case("dna3-sa-short")
     assert c["N"] // c["p"] < sum(case["ks"]) - 1
     _, case = kmer_case("dna2-gsa-p1")
@@ -306,6 +388,37 @@ def test_cases_reach_the_edges_they_are_named_for():
     assert (np.diff(ends) < sum(case["ks"])).sum() >= 5
     _, case = kmer_case("int31-sa-p1")
     assert case["codes"].max() >= 1 << 30
+    _, case = kmer_case("dna3-gsa-runs")
+    ends = np.unique(case["eos"][:case["n"]])
+    ends = ends[ends < case["n"]]
+    for R in K9_SWEEP_RUNS:
+        assert set((ends % R).tolist()) == set(range(R)), R
+    c, _ = kmer_case("bytes-sa-ragged")
+    assert all((c["N"] // c["p"]) % r for r in K9_SWEEP_RUNS)
+    c, _ = kmer_case("k5-gsa-tiny")
+    assert all(c["N"] // c["p"] < r for r in K9_SWEEP_RUNS)
+    for name in ("dna2-sa-blocks3", "dna2-gsa-blocks3-int64"):
+        c, _ = kmer_case(name)
+        assert c["p"] == 1 and c["N"] // 8192 == 3 and c["N"] % 8192
+    c, case = kmer_case("bin3-sa-p1")
+    k, R = sum(case["ks"]), t_kmer.K9_RUN
+    assert k == 93 and c["N"] >= R * t_kmer.K9_THREADS
+    assert k - 1 + (R - (k - 1) % R) % R > t_kmer.K9_THREADS
+
+
+def test_k9_shape_is_the_built_one():
+    """ops/kmer.py's K9_RUN and K9_THREADS, which the model takes, are the
+    kernel's compiled defaults."""
+    import os
+    import re
+
+    from psac_tpu_torch.ops import cuda_lib
+
+    src = open(os.path.join(cuda_lib.CSRC_DIR, "kmer_init.cu")).read()
+    got = {m: int(re.search(rf"#define {m} (\d+)", src).group(1))
+           for m in ("PSAC_K9_RUN", "PSAC_K9_THREADS")}
+    assert got == {"PSAC_K9_RUN": t_kmer.K9_RUN,
+                   "PSAC_K9_THREADS": t_kmer.K9_THREADS}
 
 
 def _jax_init(case, p, int64: bool, mesh_fn):
