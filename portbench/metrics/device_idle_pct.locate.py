@@ -1,0 +1,11 @@
+"""device_idle_pct.locate: the share of the traced window of pattern
+batches in which the card ran no kernel, copy or set
+(``torch.profiler``)."""
+
+from portbench.harness.trace import idle_pct
+
+
+def read(run):
+    if run.trace is None or not run.trace.device or not any("patterns" in u for u in run.units):
+        return None
+    return idle_pct(run.trace)

@@ -1,0 +1,11 @@
+"""host_build_mbps: input bytes (10^6) of every build to host arrays
+completed in the window, over the window's seconds (``build_mbps`` of the
+cells whose builds end on the host, whose runs spread wider: the host's
+copies set their pace)."""
+
+from portbench.harness.stats import rate
+
+
+def read(run):
+    work = [u["bytes"] for u in run.units if "bytes" in u]
+    return rate(work, run.window_s) / 1e6 if work else None
