@@ -1,0 +1,16 @@
+"""materialize_copy_ms: host milliseconds a build spends copying SA and LCP
+to the host (``DeviceSuffixArray.materialize``), from the program's
+``psac.materialize.copy`` spans (``psac_tpu_torch.utils.timers``): the
+traced window's total over its builds."""
+
+
+def read(run):
+    if run.trace is None or not run.units:
+        return None
+    try:
+        from psac_tpu_torch.utils.timers import records, totals
+    except ImportError:  # a program without spans of its own
+        return None
+    ms = totals(records(), "psac.materialize", len(run.units)).total(
+        "psac.materialize.copy", "host")
+    return None if ms is None else ms / len(run.units)

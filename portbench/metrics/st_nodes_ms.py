@@ -1,0 +1,17 @@
+"""st_nodes_ms: device milliseconds a build spends on the suffix tree's
+edges, the character gather, the node table's scatter and the overflow
+readback, from the program's ``psac.st.nodes`` spans
+(``psac_tpu_torch.utils.timers``): the traced window's total over its
+builds.  None where the spans carry no device time (off the card)."""
+
+
+def read(run):
+    if run.trace is None or not run.units:
+        return None
+    try:
+        from psac_tpu_torch.utils.timers import records, totals
+    except ImportError:  # a program without spans of its own
+        return None
+    ms = totals(records(), "psac.st", len(run.units)).total(
+        "psac.st.nodes", "device")
+    return None if ms is None else ms / len(run.units)

@@ -76,6 +76,7 @@ from psac_tpu_torch.parallel.mesh import (Rep, Replicated, Sharded,
                                           num_shards, run_on)
 from psac_tpu_torch.parallel.route import (gather_global, route_apply,
                                            route_scatter)
+from psac_tpu_torch.utils import timers
 from psac_tpu_torch.utils.timers import timers_enabled
 
 _MAX_LEN_GROUPS = 3
@@ -324,20 +325,25 @@ class DESA:
     def encode_patterns(self, patterns):
         """Host: encode byte patterns to a padded (B, Lmax) code matrix."""
         B = len(patterns)
-        lens = np.fromiter((len(pt) for pt in patterns), np.int64, B)
-        Lmax = pow2ceil(max(2, int(lens.max()) if B else 2))
-        flat = np.frombuffer(b"".join(bytes(pt) for pt in patterns), np.uint8)
-        codes = self.alphabet.mapping[flat].astype(np.int32)
-        ends = np.cumsum(lens)
-        starts = ends - lens
-        row = np.repeat(np.arange(B, dtype=np.int64), lens)
-        col = np.arange(len(flat), dtype=np.int64) - np.repeat(starts, lens)
-        mat = np.zeros((B, Lmax), np.int32)
-        mat[row, col] = codes
-        # bad = empty pattern or any character outside the alphabet (code 0)
-        zero_cum = np.concatenate([[0], np.cumsum(codes == 0)])
-        bad = (lens == 0) | ((zero_cum[ends] - zero_cum[starts]) > 0)
-        return mat, lens.astype(np.int32), bad
+        with timers.span("psac.locate.encode.join", patterns=B):
+            lens = np.fromiter((len(pt) for pt in patterns), np.int64, B)
+            flat = np.frombuffer(b"".join(bytes(pt) for pt in patterns),
+                                 np.uint8)
+        with timers.span("psac.locate.encode.pack"):
+            Lmax = pow2ceil(max(2, int(lens.max()) if B else 2))
+            codes = self.alphabet.mapping[flat].astype(np.int32)
+            ends = np.cumsum(lens)
+            starts = ends - lens
+            row = np.repeat(np.arange(B, dtype=np.int64), lens)
+            col = np.arange(len(flat), dtype=np.int64) - np.repeat(starts,
+                                                                   lens)
+            mat = np.zeros((B, Lmax), np.int32)
+            mat[row, col] = codes
+            # bad = empty pattern or any character outside the alphabet
+            # (code 0)
+            zero_cum = np.concatenate([[0], np.cumsum(codes == 0)])
+            bad = (lens == 0) | ((zero_cum[ends] - zero_cum[starts]) > 0)
+            return mat, lens.astype(np.int32), bad
 
     def bulk_locate(self, patterns) -> np.ndarray:
         """Exact half-open SA ranges [l, r) for a batch of byte patterns:
@@ -362,25 +368,37 @@ class DESA:
     def _run_query(self, patterns, verify: bool) -> np.ndarray:
         """Length-bucketed dispatch: ragged batches are split into at most
         ``_MAX_LEN_GROUPS`` Lmax tiers before padding, so one long pattern
-        cannot inflate the whole (B, Lmax) code matrix."""
-        steps, reads = [], []
-        if len(patterns) == 0:
-            out = np.zeros((0, 2), np.int64)
-        else:
-            lens = np.fromiter((len(pt) for pt in patterns), np.int64,
-                               len(patterns))
-            groups = _length_groups(lens)
-            if len(groups) == 1:
-                out = self._run_query_group(patterns, verify, steps, reads)
+        cannot inflate the whole (B, Lmax) code matrix.  Spans:
+        ``psac.locate`` (the call) > ``.groups``, ``.encode.join``,
+        ``.encode.pack``, ``.upload``, ``.search``, ``.download``."""
+        dev = self._device()
+        with timers.call("psac.locate", dev, patterns=len(patterns)):
+            steps, reads = [], []
+            if len(patterns) == 0:
+                out = np.zeros((0, 2), np.int64)
             else:
-                out = np.zeros((len(patterns), 2), np.int64)
-                for idx in groups:
-                    out[idx] = self._run_query_group(
-                        [patterns[i] for i in idx], verify, steps, reads)
-        self.last_stats = {"steps": sum(int(_whole(x).sum()) for x in steps),
-                           "readbacks": sum(int(_whole(x).sum())
-                                            for x in reads)}
+                with timers.span("psac.locate.groups"):
+                    lens = np.fromiter((len(pt) for pt in patterns),
+                                       np.int64, len(patterns))
+                    groups = _length_groups(lens)
+                if len(groups) == 1:
+                    out = self._run_query_group(patterns, verify, steps,
+                                                reads)
+                else:
+                    out = np.zeros((len(patterns), 2), np.int64)
+                    for idx in groups:
+                        out[idx] = self._run_query_group(
+                            [patterns[i] for i in idx], verify, steps, reads)
+            with timers.span("psac.locate.download", dev):
+                self.last_stats = {
+                    "steps": sum(int(_whole(x).sum()) for x in steps),
+                    "readbacks": sum(int(_whole(x).sum()) for x in reads)}
+                timers.readback(len(steps))
         return out
+
+    def _device(self):
+        """The card of a one-device DESA (None on a mesh)."""
+        return None if num_shards(self.mesh) > 1 else self.xs.device
 
     def _run_query_group(self, patterns, verify: bool, steps: list,
                          reads: list) -> np.ndarray:
@@ -392,21 +410,26 @@ class DESA:
         mat, lens, bad = self.encode_patterns(patterns)
         B = mat.shape[0]
         p = num_shards(self.mesh)
-        if p > 1:
-            Bp = -(-max(p, pow2ceil(B)) // p) * p
-            mat = np.vstack([mat, np.zeros((Bp - B, mat.shape[1]), np.int32)])
-            lens = np.concatenate([lens, np.zeros(Bp - B, np.int32)])
-            dmat, dlens = (self.mesh.shard(torch.from_numpy(a))
-                           for a in (mat, lens))
-        else:
-            dmat, dlens = (torch.from_numpy(a).to(self.xs.device)
-                           for a in (mat, lens))
+        dev = self._device()
+        with timers.span("psac.locate.upload", dev):
+            if p > 1:
+                Bp = -(-max(p, pow2ceil(B)) // p) * p
+                mat = np.vstack([mat, np.zeros((Bp - B, mat.shape[1]),
+                                               np.int32)])
+                lens = np.concatenate([lens, np.zeros(Bp - B, np.int32)])
+                dmat, dlens = (self.mesh.shard(torch.from_numpy(a))
+                               for a in (mat, lens))
+            else:
+                dmat, dlens = (torch.from_numpy(a).to(self.xs.device)
+                               for a in (mat, lens))
         run = _bulk_locate_local if self.tli == "tllt" else \
             _bulk_locate_tldt_local
         timed = timers_enabled()
-        lr, nsteps, nreads, counts = run_on(
-            self.mesh, functools.partial(run, verify=verify, stats=timed),
-            dmat, dlens, self)
+        with timers.span("psac.locate.search", dev, patterns=B):
+            lr, nsteps, nreads, counts = run_on(
+                self.mesh,
+                functools.partial(run, verify=verify, stats=timed),
+                dmat, dlens, self)
         steps.append(nsteps)
         reads.append(nreads)
         if timed:
@@ -417,8 +440,10 @@ class DESA:
                   f"avg={tot / p:.0f} "
                   f"imbalance={counts.max() * p / tot:.3f}",
                   file=sys.stderr, flush=True)
-        out = _whole(lr)[:B].cpu().numpy().astype(np.int64)
-        out[bad] = 0
+        with timers.span("psac.locate.download", dev):
+            out = _whole(lr)[:B].cpu().numpy().astype(np.int64)
+            timers.readback()
+            out[bad] = 0
         return out
 
 

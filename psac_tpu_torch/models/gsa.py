@@ -210,20 +210,20 @@ class _GsaBuilder(_Builder):
         with the tie-fix's routing overflow count appended to the drive's
         stats (JAX ``_gfused_full_local``): where it is > 0 the caller
         reruns the fix at full capacity."""
-        m_pad = max(8, self.s // resolve_div)
-        isa, sa, lcp, brow, active, eos_row, counts = self._ginit_local(
-            codes, eos)
+
+        def init():
+            isa, sa, lcp, brow, active, eos_row, counts = self._ginit_local(
+                codes, eos)
+            return isa, sa, lcp, brow, active, (eos_row,), counts
 
         def dense_step(isa, lcp, extra, d):
             isa, sa, lcp, q, brow, active, eos_row, counts = \
                 self._gstep_local(isa, eos, lcp, d)
-            lcp, ub, ue = self._dense_resolve(lcp, q, counts, d, m_pad=m_pad,
-                                              L=2)
-            return isa, sa, lcp, brow, active, (eos_row,), ub, ue, d * 2
+            return isa, sa, lcp, q, brow, active, (eos_row,), counts
 
         isa, sa, lcp, _, _, _, stats = self._fused_drive(
-            (isa, sa, lcp, brow, active, (eos_row,), *_read(*counts)),
-            dense_step, m_cap=m_cap, m_cap2=m_cap2)
+            init, dense_step, m_cap=m_cap, m_cap2=m_cap2, L=2,
+            m_pad=max(8, self.s // resolve_div))
         tovf = 0
         if self.with_lcp:
             lcp, tovf = self._run(_lcp_tiefix, lcp, sa, eos, 6)

@@ -65,6 +65,7 @@ from psac_tpu_torch.parallel.sort import (dist_sort_local, lex_perm,
 from psac_tpu_torch.parallel.staging import (stage_bytes_block,
                                              stage_file_block,
                                              staged_histogram)
+from psac_tpu_torch.utils import timers
 from psac_tpu_torch.utils.timers import SectionTimer, timers_enabled
 
 
@@ -115,6 +116,12 @@ def host_tensor(x) -> torch.Tensor:
     return x.gather() if isinstance(x, Sharded) else x.cpu()
 
 
+def device_of(x):
+    """A tensor's device; None for a ``Sharded`` array (spans opened in a
+    mesh's calling thread carry no device time)."""
+    return None if isinstance(x, Sharded) else x.device
+
+
 @dataclasses.dataclass
 class DeviceSuffixArray:
     """Device-resident result.  ``sa``/``lcp``/``isa`` are (N,) padded: the
@@ -152,13 +159,19 @@ class DeviceSuffixArray:
                    n=n, N=N, mesh=mesh)
 
     def materialize(self) -> SuffixArray:
-        sa = host_tensor(self.sa)[self.N - self.n:].numpy().astype(np.int64)
-        lcp = None
-        if self.lcp is not None:
-            lcp = host_tensor(self.lcp)[self.N - self.n:].numpy() \
-                .astype(np.int64)
-            if self.n > 0:
-                lcp[0] = 0
+        dev = device_of(self.sa)
+        with timers.call("psac.materialize", dev, n=self.n):
+            with timers.span("psac.materialize.copy", dev):
+                sa = host_tensor(self.sa)
+                lcp = None if self.lcp is None else host_tensor(self.lcp)
+                timers.readback(1 if lcp is None else 2)
+            with timers.span("psac.materialize.widen"):
+                cut = self.N - self.n
+                sa = sa[cut:].numpy().astype(np.int64)
+                if lcp is not None:
+                    lcp = lcp[cut:].numpy().astype(np.int64)
+                    if self.n > 0:
+                        lcp[0] = 0
         return SuffixArray(sa=sa, lcp=lcp, alphabet=self.alphabet, n=self.n)
 
 
@@ -177,8 +190,10 @@ def resolve_packing(s: int, Lm: int, inf: int) -> str:
 
 def _read(*scalars) -> list[int]:
     """One device -> host readback of several 0-d tensors."""
-    return [int(v) for v in torch.stack([s.to(torch.int64)
-                                         for s in scalars]).tolist()]
+    out = [int(v) for v in torch.stack([s.to(torch.int64)
+                                        for s in scalars]).tolist()]
+    timers.readback()
+    return out
 
 
 class _Builder:
@@ -343,11 +358,12 @@ class _Builder:
         """The host-driven loop's LCP resolve of a doubling step's ``nq``
         queries: K6 on one device; on a mesh a compaction by one
         distributed sort, then the routed resolve (``resolve_with_retry``)."""
-        if self.mesh is None:
-            return self._resolve_fused_local(
-                lcp, q, d, m_pad=min(pow2ceil(nq), self.N), L=2, nq=nq)
-        return resolve_with_retry(self, self._cap(max(pow2ceil(nq), self.p)),
-                                  lcp, q, d)
+        with timers.span("psac.construct.resolve", self.device, d=d, nq=nq):
+            if self.mesh is None:
+                return self._resolve_fused_local(
+                    lcp, q, d, m_pad=min(pow2ceil(nq), self.N), L=2, nq=nq)
+            return resolve_with_retry(
+                self, self._cap(max(pow2ceil(nq), self.p)), lcp, q, d)
 
     # ---------------- LCP resolve (K6: range minima, written back) -------
 
@@ -573,12 +589,22 @@ class _Builder:
                    max_iters: int):
         it = 0
         while tue > stop and it < max_iters:
-            cbufs, isa, sa, lcp, ue = self._tail_step_local(
-                cbufs, isa, sa, lcp, d)
+            with timers.span("psac.construct.tail", self.device, op="step",
+                             d=d) as sp:
+                cbufs, isa, sa, lcp, ue = self._tail_step_local(
+                    cbufs, isa, sa, lcp, d)
+                (tue,) = _read(ue)
+                sp.set(ue=tue)
             d = min(d * 2, self.N)
             it += 1
-            (tue,) = _read(ue)
         return cbufs, isa, sa, lcp, d, tue
+
+    def _tail_enter_span(self, sa, brow, active, m_cap: int, ue: int,
+                         extra: tuple = ()):
+        """``_tail_enter_local`` in a tail span."""
+        with timers.span("psac.construct.tail", self.device, op="enter",
+                         ue=ue, cap=m_cap):
+            return self._tail_enter_local(sa, brow, active, m_cap, extra)
 
     # ---------------- host-driven loop ----------------
 
@@ -603,12 +629,15 @@ class _Builder:
             if 0 < ue <= tail_limit:
                 # the active count is ue from the last rebucket: no readback
                 m_cap = self._cap(max(8 * self.p, pow2ceil(ue)))
-                cbufs = self._tail_enter_local(sa, brow, active, m_cap)
+                cbufs = self._tail_enter_span(sa, brow, active, m_cap, ue)
                 timer.end_section(f"tail-enter ({ue} active, cap {m_cap})")
                 while True:
-                    cbufs, isa, sa, lcp, tue = self._tail_step_local(
-                        cbufs, isa, sa, lcp, d)
-                    (ue,) = _read(tue)
+                    with timers.span("psac.construct.tail", self.device,
+                                     op="step", d=d) as sp:
+                        cbufs, isa, sa, lcp, tue = self._tail_step_local(
+                            cbufs, isa, sa, lcp, d)
+                        (ue,) = _read(tue)
+                        sp.set(ue=ue)
                     timer.end_section(f"tail-step d={d}")
                     timer.info(f"d={d}: tail unfinished elements={ue}")
                     d *= 2
@@ -617,62 +646,69 @@ class _Builder:
                     if d >= 4 * N:
                         raise AssertionError("tail failed to converge")
                 break
-            isa, sa, lcp, q, brow, active, counts = self._stepL_local(
-                isa, lcp, d, L)
-            if lcp is None:
-                ub, ue = _read(*counts)
-                timer.end_section(f"{name} d={d}")
-            else:
-                ub, ue, nq = _read(*counts, q["nq"])
-                timer.end_section(f"{name} d={d}")
-                if nq > 0:
-                    lcp = self._host_resolve(lcp, q, d, nq)
-                    timer.end_section(f"lcp-resolve d={d} ({nq} queries)")
+            with timers.span("psac.construct.dense", self.device, d=d) as sp:
+                isa, sa, lcp, q, brow, active, counts = self._stepL_local(
+                    isa, lcp, d, L)
+                ub, ue, nq = self._dense_read(q, counts)
+                sp.set(nq=nq)
+            timer.end_section(f"{name} d={d}")
+            if nq > 0:
+                lcp = self._host_resolve(lcp, q, d, nq)
+                timer.end_section(f"lcp-resolve d={d} ({nq} queries)")
             timer.info(f"d={d}: unfinished buckets={ub} elements={ue}")
             d *= L
         return isa, sa, lcp
 
     # ---------------- fused construction ----------------
 
-    def _dense_resolve(self, lcp, q, counts, d: int, *, m_pad: int, L: int):
-        """Read the step's counters back (with the query count the resolve
-        needs, in the same readback) and resolve the LCP queries.  Returns
-        (lcp, ub, ue)."""
+    def _dense_read(self, q, counts) -> tuple[int, int, int]:
+        """A dense step's one readback: (ub, ue) and, with the LCP, the
+        query count the resolve needs (0 without)."""
         if not self.with_lcp:
-            return (None, *_read(*counts))
-        ub, ue, nq = _read(*counts, q["nq"])
-        lcp = self._resolve_fused_local(lcp, q, d, m_pad=m_pad, L=L, nq=nq)
-        return lcp, ub, ue
+            return (*_read(*counts), 0)
+        return tuple(_read(*counts, q["nq"]))
+
+    def _dense_resolve(self, lcp, q, d: int, nq: int, *, m_pad: int,
+                       L: int):
+        """The fused path's LCP resolve of a dense step's ``nq`` queries
+        (None without the LCP)."""
+        if lcp is None:
+            return None
+        with timers.span("psac.construct.resolve", self.device, d=d, nq=nq):
+            return self._resolve_fused_local(lcp, q, d, m_pad=m_pad, L=L,
+                                             nq=nq)
 
     def fused_full(self, codes, n_real: int, *, m_cap: int, m_cap2: int,
                    factor: int, resolve_div: int):
         """init -> dense L-pling loop -> two-stage sparse tail (see
         ``_fused_drive``).  Returns (isa, sa, lcp, brow, active, stats)."""
-        m_pad = max(8, self.s // resolve_div)
-        isa, sa, lcp, brow, active, counts = self._init_local(codes, n_real)
+
+        def init():
+            isa, sa, lcp, brow, active, counts = self._init_local(codes,
+                                                                  n_real)
+            return isa, sa, lcp, brow, active, (), counts
 
         def dense_step(isa, lcp, extra, d):
             isa, sa, lcp, q, brow, active, counts = self._stepL_local(
                 isa, lcp, d, L=factor)
-            lcp, ub, ue = self._dense_resolve(lcp, q, counts, d, m_pad=m_pad,
-                                              L=factor)
-            return isa, sa, lcp, brow, active, (), ub, ue, d * factor
+            return isa, sa, lcp, q, brow, active, (), counts
 
         isa, sa, lcp, brow, active, _, stats = self._fused_drive(
-            (isa, sa, lcp, brow, active, (), *_read(*counts)), dense_step,
-            m_cap=m_cap, m_cap2=m_cap2)
+            init, dense_step, m_cap=m_cap, m_cap2=m_cap2, L=factor,
+            m_pad=max(8, self.s // resolve_div))
         return isa, sa, lcp, brow, active, stats
 
-    def _fused_drive(self, init_outs, dense_step, *, m_cap: int,
-                     m_cap2: int):
+    def _fused_drive(self, init, dense_step, *, m_cap: int, m_cap2: int,
+                     L: int, m_pad: int):
         """Shared orchestration of the SA and GSA constructions.
 
-        ``init_outs`` = (isa, sa, lcp | None, brow, active, extra, ub, ue)
-        with ``extra`` the per-SA-row companions the tail entry needs (GSA:
-        the row-aligned end-of-string bound) and ub, ue host integers.
-        ``dense_step(isa, lcp, extra, d)`` runs one dense iteration with
-        its LCP resolve and returns (isa, sa, lcp, brow, active, extra, ub,
-        ue, d_next).
+        ``init()`` runs the k-mer init and returns (isa, sa, lcp | None,
+        brow, active, extra, counts) with ``extra`` the per-SA-row
+        companions the tail entry needs (GSA: the row-aligned end-of-string
+        bound) and ``counts`` the (ub, ue) tensors.  ``dense_step(isa, lcp,
+        extra, d)`` runs one dense L-pling step and returns (isa, sa, lcp,
+        q, brow, active, extra, counts); the drive reads the counters back
+        and resolves the step's LCP queries (chunk ``m_pad``).
 
         The dense loop hands over once the active set fits ``m_cap``; the
         tail enters at ``m_cap`` and recompacts to ``m_cap2`` once the
@@ -682,26 +718,38 @@ class _Builder:
         dense loop reached: where it stopped at its iteration bound with
         work left (not tail_ran, ue > 0), the host-driven loop resumes from
         this state."""
-        isa, sa, lcp, brow, active, extra, ub, ue = init_outs
+        dev = self.device
+        with timers.span("psac.construct.init", dev):
+            isa, sa, lcp, brow, active, extra, counts = init()
+            ub, ue = _read(*counts)
         d = sum(self.ks)
         max_iters = fused_max_iters(self.N)
         it = 0
         while ub > 0 and ue > m_cap and it < max_iters:
-            isa, sa, lcp, brow, active, extra, ub, ue, d = dense_step(
-                isa, lcp, extra, d)
+            with timers.span("psac.construct.dense", dev, d=d) as sp:
+                isa, sa, lcp, q, brow, active, extra, counts = dense_step(
+                    isa, lcp, extra, d)
+                ub, ue, nq = self._dense_read(q, counts)
+                sp.set(nq=nq)
+            lcp = self._dense_resolve(lcp, q, d, nq, m_pad=m_pad, L=L)
+            del q  # N-long query buffers, freed before the next step
+            d *= L
             it += 1
 
         fits = 0 < ue <= m_cap
         if fits:
             dt = d
             if ue > m_cap2:
-                cbufs = self._tail_enter_local(sa, brow, active, m_cap, extra)
+                cbufs = self._tail_enter_span(sa, brow, active, m_cap, ue,
+                                              extra)
                 cbufs, isa, sa, lcp, dt, tue = self._tail_loop(
                     cbufs, isa, sa, lcp, dt, ue, m_cap2, max_iters)
-                cbufs = self._tail_recompact_local(cbufs, m_cap2)
+                with timers.span("psac.construct.tail", dev, op="recompact",
+                                 ue=tue, cap=m_cap2):
+                    cbufs = self._tail_recompact_local(cbufs, m_cap2)
             else:
-                cbufs = self._tail_enter_local(sa, brow, active, m_cap2,
-                                               extra)
+                cbufs = self._tail_enter_span(sa, brow, active, m_cap2, ue,
+                                              extra)
                 tue = ue
             _, isa, sa, lcp, dt, ue = self._tail_loop(
                 cbufs, isa, sa, lcp, dt, tue, 0, max_iters)
@@ -762,11 +810,18 @@ def _decode_staged(xb: torch.Tensor, alpha: Alphabet) -> torch.Tensor:
     return mapping[xb.to(torch.int32)]
 
 
-def _decode_shards(xb: Sharded, n: int, N: int, mesh):
-    """Staged bytes on a mesh -> (xs, alpha): the alphabet from the
-    histogram summed over every shard, each block decoded on its device."""
-    alpha = Alphabet.from_hist(staged_histogram(xb, mesh), pad_zeros=N - n)
-    return xb.map(lambda t: _decode_staged(t, alpha)), alpha
+def _count_and_decode(xb, n: int, N: int, mesh=None):
+    """Staged bytes -> (xs, alpha): the alphabet from the byte histogram
+    counted on the bytes' device (summed over every shard on a mesh), then
+    each block decoded on its device."""
+    dev = device_of(xb)
+    with timers.span("psac.stage.count", dev):
+        alpha = Alphabet.from_hist(staged_histogram(xb, mesh),
+                                   pad_zeros=N - n)
+    with timers.span("psac.stage.decode", dev):
+        if isinstance(xb, Sharded):
+            return xb.map(lambda t: _decode_staged(t, alpha)), alpha
+        return _decode_staged(xb, alpha), alpha
 
 
 def encode_and_shard(text, device=None, mesh=None):
@@ -785,15 +840,16 @@ def encode_and_shard(text, device=None, mesh=None):
     device = "cpu" if p > 1 else cfg_mod.resolve_device(device)
     if len(text) >= (1 << 40):
         raise ValueError(f"text too large: {len(text)} (2^40 char ceiling)")
+    with timers.call("psac.stage", device if p == 1 else None,
+                     n=len(text)):
+        return _encode(text, device, mesh, p)
+
+
+def _encode(text, device, mesh, p: int):
     if isinstance(text, (bytes, bytearray)) or \
             np.asarray(text).dtype == np.uint8:
-        if p > 1:
-            xb, n, N = stage_bytes_block(text, mesh)
-            xs, alpha = _decode_shards(xb, n, N, mesh)
-            return xs, alpha, n, N
-        xb, n, N = stage_bytes_block(text, device)
-        alpha = Alphabet.from_hist(staged_histogram(xb), pad_zeros=N - n)
-        xs = _decode_staged(xb, alpha)
+        xb, n, N = stage_bytes_block(text, mesh if p > 1 else device)
+        xs, alpha = _count_and_decode(xb, n, N, mesh if p > 1 else None)
     else:
         alpha = IntAlphabet.from_array(text)
         codes = alpha.encode(text)
@@ -811,15 +867,15 @@ def encode_and_shard_file(path: str, device=None, mesh=None):
     (one read) or over ``mesh``, where each process reads only its own
     shards' byte ranges (``parallel.staging``), and the alphabet counted
     there.  Returns (xs, alpha, n, N)."""
-    if mesh is not None and mesh.p > 1:
-        xb, n, N = stage_file_block(path, mesh)
-        xs, alpha = _decode_shards(xb, n, N, mesh)
-        return xs, alpha, n, N
-    if mesh is not None:
+    if mesh is not None and mesh.p == 1:
         device = mesh.devices[0]
-    xb, n, N = stage_file_block(path, cfg_mod.resolve_device(device))
-    alpha = Alphabet.from_hist(staged_histogram(xb), pad_zeros=N - n)
-    return _decode_staged(xb, alpha), alpha, n, N
+    sharded = mesh is not None and mesh.p > 1
+    if not sharded:
+        device = cfg_mod.resolve_device(device)
+    with timers.call("psac.stage", None if sharded else device):
+        xb, n, N = stage_file_block(path, mesh if sharded else device)
+        xs, alpha = _count_and_decode(xb, n, N, mesh if sharded else None)
+        return xs, alpha, n, N
 
 
 def construct_device(xs, alpha, n: int, N: int,
@@ -831,6 +887,11 @@ def construct_device(xs, alpha, n: int, N: int,
     with ``PSAC_TIMER=1`` each phase prints a ``[timer] [construct]`` line,
     and ``LAST_BUILD`` records which driver ran, the host-loop iterations
     and p.  The drivers run in the caller's thread at any p."""
+    with timers.call("psac.construct", device_of(xs), n=n, N=N):
+        return _construct(xs, alpha, n, N, config, mesh)
+
+
+def _construct(xs, alpha, n: int, N: int, config: cfg_mod.SAConfig, mesh):
     ks = kmer_words_for(alpha.bits_per_char, config)
     k = sum(ks)
     idt = index_dtype_for(N, config)
@@ -846,7 +907,7 @@ def construct_device(xs, alpha, n: int, N: int,
         mesh, device = None, xs.device
     b = _Builder(N, ks, alpha.bits_per_char, config.construct_lcp, idt,
                  device, pack=pack, mesh=mesh)
-    timer = SectionTimer(label="construct")
+    timer = SectionTimer(label="construct", device=device)
     d = k
     if config.fused:
         m_cap2 = b._cap(max(8 * b.p, min(N, pow2ceil(max(256, N // 1024)))))
@@ -873,8 +934,9 @@ def construct_device(xs, alpha, n: int, N: int,
             d = max(d, d_out)
         LAST_BUILD.update(fused=True, host_iters=0, p=b.p, n=n, N=N)
     else:
-        isa, sa, lcp, brow, active, counts = b._init_local(xs, n)
-        ub, ue = _read(*counts)
+        with timers.span("psac.construct.init", device):
+            isa, sa, lcp, brow, active, counts = b._init_local(xs, n)
+            ub, ue = _read(*counts)
         timer.end_section(f"kmer-init (k={k})")
         timer.info(f"n={n} N={N} p={b.p} unfinished buckets={ub} "
                    f"elements={ue}")

@@ -22,7 +22,9 @@ The generalized suffix tree of a string set (``construct_gst_device``,
 child-id range of the node's ``$``-edges, slot c+1 the char-c edge, and
 edges at root depth are not recorded.  It is one shard function
 (``_gst``) for every p, as the tree's (``_st``), with the same capscale
-retry.
+retry.  A build's spans: ``psac.st`` (the call) > ``psac.st.ansv`` (the
+ANSV pass and its input), ``psac.st.nodes`` (the edges, the character
+gather, the table's scatter and the overflow readback).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 
 from psac_tpu_torch.config import SAConfig
 from psac_tpu_torch.models.suffix_array import (DeviceSuffixArray,
-                                                construct_device,
+                                                construct_device, device_of,
                                                 encode_and_shard, host_tensor)
 from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_SM
 from psac_tpu_torch.parallel.ansv import (KERNELS, AnsvKernels, ansv_local,
@@ -44,6 +46,7 @@ from psac_tpu_torch.parallel.collectives import (global_index_base,
 from psac_tpu_torch.parallel.mesh import Rep, num_shards, run_on
 from psac_tpu_torch.parallel.route import (cap_for, gather_global,
                                            route_scatter)
+from psac_tpu_torch.utils import timers
 
 
 @dataclasses.dataclass
@@ -69,28 +72,37 @@ def _check_local_table(N: int, width: int, idt: torch.dtype) -> None:
             f"int32 build; use force_int64 (or more shards)")
 
 
-def _parent_edges(ctx, lcp, sa, n: int, capscale, kernels: AnsvKernels):
-    """``for_each_parent`` on this shard's rows (JAX ``_parent_edges``):
-    per-edge (parents, childs, elcp, savals, valid), each of length 2s
-    (leaf edges, then internal-node edges), and the ANSV's overflow count
-    (0 on one device, whose ANSV engines route nothing)."""
-    idt = lcp.dtype
-    inf = nonsv_for(idt)
-    s = lcp.shape[0]
-    off = s * (1 if ctx is None else ctx.p) - n
-    base = global_index_base(s, ctx)
-    g = torch.arange(base, base + s, dtype=idt, device=lcp.device)
-    is_real = g >= off
-    lcp_adj = torch.where(is_real, lcp, -1)
-    lcp_adj = torch.where(g == off, 0, lcp_adj)
+def _parent_nsv(ctx, lcp, n: int, capscale, kernels: AnsvKernels):
+    """The ANSV pass of ``for_each_parent`` on this shard's rows, in a
+    ``psac.st.ansv`` span: the LCP with padding rows at -1 (``lcp_adj``),
+    the rows' global indices, the offset of the first real row, the real
+    rows' mask, the (FURTHEST_EQ left, NEAREST_SM right) answers and the
+    pass's overflow count (0 on one device, whose ANSV engines route
+    nothing)."""
+    with timers.span("psac.st.ansv", lcp.device):
+        idt = lcp.dtype
+        s = lcp.shape[0]
+        off = s * (1 if ctx is None else ctx.p) - n
+        base = global_index_base(s, ctx)
+        g = torch.arange(base, base + s, dtype=idt, device=lcp.device)
+        is_real = g >= off
+        lcp_adj = torch.where(is_real, lcp, -1)
+        lcp_adj = torch.where(g == off, 0, lcp_adj)
+        if ctx is None:
+            ans = ansv_local(lcp_adj, FURTHEST_EQ, NEAREST_SM, kernels)
+            ovf = 0
+        else:
+            *ans, ovf = ansv_mesh_local(ctx, lcp_adj, FURTHEST_EQ,
+                                        NEAREST_SM, capscale, kernels)
+        return lcp_adj, g, off, is_real, tuple(ans), ovf
 
-    if ctx is None:
-        lidx, lval, ridx, rval = ansv_local(lcp_adj, FURTHEST_EQ, NEAREST_SM,
-                                            kernels)
-        ovf = 0
-    else:
-        lidx, lval, ridx, rval, ovf = ansv_mesh_local(
-            ctx, lcp_adj, FURTHEST_EQ, NEAREST_SM, capscale, kernels)
+
+def _parent_edges(ctx, nsv, sa, n: int):
+    """``for_each_parent`` on this shard's rows (JAX ``_parent_edges``)
+    from ``_parent_nsv``'s pass: per-edge (parents, childs, elcp, savals,
+    valid), each of length 2s (leaf edges, then internal-node edges)."""
+    lcp_adj, g, off, is_real, (lidx, lval, ridx, rval), _ = nsv
+    inf = nonsv_for(lcp_adj.dtype)
     # the globally last element always takes the left case (fill 0 <= lcp)
     lcp_next = next_of(lcp_adj, 0, ctx)
 
@@ -112,29 +124,34 @@ def _parent_edges(ctx, lcp, sa, n: int, capscale, kernels: AnsvKernels):
             torch.cat([leaf_child, int_child]),
             torch.cat([leaf_elcp, int_elcp]),
             torch.cat([sa, sa]),
-            torch.cat([is_real, int_valid]), ovf)
+            torch.cat([is_real, int_valid]))
 
 
 def _st(ctx, lcp, sa, xs, n: int, sigma: int, capscale, kernels):
     """This shard's (s * (sigma+1),) rows of the node table, and the
     replicated overflow count of its routing (JAX ``_st_local``)."""
     p = 1 if ctx is None else ctx.p
-    parents, childs, elcp, savals, valid, ovf = _parent_edges(
-        ctx, lcp, sa, n, capscale, kernels)
-    # first character of each edge (slot 0 past the end of the text)
-    char_idx = savals + elcp
-    dollar = char_idx >= n
-    ch, ovf_g = gather_global(xs, char_idx, valid & ~dollar, ctx=ctx,
-                              cap=cap_for(char_idx.shape[0], p, capscale),
-                              with_overflow=True)
-    width = sigma + 1
-    nodes = torch.zeros(lcp.shape[0] * width, dtype=lcp.dtype,
-                        device=lcp.device)
-    (nodes,), ovf_s = route_scatter(
-        parents, (childs,), (nodes,), valid, width=width,
-        slots=torch.where(dollar, 0, ch), ctx=ctx,
-        cap=cap_for(parents.shape[0], p, capscale), with_overflow=True)
-    return nodes, Rep(int(ovf + ovf_g + ovf_s))
+    nsv = _parent_nsv(ctx, lcp, n, capscale, kernels)
+    with timers.span("psac.st.nodes", lcp.device):
+        parents, childs, elcp, savals, valid = _parent_edges(ctx, nsv, sa, n)
+        ovf = nsv[-1]
+        del nsv  # the ANSV's arrays, freed before the gather and scatter
+        # first character of each edge (slot 0 past the end of the text)
+        char_idx = savals + elcp
+        dollar = char_idx >= n
+        ch, ovf_g = gather_global(xs, char_idx, valid & ~dollar, ctx=ctx,
+                                  cap=cap_for(char_idx.shape[0], p, capscale),
+                                  with_overflow=True)
+        width = sigma + 1
+        nodes = torch.zeros(lcp.shape[0] * width, dtype=lcp.dtype,
+                            device=lcp.device)
+        (nodes,), ovf_s = route_scatter(
+            parents, (childs,), (nodes,), valid, width=width,
+            slots=torch.where(dollar, 0, ch), ctx=ctx,
+            cap=cap_for(parents.shape[0], p, capscale), with_overflow=True)
+        ovf = int(ovf + ovf_g + ovf_s)
+        timers.readback()
+    return nodes, Rep(ovf)
 
 
 def construct_suffix_tree_device(dsa: DeviceSuffixArray, xs,
@@ -159,11 +176,12 @@ def _st_local(dsa: DeviceSuffixArray, xs, kernels: AnsvKernels,
         mesh = None
     sigma = dsa.alphabet.sigma
     _check_local_table(dsa.N // num_shards(mesh), sigma + 1, dsa.sa.dtype)
-    for capscale in (6, None):
-        nodes, ovf = run_on(mesh, _st, dsa.lcp, dsa.sa, xs, dsa.n, sigma,
-                            capscale, kernels)
-        if capscale is None or ovf == 0:
-            break
+    with timers.call("psac.st", device_of(dsa.lcp), n=dsa.n):
+        for capscale in (6, None):
+            nodes, ovf = run_on(mesh, _st, dsa.lcp, dsa.sa, xs, dsa.n, sigma,
+                                capscale, kernels)
+            if capscale is None or ovf == 0:
+                break
     return DeviceSuffixTree(nodes=nodes, sigma=sigma, n=dsa.n, N=dsa.N)
 
 
@@ -186,8 +204,10 @@ def _gst(ctx, lcp, sa, xs, eos, n: int, sigma: int, capscale, kernels):
     s, idt = lcp.shape[0], lcp.dtype
     width = sigma + 2
     inf = torch.iinfo(idt).max
-    parents, childs, elcp, savals, valid, ovf = _parent_edges(
-        ctx, lcp, sa, n, capscale, kernels)
+    nsv = _parent_nsv(ctx, lcp, n, capscale, kernels)
+    parents, childs, elcp, savals, valid = _parent_edges(ctx, nsv, sa, n)
+    ovf = nsv[-1]
+    del nsv  # the ANSV's arrays, freed before the gathers and scatters
     # ``$``-edge test without an eos[SA[i]] gather: every recorded edge has
     # depth elcp >= 1 and elcp <= eos[SA[i]] - SA[i], so SA[i] + elcp lies
     # in (SA[i], eos[SA[i]]]: inside SA[i]'s own string unless it IS the

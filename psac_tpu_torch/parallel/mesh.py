@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from psac_tpu_torch.parallel import dist as dist_mod
+from psac_tpu_torch.utils import timers
 
 
 def padded_size(n: int, p: int = 1, multiple: int = 8) -> int:
@@ -515,9 +516,11 @@ class Mesh:
             job = jobs.get()
             if job is None:
                 return
-            fn, args = job
+            fn, args, span = job
             try:
-                out = (True, fn(ctx, *args))
+                # the caller's open span: this shard's spans nest under it
+                with timers.adopt(span, ctx.rank):
+                    out = (True, fn(ctx, *args))
             except BaseException as e:  # noqa: BLE001 - handed to the caller
                 self._group.abort()
                 out = (False, e)
@@ -549,10 +552,11 @@ class Mesh:
                 self._fail(e)
                 raise
             return _from_locals([out], self.first, self.p)
+        span = timers.current()
         with self._lock:
             self._start()
             for r in range(self.local):
-                self._jobs[r].put((fn, _to_local(args, r)))
+                self._jobs[r].put((fn, _to_local(args, r), span))
             results = [None] * self.local
             for _ in range(self.local):
                 local, out = self._done.get()

@@ -10,7 +10,9 @@ is one read and one upload.  On a mesh (``stage_file_block(path, mesh)``)
 each shard gets its block of N, and each process reads only its own
 shards' byte ranges, so no process holds the whole input; the histogram is
 each shard's ``bincount`` summed over the whole mesh (a ``psum``), the
-same on every process.
+same on every process.  The spans ``psac.stage.copy`` (the host copy of
+read-only bytes) and ``psac.stage.upload`` (the upload into the zeroed
+buffer) time the two halves of staging on one device.
 """
 
 from __future__ import annotations
@@ -23,16 +25,19 @@ import torch
 from psac_tpu_torch.parallel.collectives import psum
 from psac_tpu_torch.parallel.mesh import Mesh, Rep, Sharded, padded_size, \
     run_on
+from psac_tpu_torch.utils import timers
 
 
 def _stage(buf: np.ndarray, device):
     n = len(buf)
     N = padded_size(max(n, 1), 1, multiple=8)
-    xb = torch.zeros(N, dtype=torch.uint8, device=device)
-    if n:
+    with timers.span("psac.stage.copy"):
         # torch.from_numpy wants a writable array (bytes give a read-only one)
-        host = buf if buf.flags.writeable else buf.copy()
-        xb[:n] = torch.from_numpy(host).to(device)
+        host = buf if buf.flags.writeable or not n else buf.copy()
+    with timers.span("psac.stage.upload", device):
+        xb = torch.zeros(N, dtype=torch.uint8, device=device)
+        if n:
+            xb[:n] = torch.from_numpy(host).to(device)
     return xb, n, N
 
 
@@ -43,13 +48,14 @@ def _stage_blocks(read_range, n: int, mesh: Mesh):
     N = padded_size(max(n, 1), mesh.p, multiple=8)
     s = N // mesh.p
     blocks = []
-    for r, dev in enumerate(mesh.devices):
-        lo = (mesh.first + r) * s
-        out = np.zeros(s, np.uint8)
-        m = max(0, min(lo + s, n) - lo)
-        if m:
-            out[:m] = read_range(lo, m)
-        blocks.append(torch.from_numpy(out).to(dev))
+    with timers.span("psac.stage.upload"):
+        for r, dev in enumerate(mesh.devices):
+            lo = (mesh.first + r) * s
+            out = np.zeros(s, np.uint8)
+            m = max(0, min(lo + s, n) - lo)
+            if m:
+                out[:m] = read_range(lo, m)
+            blocks.append(torch.from_numpy(out).to(dev))
     return Sharded(blocks, mesh.first, mesh.p), n, N
 
 
@@ -95,4 +101,6 @@ def staged_histogram(xb, mesh=None) -> np.ndarray:
     """(256,) int64 byte histogram of staged uint8 bytes, counted on their
     device, or on each shard of ``mesh`` and summed over all of them (the
     zero count includes the padding)."""
-    return run_on(mesh, _hist, xb).cpu().numpy().astype(np.int64)
+    hist = run_on(mesh, _hist, xb).cpu()
+    timers.readback()
+    return hist.numpy().astype(np.int64)
