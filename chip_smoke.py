@@ -1155,12 +1155,13 @@ def desa_phase(dev, text: bytes, sa_ref: np.ndarray, batch: int,
     from psac_tpu_torch.ops.bansv import block_psv
     from psac_tpu_torch.ops.blind_search import blind_search
     from psac_tpu_torch.ops.nsv_scan import nsv_scan_left
+    from psac_tpu_torch.ops.pattern_pack import pattern_pack
     from psac_tpu_torch.parallel.ansv import PLAIN
     from psac_tpu_torch.seq import SAIndex
 
     n = len(text)
     reset, read = counter((block_psv, nsv_scan_left))
-    reset_k7, read_k7 = counter((blind_search,))
+    reset_k7, read_k7 = counter((blind_search, pattern_pack))
     out = {}
     idx = {}
     for tli in ("tllt", "tldt"):
@@ -1213,10 +1214,15 @@ def desa_phase(dev, text: bytes, sa_ref: np.ndarray, batch: int,
         mat = np.concatenate([sub, rnd])
         pats = [row.tobytes() for row in mat]
         res = {}
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         idx["tllt"].encode_patterns(pats)
-        log(f"[desa] host encoding of {batch} x len {L} patterns "
-            f"(DESA.encode_patterns): {time.perf_counter() - t0:.3f} s")
+        torch.cuda.synchronize()
+        log(f"[desa] encoding of {batch} x len {L} patterns "
+            f"(DESA.encode_patterns: the host's join and offsets, two "
+            f"uploads, K11): {time.perf_counter() - t0:.4f} s")
+        if L == 20:
+            k11_pats = pats
         for tli, d in idx.items():
             d.bulk_locate(pats)  # warm-up at this shape
             reset_k7()
@@ -1270,7 +1276,82 @@ def desa_phase(dev, text: bytes, sa_ref: np.ndarray, batch: int,
             f"{min(batch, 1024)} == SAIndex")
     log(f"[desa] on {card}")
     check_k7(k7_calls, card, kern)
+    check_k11(idx["tllt"], k11_pats, card, kern)
     return out, ref
+
+
+def k11_bound(flat, offs, lmax: int) -> dict:
+    """K11's bound: each pattern byte, each offset and the byte table read
+    once, and the code matrix, the lengths and the bad flags written once;
+    one comparison a code."""
+    B = offs.shape[0] - 1
+    return bound(flat.nbytes + offs.nbytes + 256 + B * (4 * lmax + 4 + 1),
+                 B * lmax)
+
+
+def check_k11(desa, pats: list, card: str, kern: dict) -> None:
+    """K11 against its plain version on the main path's batch of 65,536
+    patterns of length 20 (Lmax 32), from the bytes and offsets that
+    ``DESA.encode_patterns`` uploads, timed both ways; and the encoding's
+    phases on the host clock (each ended by a synchronise): the join and
+    the offsets, the two uploads, K11.  The kernel's time is that of a
+    CUDA graph of 20 calls, replayed: calls back to back wait on the
+    wrapper's host path (three allocations and the ctypes call, some 40
+    us), not on the card."""
+    import torch
+
+    from psac_tpu_torch.models.desa import _joined
+    from psac_tpu_torch.ops.bitops import pow2ceil
+    from psac_tpu_torch.ops.pattern_pack import (pattern_pack,
+                                                 pattern_pack_plain)
+
+    dev = desa.xs.device
+    walls = {}
+
+    def phase(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return got
+
+    def host():
+        lens = np.fromiter(map(len, pats), np.int64, len(pats))
+        offs = np.zeros(len(pats) + 1, np.int64)
+        np.cumsum(lens, out=offs[1:])
+        return _joined(pats), offs, pow2ceil(max(2, int(lens.max())))
+
+    flat, offs, lmax = phase("host", host)
+    flat, offs = phase("upload", lambda: (torch.from_numpy(flat).to(dev),
+                                          torch.from_numpy(offs).to(dev)))
+    table = desa._code_table
+    got = phase("k11", lambda: pattern_pack(flat, offs, table, lmax))
+    err = max_abs_err(tuple(t.cpu() for t in got),
+                      pattern_pack_plain(flat.cpu(), offs.cpu(), table.cpu(),
+                                         lmax))
+    b = k11_bound(flat, offs, lmax)
+    call_ms = cuda_ms(lambda: pattern_pack(flat, offs, table, lmax), 50)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(20):
+            captured = pattern_pack(flat, offs, table, lmax)
+    ms = cuda_ms(graph.replay, 10) / 20
+    err = max(err, max_abs_err(tuple(t.cpu() for t in captured),
+                               tuple(t.cpu() for t in got)))
+    plain_ms = cuda_ms(lambda: pattern_pack_plain(flat, offs, table, lmax), 5)
+    log(f"[k11] pattern_pack, {len(pats)} x len {len(pats[0])} (Lmax {lmax}, "
+        f"{flat.shape[0]} bytes): == plain (max abs err {err}); kernel "
+        f"{ms:.4f} ms (a graph's replays; calls back to back {call_ms:.4f} "
+        f"ms), plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}, {100 * b['bound_ms'] / ms:.2f}% reached); "
+        f"encoding walls (synchronised): host join and offsets "
+        f"{1e3 * walls['host']:.3f} ms, uploads {1e3 * walls['upload']:.3f} "
+        f"ms, K11 launch to done {1e3 * walls['k11']:.3f} ms on {card}")
+    kern["pattern_pack"] = dict(
+        route="cuda", source="psac_tpu_torch/csrc/pattern_pack.cu",
+        replaces="psac_tpu/models/desa.py:177", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, **b)
 
 
 def k7_reads(args, got) -> dict:

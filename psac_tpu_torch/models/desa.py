@@ -66,6 +66,7 @@ from psac_tpu_torch.ops.alphabet import Alphabet
 from psac_tpu_torch.ops.ansv import NEAREST_SM
 from psac_tpu_torch.ops.bitops import pow2ceil
 from psac_tpu_torch.ops.blind_search import blind_search
+from psac_tpu_torch.ops.pattern_pack import pattern_pack
 from psac_tpu_torch.ops.rmq import ArgLocalRMQ, block_size_for, build_arg_rmq
 from psac_tpu_torch.parallel.ansv import (KERNELS, AnsvKernels, ansv_local,
                                           ansv_mesh_local, nonsv_for)
@@ -82,11 +83,18 @@ from psac_tpu_torch.utils.timers import timers_enabled
 _MAX_LEN_GROUPS = 3
 
 
+def _tier(n: int) -> int:
+    """The padded width of a pattern of length ``n``."""
+    return pow2ceil(max(2, int(n)))
+
+
 def _length_groups(lens: np.ndarray,
                    max_groups: int = _MAX_LEN_GROUPS) -> list:
     """Partition pattern indices into <= ``max_groups`` contiguous
     pow2-length tiers, minimizing the total padded code volume
     sum_g(count_g * Lmax_g) by exact DP over the (few) distinct tiers."""
+    if len(lens) == 0 or _tier(lens.min()) == _tier(lens.max()):
+        return [np.arange(len(lens))]
     tier = np.left_shift(
         1, np.ceil(np.log2(np.maximum(lens, 2))).astype(np.int64))
     uniq, inv = np.unique(tier, return_inverse=True)
@@ -127,6 +135,29 @@ def _length_groups(lens: np.ndarray,
         seg_of_tier[bounds[si]:bounds[si + 1]] = si
     seg = seg_of_tier[inv]
     return [np.nonzero(seg == si)[0] for si in range(len(bounds) - 1)]
+
+
+class _Group(list):
+    """A query group's patterns with their int64 lengths, counted once a
+    batch (``DESA._run_query``), so that ``encode_patterns`` does not
+    count them again."""
+
+    __slots__ = ("lens",)
+
+    def __init__(self, patterns, lens: np.ndarray):
+        super().__init__(patterns)
+        self.lens = lens
+
+
+def _joined(patterns) -> np.ndarray:
+    """The patterns' bytes end to end, a writable uint8 array: one join in
+    C, or ``bytes`` of each pattern where some is not a contiguous buffer
+    (a list of ints, a strided view)."""
+    try:
+        buf = bytearray().join(patterns)
+    except TypeError:
+        buf = bytearray().join(bytes(pt) for pt in patterns)
+    return np.frombuffer(buf, np.uint8)
 
 
 # --------------------------------------------------------------------------
@@ -323,27 +354,41 @@ class DESA:
     # ---------------- queries ----------------
 
     def encode_patterns(self, patterns):
-        """Host: encode byte patterns to a padded (B, Lmax) code matrix."""
+        """Encode byte patterns as (mat, lens, bad): the padded (B, Lmax)
+        int32 code matrix (Lmax = pow2ceil(max(2, longest)), 0 past each
+        length), the int32 lengths and the bool bad flags (an empty
+        pattern, or a byte outside the alphabet), tensors on the DESA's
+        device (the host on a mesh).  The host joins the bytes and sums
+        the lengths (counted here unless the batch brings them); the bytes
+        and the offsets go up, and K11 builds the matrix and the flags
+        there (its plain version off the card)."""
         B = len(patterns)
+        dev = self._device()
         with timers.span("psac.locate.encode.join", patterns=B):
-            lens = np.fromiter((len(pt) for pt in patterns), np.int64, B)
-            flat = np.frombuffer(b"".join(bytes(pt) for pt in patterns),
-                                 np.uint8)
-        with timers.span("psac.locate.encode.pack"):
-            Lmax = pow2ceil(max(2, int(lens.max()) if B else 2))
-            codes = self.alphabet.mapping[flat].astype(np.int32)
-            ends = np.cumsum(lens)
-            starts = ends - lens
-            row = np.repeat(np.arange(B, dtype=np.int64), lens)
-            col = np.arange(len(flat), dtype=np.int64) - np.repeat(starts,
-                                                                   lens)
-            mat = np.zeros((B, Lmax), np.int32)
-            mat[row, col] = codes
-            # bad = empty pattern or any character outside the alphabet
-            # (code 0)
-            zero_cum = np.concatenate([[0], np.cumsum(codes == 0)])
-            bad = (lens == 0) | ((zero_cum[ends] - zero_cum[starts]) > 0)
-            return mat, lens.astype(np.int32), bad
+            lens = getattr(patterns, "lens", None)
+            if lens is None:
+                lens = np.fromiter(map(len, patterns), np.int64, B)
+            flat = _joined(patterns)
+            offs = np.zeros(B + 1, np.int64)
+            np.cumsum(lens, out=offs[1:])
+        with timers.span("psac.locate.upload", dev):
+            home = torch.device("cpu") if dev is None else dev
+            dflat = torch.from_numpy(flat).to(home)
+            doffs = torch.from_numpy(offs).to(home)
+        with timers.span("psac.locate.encode.pack", dev):
+            out = pattern_pack(dflat, doffs, self._code_table,
+                               _tier(lens.max() if B else 2))
+            if dflat.is_cuda:
+                timers.count("patterns_on_card", B)
+        return out
+
+    @functools.cached_property
+    def _code_table(self) -> torch.Tensor:
+        """The alphabet's (256,) uint8 byte -> code table where
+        ``encode_patterns`` builds the matrix."""
+        dev = self._device()
+        return torch.from_numpy(self.alphabet.mapping).to(
+            torch.device("cpu") if dev is None else dev)
 
     def bulk_locate(self, patterns) -> np.ndarray:
         """Exact half-open SA ranges [l, r) for a batch of byte patterns:
@@ -369,8 +414,9 @@ class DESA:
         """Length-bucketed dispatch: ragged batches are split into at most
         ``_MAX_LEN_GROUPS`` Lmax tiers before padding, so one long pattern
         cannot inflate the whole (B, Lmax) code matrix.  Spans:
-        ``psac.locate`` (the call) > ``.groups``, ``.encode.join``,
-        ``.encode.pack``, ``.upload``, ``.search``, ``.download``."""
+        ``psac.locate`` (the call) > ``.groups``, then a group's
+        ``.encode.join``, ``.upload``, ``.encode.pack`` (a mesh's
+        ``.upload`` to the shards after it), ``.search``, ``.download``."""
         dev = self._device()
         with timers.call("psac.locate", dev, patterns=len(patterns)):
             steps, reads = [], []
@@ -378,17 +424,18 @@ class DESA:
                 out = np.zeros((0, 2), np.int64)
             else:
                 with timers.span("psac.locate.groups"):
-                    lens = np.fromiter((len(pt) for pt in patterns),
-                                       np.int64, len(patterns))
+                    lens = np.fromiter(map(len, patterns), np.int64,
+                                       len(patterns))
                     groups = _length_groups(lens)
                 if len(groups) == 1:
-                    out = self._run_query_group(patterns, verify, steps,
-                                                reads)
+                    out = self._run_query_group(_Group(patterns, lens),
+                                                verify, steps, reads)
                 else:
                     out = np.zeros((len(patterns), 2), np.int64)
                     for idx in groups:
                         out[idx] = self._run_query_group(
-                            [patterns[i] for i in idx], verify, steps, reads)
+                            _Group([patterns[i] for i in idx], lens[idx]),
+                            verify, steps, reads)
             with timers.span("psac.locate.download", dev):
                 self.last_stats = {
                     "steps": sum(int(_whole(x).sum()) for x in steps),
@@ -406,22 +453,18 @@ class DESA:
         length 0 as the JAX package pads it (to a power of two of at least
         p rows; to the next multiple of an odd p) and split into p blocks;
         each shard's step and readback counts join ``steps`` and
-        ``reads``."""
-        mat, lens, bad = self.encode_patterns(patterns)
-        B = mat.shape[0]
+        ``reads``; the bad patterns' ranges are zeroed where the ranges
+        are, before the one download."""
+        dmat, dlens, bad = self.encode_patterns(patterns)
+        B = dmat.shape[0]
         p = num_shards(self.mesh)
         dev = self._device()
-        with timers.span("psac.locate.upload", dev):
-            if p > 1:
-                Bp = -(-max(p, pow2ceil(B)) // p) * p
-                mat = np.vstack([mat, np.zeros((Bp - B, mat.shape[1]),
-                                               np.int32)])
-                lens = np.concatenate([lens, np.zeros(Bp - B, np.int32)])
-                dmat, dlens = (self.mesh.shard(torch.from_numpy(a))
-                               for a in (mat, lens))
-            else:
-                dmat, dlens = (torch.from_numpy(a).to(self.xs.device)
-                               for a in (mat, lens))
+        if p > 1:
+            with timers.span("psac.locate.upload", dev):
+                pad = -(-max(p, pow2ceil(B)) // p) * p - B
+                dmat, dlens = (self.mesh.shard(torch.cat(
+                    [a, a.new_zeros((pad,) + a.shape[1:])]))
+                    for a in (dmat, dlens))
         run = _bulk_locate_local if self.tli == "tllt" else \
             _bulk_locate_tldt_local
         timed = timers_enabled()
@@ -441,9 +484,9 @@ class DESA:
                   f"imbalance={counts.max() * p / tot:.3f}",
                   file=sys.stderr, flush=True)
         with timers.span("psac.locate.download", dev):
-            out = _whole(lr)[:B].cpu().numpy().astype(np.int64)
+            out = torch.where(bad[:, None], 0, _whole(lr)[:B])
+            out = out.cpu().numpy().astype(np.int64)
             timers.readback()
-            out[bad] = 0
         return out
 
 

@@ -58,6 +58,7 @@ _SIGNATURES = {
                            + [_I64, _I64, _I64, _P],
     "psac_kmer_heads_i64": [_P] * 8 + [_I64] + [_I32] * 5
                            + [_I64, _I64, _I64, _P],
+    "psac_pattern_pack": [_P] * 6 + [_I64, _I32, _P],
 }
 
 _lib = None

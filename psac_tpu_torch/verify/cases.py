@@ -1,6 +1,6 @@
 """Seeded inputs for checking the previous-smaller pass (K5), the LCP
-resolve (K6), the walks (K8), the k-mer init (K9, K10) and the generalized
-suffix array, shared by the CPU tests, the GPU tests and ``chip_smoke.py``
+resolve (K6), the walks (K8), the k-mer init (K9, K10), the DESA's pattern
+encoding (K11) and the generalized suffix array, shared by the CPU tests, the GPU tests and ``chip_smoke.py``
 so that all three drive the same cases."""
 
 from __future__ import annotations
@@ -382,3 +382,58 @@ def kmer_heads_inputs(case: dict, words: list, p: int) -> list:
             rh = np.array([rem[b - 1] if r else 0], np.int64)
         out.append((b, [w[b:b + s] for w in ws], halo, rs, rh))
     return out
+
+
+#: the DESA's pattern batches over ``PATTERN_TEXT``'s alphabet (ACGT), for
+#: ``DESA.encode_patterns`` and K11: none and one pattern, an empty one,
+#: bytes outside the alphabet, lengths across the lane groups' widths in
+#: one batch, each bytes-like kind ``encode_patterns`` takes and, on the
+#: card, a ``mkpattern`` batch of 65,536 x 20 bytes and a group at Lmax 256
+PATTERN_TEXT = rand_dna(4096, seed=11)
+PATTERN_CASES = ("none", "one", "empty", "all_empty", "outside",
+                 "mixed_lengths", "bytearray", "memoryview", "strided_view",
+                 "uint8_array", "int_list")
+PATTERN_CASES_LARGE = ("mkpattern_65536x20", "lmax256")
+
+
+def pattern_batch(name: str) -> list:
+    """The seeded batch ``name`` of ``PATTERN_CASES`` or
+    ``PATTERN_CASES_LARGE``: substrings of ``PATTERN_TEXT``."""
+    t = PATTERN_TEXT
+    rng = np.random.RandomState(len(name))
+
+    def subs(lengths, rng=rng):
+        return [t[s:s + ln] for ln, s in zip(
+            lengths, rng.randint(0, len(t) - max(lengths), len(lengths)))]
+
+    # the same mixed batch in every kind
+    mixed = subs([1, 2, 31, 32, 33, 64, 200] * 3, np.random.RandomState(0))
+    if name == "none":
+        return []
+    if name == "one":
+        return subs([20])
+    if name == "empty":
+        return subs([5, 20]) + [b""] + subs([3])
+    if name == "all_empty":
+        return [b"", b""]
+    if name == "outside":
+        return subs([20, 7]) + [b"ACGN" + t[:16], b"\x00", b"\xff" * 3,
+                                t[:31] + b"a", b"N"] + subs([1])
+    if name == "mixed_lengths":
+        return mixed + [b""]
+    if name == "bytearray":
+        return [bytearray(p) for p in mixed]
+    if name == "memoryview":
+        return [memoryview(p) for p in mixed]
+    if name == "strided_view":
+        return [memoryview(p + p)[::2] for p in mixed]
+    if name == "uint8_array":
+        return [np.frombuffer(p, np.uint8) for p in mixed]
+    if name == "int_list":
+        return [list(p) for p in mixed]
+    if name == "mkpattern_65536x20":
+        pos = rng.randint(0, len(t) - 20, 65536)
+        return [t[s:s + 20] for s in pos]
+    if name == "lmax256":
+        return subs(list(rng.randint(129, 257, 3000)))
+    raise KeyError(name)

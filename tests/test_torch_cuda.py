@@ -1549,3 +1549,85 @@ def test_kmer_init_kernels_on_every_build_path(cuda, gsa):
             np.testing.assert_array_equal(g, w)
         if mesh is not None:
             mesh.close()
+
+
+# --------------------------------------------------- K11 pattern_pack
+
+def _pattern_inputs(pats):
+    from psac_tpu_torch.models.desa import _joined
+    from psac_tpu_torch.ops.alphabet import Alphabet
+    from psac_tpu_torch.ops.bitops import pow2ceil
+
+    lens = np.fromiter(map(len, pats), np.int64, len(pats))
+    offs = np.zeros(len(pats) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    mapping = Alphabet.from_bytes(cases.PATTERN_TEXT).mapping
+    lmax = pow2ceil(max(2, int(lens.max()) if len(pats) else 2))
+    return (torch.from_numpy(_joined(pats)), torch.from_numpy(offs),
+            torch.from_numpy(mapping), lmax)
+
+
+@pytest.mark.parametrize("name",
+                         cases.PATTERN_CASES + cases.PATTERN_CASES_LARGE)
+def test_pattern_pack_kernel_vs_plain(cuda, name):
+    """K11 gives its plain version's code matrix, lengths and bad flags,
+    at the batch's own Lmax and at a wider one, and launches once a call
+    (none for an empty batch)."""
+    from psac_tpu_torch.ops import pattern_pack as k11
+
+    flat, offs, mapping, lmax = _pattern_inputs(cases.pattern_batch(name))
+    before = k11.pattern_pack.launches
+    for width in (lmax, 2 * lmax):
+        got = k11.pattern_pack(flat.to(cuda), offs.to(cuda),
+                               mapping.to(cuda), width)
+        want = k11.pattern_pack_plain(flat, offs, mapping, width)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and g.dtype == w.dtype
+            assert torch.equal(g.cpu(), w)
+    assert k11.pattern_pack.launches - before == \
+        (0 if offs.shape[0] == 1 else 2)
+
+
+@pytest.mark.parametrize("name", ["mkpattern_65536x20", "lmax256",
+                                  "mixed_lengths", "outside", "empty"])
+def test_encode_patterns_on_the_card(cuda, monkeypatch, name):
+    """A DESA on the card encodes there (K11): the CPU DESA's matrix,
+    lengths and flags, as tensors on the card; its answers are the CPU
+    DESA's, and the ``patterns_on_card`` counter of ``psac.locate``
+    counts every pattern of the batch (a group's K11 call each)."""
+    from psac_tpu_torch.models.desa import build_desa
+    from psac_tpu_torch.ops import pattern_pack as k11
+    from psac_tpu_torch.utils import timers
+
+    pats = cases.pattern_batch(name)
+    d = build_desa(cases.PATTERN_TEXT, cuda, tli="tldt")
+    h = build_desa(cases.PATTERN_TEXT, "cpu", tli="tldt")
+    for g, w in zip(d.encode_patterns(pats), h.encode_patterns(pats)):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+    monkeypatch.setenv("PSAC_TIMER", "1")
+    timers.clear()
+    before = k11.pattern_pack.launches
+    got = d.bulk_locate(pats)
+    tot = timers.totals(timers.records(), "psac.locate")
+    timers.clear()
+    np.testing.assert_array_equal(got, h.bulk_locate(pats))
+    assert tot.count("patterns_on_card") == len(pats)
+    assert tot.total("psac.locate.encode.pack", "device") is not None
+    assert k11.pattern_pack.launches - before >= 1
+
+
+def test_pattern_pack_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from psac_tpu_torch.ops import pattern_pack as k11
+
+    flat, offs, mapping, lmax = _pattern_inputs(
+        cases.pattern_batch("mixed_lengths"))
+    a = dict(flat=flat.to(cuda), offs=offs.to(cuda), mapping=mapping.to(cuda),
+             Lmax=lmax)
+    for bad in (dict(Lmax=lmax + 1), dict(Lmax=1), dict(Lmax=2**31),
+                dict(flat=a["flat"].to(torch.int32)),
+                dict(offs=a["offs"].to(torch.int32)),
+                dict(mapping=a["mapping"][:128]),
+                dict(offs=a["offs"][:0]),
+                dict(mapping=mapping)):
+        with pytest.raises(ValueError):
+            k11.pattern_pack(**{**a, **bad})

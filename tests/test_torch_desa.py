@@ -20,6 +20,7 @@ from psac_tpu_torch.models import desa as t_desa
 from psac_tpu_torch.models import suffix_array as t_sa
 from psac_tpu_torch.ops.alphabet import rand_dna, rep_dna
 from psac_tpu_torch.ops.oracle import suffix_array_np
+from psac_tpu_torch.verify import cases
 
 torch.set_num_threads(1)
 
@@ -170,6 +171,58 @@ def test_length_groups_split_the_batch():
     assert len(groups) == len(want) > 1
     for g, w in zip(groups, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.fixture(scope="module")
+def pattern_desa():
+    return t_desa.build_desa(cases.PATTERN_TEXT, "cpu")
+
+
+@pytest.mark.parametrize("name", cases.PATTERN_CASES)
+def test_encode_patterns_vs_jax(pattern_desa, name):
+    """The CPU DESA's encoding (K11's plain version) against the JAX
+    package's numpy encoding of the same batch with the same alphabet: the
+    (B, Lmax) code matrix, the lengths and the bad flags, dtypes included.
+    The JAX method reads only the DESA's alphabet, so it runs on a stand-in
+    that holds the JAX package's alphabet of the same text."""
+    import types
+
+    from psac_tpu.models.desa import DESA as JaxDESA
+    from psac_tpu.ops.alphabet import Alphabet as JaxAlphabet
+
+    pats = cases.pattern_batch(name)
+    jax_alpha = JaxAlphabet.from_bytes(cases.PATTERN_TEXT)
+    np.testing.assert_array_equal(pattern_desa.alphabet.mapping,
+                                  jax_alpha.mapping)
+    want = JaxDESA.encode_patterns(types.SimpleNamespace(alphabet=jax_alpha),
+                                   pats)
+    got = pattern_desa.encode_patterns(pats)
+    for g, w in zip(got, want):
+        assert isinstance(g, torch.Tensor) and g.device.type == "cpu"
+        assert g.numpy().dtype == w.dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+    if name in ("bytearray", "memoryview", "uint8_array", "int_list"):
+        np.testing.assert_array_equal(
+            got[0].numpy(), pattern_desa.encode_patterns(
+                cases.pattern_batch("mixed_lengths")[:-1])[0].numpy())
+
+
+@pytest.mark.parametrize("name", ["mkpattern_65536x20", "mixed_lengths"])
+def test_lengths_counted_once_a_batch(pattern_desa, name):
+    """``bulk_locate`` takes each pattern's length once (its length
+    groups), and each group's encoding takes those lengths along: the same
+    answers as a batch of plain ``bytes``."""
+    calls = [0]
+
+    class Counted(bytes):
+        def __len__(self):
+            calls[0] += 1
+            return bytes.__len__(self)
+
+    pats = cases.pattern_batch(name)[:4096]
+    got = pattern_desa.bulk_locate([Counted(p) for p in pats])
+    assert calls[0] == len(pats)
+    np.testing.assert_array_equal(got, pattern_desa.bulk_locate(pats))
 
 
 def test_rejects_wide_texts_and_unknown_tli():
@@ -370,8 +423,7 @@ def test_blind_search_reports_steps_per_pattern():
     text = rand_dna(2000, seed=5)
     d = t_desa.build_desa(text, "cpu")
     pats = [text[10:40], text[:3], b"", text[500:520]]
-    mat, lens, _ = d.encode_patterns(pats)
-    pat, dl = torch.from_numpy(mat), torch.from_numpy(lens)
+    pat, dl, _ = d.encode_patterns(pats)
     l0 = torch.zeros(4, dtype=torch.int32)
     r0 = torch.full((4,), d.cap - 1, dtype=torch.int32)
     need = dl > 0

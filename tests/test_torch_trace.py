@@ -331,8 +331,9 @@ def test_locate_spans(monkeypatch, capsys):
     (root,) = roots(recs, "psac.locate")
     assert root.attrs == {"patterns": len(pats)}
     names = [r.name for r in sorted(under(recs, root), key=lambda r: r.t0)]
-    group = ["psac.locate.encode.join", "psac.locate.encode.pack",
-             "psac.locate.upload", "psac.locate.search",
+    # the bytes and offsets go up inside the encoding, before the pack
+    group = ["psac.locate.encode.join", "psac.locate.upload",
+             "psac.locate.encode.pack", "psac.locate.search",
              "psac.locate.download"]
     assert names == ["psac.locate.groups"] + group * 2 + \
         ["psac.locate.download"]
@@ -340,6 +341,8 @@ def test_locate_spans(monkeypatch, capsys):
                for r in named(recs, "psac.locate.search")) == len(pats)
     tot = timers.totals(recs, "psac.locate")
     assert tot.count("readbacks") == 2 + 2
+    # the pack ran off the card: no pattern was encoded there
+    assert tot.count("patterns_on_card") == 0
     assert tot.total("psac.locate.search", "host") > 0
     assert tot.total("psac.locate.search", "device") is None
 
