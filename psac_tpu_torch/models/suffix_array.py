@@ -117,9 +117,13 @@ def host_tensor(x) -> torch.Tensor:
 
 
 def device_of(x):
-    """A tensor's device; None for a ``Sharded`` array (spans opened in a
-    mesh's calling thread carry no device time)."""
-    return None if isinstance(x, Sharded) else x.device
+    """A tensor's device; for a ``Sharded`` array the device of its one
+    local shard (a process of a mesh across processes, one shard each),
+    None where this process holds several (spans opened in a mesh's
+    calling thread then carry no device time)."""
+    if isinstance(x, Sharded):
+        return x.shards[0].device if len(x.shards) == 1 else None
+    return x.device
 
 
 @dataclasses.dataclass
@@ -222,6 +226,10 @@ class _Builder:
         self.idt = idt
         self.INF = torch.iinfo(idt).max
         self.device = device
+        # where the driver's spans are timed: the one device, or a mesh
+        # process's one local shard (none where it holds several)
+        self.span_device = device if mesh is None else \
+            mesh.devices[0] if mesh.local == 1 else None
         # pairs of int32 key columns in one int64 sort lane (int32 builds)
         self.pack = pack and idt == torch.int32
 
@@ -358,7 +366,8 @@ class _Builder:
         """The host-driven loop's LCP resolve of a doubling step's ``nq``
         queries: K6 on one device; on a mesh a compaction by one
         distributed sort, then the routed resolve (``resolve_with_retry``)."""
-        with timers.span("psac.construct.resolve", self.device, d=d, nq=nq):
+        with timers.span("psac.construct.resolve", self.span_device, d=d,
+                         nq=nq):
             if self.mesh is None:
                 return self._resolve_fused_local(
                     lcp, q, d, m_pad=min(pow2ceil(nq), self.N), L=2, nq=nq)
@@ -589,8 +598,8 @@ class _Builder:
                    max_iters: int):
         it = 0
         while tue > stop and it < max_iters:
-            with timers.span("psac.construct.tail", self.device, op="step",
-                             d=d) as sp:
+            with timers.span("psac.construct.tail", self.span_device,
+                             op="step", d=d) as sp:
                 cbufs, isa, sa, lcp, ue = self._tail_step_local(
                     cbufs, isa, sa, lcp, d)
                 (tue,) = _read(ue)
@@ -602,8 +611,8 @@ class _Builder:
     def _tail_enter_span(self, sa, brow, active, m_cap: int, ue: int,
                          extra: tuple = ()):
         """``_tail_enter_local`` in a tail span."""
-        with timers.span("psac.construct.tail", self.device, op="enter",
-                         ue=ue, cap=m_cap):
+        with timers.span("psac.construct.tail", self.span_device,
+                         op="enter", ue=ue, cap=m_cap):
             return self._tail_enter_local(sa, brow, active, m_cap, extra)
 
     # ---------------- host-driven loop ----------------
@@ -632,7 +641,7 @@ class _Builder:
                 cbufs = self._tail_enter_span(sa, brow, active, m_cap, ue)
                 timer.end_section(f"tail-enter ({ue} active, cap {m_cap})")
                 while True:
-                    with timers.span("psac.construct.tail", self.device,
+                    with timers.span("psac.construct.tail", self.span_device,
                                      op="step", d=d) as sp:
                         cbufs, isa, sa, lcp, tue = self._tail_step_local(
                             cbufs, isa, sa, lcp, d)
@@ -646,7 +655,8 @@ class _Builder:
                     if d >= 4 * N:
                         raise AssertionError("tail failed to converge")
                 break
-            with timers.span("psac.construct.dense", self.device, d=d) as sp:
+            with timers.span("psac.construct.dense", self.span_device,
+                             d=d) as sp:
                 isa, sa, lcp, q, brow, active, counts = self._stepL_local(
                     isa, lcp, d, L)
                 ub, ue, nq = self._dense_read(q, counts)
@@ -674,7 +684,8 @@ class _Builder:
         (None without the LCP)."""
         if lcp is None:
             return None
-        with timers.span("psac.construct.resolve", self.device, d=d, nq=nq):
+        with timers.span("psac.construct.resolve", self.span_device, d=d,
+                         nq=nq):
             return self._resolve_fused_local(lcp, q, d, m_pad=m_pad, L=L,
                                              nq=nq)
 
@@ -718,7 +729,7 @@ class _Builder:
         dense loop reached: where it stopped at its iteration bound with
         work left (not tail_ran, ue > 0), the host-driven loop resumes from
         this state."""
-        dev = self.device
+        dev = self.span_device
         with timers.span("psac.construct.init", dev):
             isa, sa, lcp, brow, active, extra, counts = init()
             ub, ue = _read(*counts)
@@ -840,7 +851,8 @@ def encode_and_shard(text, device=None, mesh=None):
     device = "cpu" if p > 1 else cfg_mod.resolve_device(device)
     if len(text) >= (1 << 40):
         raise ValueError(f"text too large: {len(text)} (2^40 char ceiling)")
-    with timers.call("psac.stage", device if p == 1 else None,
+    with timers.call("psac.stage", device if p == 1 else
+                     mesh.devices[0] if mesh.local == 1 else None,
                      n=len(text)):
         return _encode(text, device, mesh, p)
 
@@ -872,7 +884,8 @@ def encode_and_shard_file(path: str, device=None, mesh=None):
     sharded = mesh is not None and mesh.p > 1
     if not sharded:
         device = cfg_mod.resolve_device(device)
-    with timers.call("psac.stage", None if sharded else device):
+    with timers.call("psac.stage", device if not sharded else
+                     mesh.devices[0] if mesh.local == 1 else None):
         xb, n, N = stage_file_block(path, mesh if sharded else device)
         xs, alpha = _count_and_decode(xb, n, N, mesh if sharded else None)
         return xs, alpha, n, N
@@ -934,7 +947,7 @@ def _construct(xs, alpha, n: int, N: int, config: cfg_mod.SAConfig, mesh):
             d = max(d, d_out)
         LAST_BUILD.update(fused=True, host_iters=0, p=b.p, n=n, N=N)
     else:
-        with timers.span("psac.construct.init", device):
+        with timers.span("psac.construct.init", b.span_device):
             isa, sa, lcp, brow, active, counts = b._init_local(xs, n)
             ub, ue = _read(*counts)
         timer.end_section(f"kmer-init (k={k})")

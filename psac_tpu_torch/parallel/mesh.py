@@ -27,7 +27,9 @@ own shards, which meet as above, and one of them makes the inter-process
 ``torch.distributed`` call.  A worker that raises aborts the barrier, so
 the others fail at their next collective, and ``Mesh.run`` raises the
 first error in the caller; on a mesh that spans processes it also leaves
-the process group, so the other processes fail too.
+the process group, so the other processes fail too.  There each collective
+of ``Ctx`` is a ``psac.comm`` span of the tracer (``utils/timers.py``;
+attributes ``op`` and ``bytes``, the counter ``comm_bytes``).
 """
 
 from __future__ import annotations
@@ -202,6 +204,16 @@ def _unpack(buf: torch.Tensor, layout) -> list:
             for dt, shape, off, nb in layout]
 
 
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's memory as a flat uint8 view (what the
+    backends exchange: gloo has no bool)."""
+    return t.reshape(-1).view(torch.uint8)
+
+
+def _nbytes(x: tuple) -> int:
+    return sum(t.numel() * t.element_size() for t in x)
+
+
 class ProcessGroup:
     """Collectives of the global mesh when its shards span processes: the
     collectives of ``Ctx`` give what they give on one process's thread
@@ -211,8 +223,14 @@ class ProcessGroup:
     and dtypes on every rank), and the threads meet again to take their
     parts.  Each call first exchanges a signature of its operation and
     shapes, so a shape or operation that differs between shards raises
-    instead of hanging.  Under gloo the tensors go through the host (one
-    copy each way); under NCCL they stay on the card."""
+    instead of hanging; its host read counts as a readback.  Under gloo
+    the tensors go through the host (one copy each way); under NCCL they
+    stay on the card.  ``all_to_all`` and ``ppermute`` send each tensor
+    from its own memory and receive into fresh tensors that they hand
+    out as they are (with one shard a process, no copy but the one
+    received), so an exchange holds its payload at most twice.  The lead
+    thread counts the bytes it sends to other processes (``comm_bytes``,
+    under the caller's ``psac.comm`` span)."""
 
     def __init__(self, devices, first: int, p: int):
         self.L, self.first, self.p = len(devices), first, p
@@ -247,9 +265,12 @@ class ProcessGroup:
             raise RuntimeError(f"{op}: the shards of this process call it "
                                f"with different shapes: {sigs}")
         key = dist_mod.name_key(sigs[0])
+        timers.count("comm_bytes", 8 * (self.world - 1))
         got = dist_mod.all_gather_flat(torch.tensor(
             [key], dtype=torch.int64, device=self.comm))
-        if bool((got != key).any()):
+        same = not bool((got != key).any())
+        timers.readback()
+        if not same:
             raise RuntimeError(f"{op}: the processes call it with different "
                                f"shapes or operations (here {sigs[0]})")
 
@@ -259,6 +280,7 @@ class ProcessGroup:
             pieces = [torch.stack([s[i].to(self.comm) for s in slots])
                       for i in range(len(x))]
             buf, layout = _pack(pieces), _layout(pieces)[0]
+            timers.count("comm_bytes", buf.numel() * (self.world - 1))
             rows = dist_mod.all_gather_flat(buf).view(self.world, -1)
             parts = [_unpack(rows[w], layout) for w in range(self.world)]
             return tuple(torch.cat([pw[i] for pw in parts])
@@ -271,26 +293,30 @@ class ProcessGroup:
 
         def lead(slots):
             self._check("all_to_all", slots)
-            # (W dest processes, L src threads, L dest threads, ...) bytes
-            sends = []
+            outs = [[] for _ in range(L)]
             for i in range(len(buf)):
-                t = torch.stack([s[i].to(self.comm) for s in slots])
-                rest = tuple(t.shape[2:])
-                sends.append(t.reshape((L, W, L) + rest).transpose(0, 1)
-                             .contiguous())
-            layout = _layout([t[0] for t in sends])[0]
-            send = torch.stack([_pack([t[w] for t in sends])
-                                for w in range(W)])
-            recv = torch.empty_like(send)
-            dist.all_to_all_single(recv, send)
-            got = [_unpack(recv[w], layout) for w in range(W)]
-            outs = []
-            for ld in range(L):
-                outs.append(tuple(
-                    torch.stack([got[w][i][ls, ld] for w in range(W)
-                                 for ls in range(L)])
-                    for i in range(len(buf))))
-            return outs
+                if L == 1:
+                    # (W dest processes, cap, ...): row w goes to process w
+                    send = slots[0][i].to(self.comm).contiguous()
+                else:
+                    # (W dest processes, L src threads, L dest threads, ...)
+                    t = torch.stack([s[i].to(self.comm) for s in slots])
+                    send = t.reshape((L, W, L) + tuple(t.shape[2:])) \
+                        .transpose(0, 1).contiguous()
+                recv = torch.empty_like(send)
+                if send.numel():
+                    timers.count("comm_bytes",
+                                 send.numel() * send.element_size()
+                                 * (W - 1) // W)
+                    dist.all_to_all_single(_bytes(recv), _bytes(send))
+                del send
+                if L == 1:
+                    outs[0].append(recv)
+                    continue
+                rest = tuple(recv.shape[3:])
+                for ld in range(L):
+                    outs[ld].append(recv[:, :, ld].reshape((W * L,) + rest))
+            return [tuple(o) for o in outs]
 
         return tuple(t.to(ctx.device)
                      for t in self._meet(ctx.local, buf, lead)[ctx.local])
@@ -298,39 +324,48 @@ class ProcessGroup:
     def ppermute(self, ctx, x: tuple, pairs) -> tuple | None:
         L, first = self.L, self.first
         pairs = sorted(tuple(ab) for ab in pairs)
+        T = len(x)
 
         def lead(slots):
             self._check("ppermute", slots, pairs)
-            outs, ops, recvs = [None] * L, [], {}
-            layout, nbytes = _layout(slots[0])
+            # each local thread's (tensors, whether they are another
+            # thread's own and need a copy)
+            outs, ops = [None] * L, []
             for ld in range(L):  # receives in ascending shard order
                 a = _source(pairs, first + ld)
                 if a is None:
                     continue
                 if first <= a < first + L:
-                    outs[ld] = slots[a - first]
+                    outs[ld] = (slots[a - first], True)
                     continue
-                rb = torch.empty(nbytes, dtype=torch.uint8, device=self.comm)
-                recvs[ld] = rb
-                ops.append(dist.P2POp(dist.irecv, rb, a // L,
-                                      tag=first + ld))
-            # sends in ascending destination order: NCCL pairs the messages
-            # between two processes in the order they were posted
+                got = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                        device=self.comm)
+                            for t in slots[0])
+                outs[ld] = (got, False)
+                ops += [dist.P2POp(dist.irecv, _bytes(t), a // L,
+                                   tag=(first + ld) * T + i)
+                        for i, t in enumerate(got) if t.numel()]
+            # sends in ascending destination order, each tensor in turn:
+            # NCCL pairs the messages between two processes in the order
+            # they were posted
             for a, b in sorted(pairs, key=lambda ab: ab[1]):
                 if first <= a < first + L and not first <= b < first + L:
-                    sb = _pack([t.to(self.comm) for t in slots[a - first]])
-                    ops.append(dist.P2POp(dist.isend, sb, b // L, tag=b))
+                    sent = [t.to(self.comm).contiguous()
+                            for t in slots[a - first]]
+                    timers.count("comm_bytes", _nbytes(sent))
+                    ops += [dist.P2POp(dist.isend, _bytes(t), b // L,
+                                       tag=b * T + i)
+                            for i, t in enumerate(sent) if t.numel()]
             if ops:
                 for work in dist.batch_isend_irecv(ops):
                     work.wait()
-            for ld, rb in recvs.items():
-                outs[ld] = tuple(_unpack(rb, layout))
             return outs
 
         got = self._meet(ctx.local, x, lead)[ctx.local]
         if got is None:
             return None
-        return tuple(t.to(ctx.device, copy=True) for t in got)
+        tensors, local = got
+        return tuple(t.to(ctx.device, copy=local) for t in tensors)
 
     def abort(self) -> None:
         self._barrier.abort()
@@ -357,14 +392,27 @@ class Ctx:
     def axis_index(self) -> int:
         return self.rank
 
+    def _comm(self, op: str, x: tuple):
+        """The ``psac.comm`` span of a collective that goes through a
+        ``ProcessGroup`` (timed on this shard's card), with the bytes this
+        shard hands it; the null span on one process."""
+        if not isinstance(self.group, ProcessGroup):
+            return timers.OFF
+        return timers.span("psac.comm", self.device, op=op,
+                           bytes=_nbytes(x))
+
     def all_gather(self, x):
         """(p, ...) stack of every rank's ``x`` (a tensor, or a tuple of
         tensors exchanged together: one meeting of the ranks)."""
+        return self._all_gather(x, "all_gather")
+
+    def _all_gather(self, x, op: str):
         if not isinstance(x, tuple):
-            return self.all_gather((x,))[0]
+            return self._all_gather((x,), op)[0]
         if self.p == 1:
             return tuple(torch.stack([t.to(self.device)]) for t in x)
-        return self.group.all_gather(self, x)
+        with self._comm(op, x):
+            return self.group.all_gather(self, x)
 
     def ppermute(self, x, pairs):
         """``x`` (a tensor or a tuple of tensors) of the rank that sends
@@ -377,16 +425,17 @@ class Ctx:
             got = None if src is None else \
                 tuple(t.to(self.device, copy=True) for t in x)
         else:
-            got = self.group.ppermute(self, x, pairs)
+            with self._comm("ppermute", x):
+                got = self.group.ppermute(self, x, pairs)
         if got is None:
             return tuple(torch.zeros_like(t) for t in x)
         return got
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        return self.all_gather(x).sum(0, dtype=x.dtype)
+        return self._all_gather(x, "psum").sum(0, dtype=x.dtype)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
-        return self.all_gather(x).amax(0)
+        return self._all_gather(x, "pmax").amax(0)
 
     def all_to_all(self, buf):
         """(p, cap, ...) -> (p, cap, ...): row j of the result is row
@@ -396,7 +445,8 @@ class Ctx:
         if self.p == 1:
             return tuple(torch.stack([t[self.rank].to(self.device)])
                          for t in buf)
-        return self.group.all_to_all(self, buf)
+        with self._comm("all_to_all", buf):
+            return self.group.all_to_all(self, buf)
 
 
 def _to_local(obj, rank: int):

@@ -126,6 +126,23 @@ def route_apply(payloads: tuple, answer_fn, skip=None, *, dest=None,
     return tuple(outs)
 
 
+def _chunks(m: int, p: int):
+    """(slice, padding) of each of p chunks of ceil(m / p) records (the
+    last ones short or empty)."""
+    chunk = -(-m // p)
+    for c in range(p):
+        sl = slice(min(c * chunk, m), min((c + 1) * chunk, m))
+        yield sl, chunk - (sl.stop - sl.start)
+
+
+def _chunk(x: torch.Tensor, sl: slice, pad: int, fill=0) -> torch.Tensor:
+    """x[sl] followed by ``pad`` rows of ``fill``."""
+    x = x[sl]
+    if pad == 0:
+        return x
+    return torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
+
+
 #: Shape of the most recent chunked full-capacity pass:
 #: {"chunk": int, "buf_rows": int, "m": int}.
 LAST_CHUNKED_ROUTE: dict = {}
@@ -143,21 +160,11 @@ def _route_apply_chunked(payloads: tuple, dest, answer_fn, ctx, skip,
     skip_all = torch.zeros(m, dtype=torch.bool, device=dest.device) \
         if skip is None else skip
     parts = []
-    for c in range(p):
-        sl = slice(min(c * chunk, m), min((c + 1) * chunk, m))
-        k = sl.stop - sl.start
-        pad = chunk - k
-
-        def padx(x, fill=0):
-            x = x[sl]
-            if pad == 0:
-                return x
-            return torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
-
-        outs = route_apply(tuple(padx(x) for x in payloads), answer_fn,
-                           padx(skip_all, True), dest=padx(dest), ctx=ctx,
-                           cap=chunk)
-        parts.append(tuple(o[:k] for o in outs))
+    for sl, pad in _chunks(m, p):
+        outs = route_apply(tuple(_chunk(x, sl, pad) for x in payloads),
+                           answer_fn, _chunk(skip_all, sl, pad, True),
+                           dest=_chunk(dest, sl, pad), ctx=ctx, cap=chunk)
+        parts.append(tuple(o[:sl.stop - sl.start] for o in outs))
     outs = tuple(torch.cat([pt[i] for pt in parts])
                  for i in range(len(parts[0])))
     LAST_CHUNKED_ROUTE.update(chunk=chunk, buf_rows=p * chunk, m=m)
@@ -192,6 +199,28 @@ def gather_global(arr: torch.Tensor, idx: torch.Tensor, valid, *,
     return (out, ovf) if with_overflow else out
 
 
+def _route_scatter_chunked(dest_idx, values, targets, valid, width, slots,
+                           combine, ctx, with_overflow: bool):
+    """``route_scatter`` without a bound as p passes over record chunks of
+    ceil(m / p), each at cap = chunk (which no chunk can exceed), each
+    writing into the targets the last one left: the places of a "set" are
+    distinct, and "min" / "max" merge with what is there."""
+    p = ctx.p
+    m = dest_idx.shape[0]
+    outs = tuple(targets)
+    for sl, pad in _chunks(m, p):
+        outs = route_scatter(
+            _chunk(dest_idx, sl, pad),
+            tuple(_chunk(v, sl, pad) for v in values), outs,
+            _chunk(valid, sl, pad, False), width,
+            None if slots is None else _chunk(slots, sl, pad), combine,
+            ctx=ctx, cap=-(-m // p))
+    if with_overflow:
+        return outs, torch.zeros((), dtype=torch.int32,
+                                 device=dest_idx.device)
+    return outs
+
+
 _REDUCE = {"min": "amin", "max": "amax"}
 
 
@@ -224,8 +253,10 @@ def route_scatter(dest_idx, values: tuple, targets: tuple, valid,
     must then be distinct, since an indexed write with repeated indices is
     unordered on CUDA), ``"min"`` or ``"max"`` (a reducing scatter: the
     GST's ``$``-edge child ranges).  ``cap`` / ``with_overflow`` as in
-    ``route_apply``; routing by (row, slot) keeps every shipped index
-    within the row dtype (the flat global index N * width never exists)."""
+    ``route_apply``, ``cap=None`` as there in p chunks of ceil(m / p)
+    (buffers O(m), not O(p*m)); routing by (row, slot) keeps every shipped
+    index within the row dtype (the flat global index N * width never
+    exists)."""
     combine = combine or ("set",) * len(targets)
     tgt_len = targets[0].shape[0]
     s = tgt_len // width
@@ -239,6 +270,10 @@ def route_scatter(dest_idx, values: tuple, targets: tuple, valid,
         return (outs, 0) if with_overflow else outs
     p = ctx.p
     m = dest_idx.shape[0]
+    if cap is None and m > p:
+        return _route_scatter_chunked(dest_idx, values, targets, valid,
+                                      width, slots, combine, ctx,
+                                      with_overflow)
     safe_idx = torch.where(valid, dest_idx, 0)
     cap = min(m if cap is None else cap, m)
     dest = (safe_idx // s).to(torch.int32)

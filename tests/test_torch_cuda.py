@@ -1210,6 +1210,44 @@ def test_two_processes_on_the_card_equal_the_thread_mesh(cuda, tmp_path):
     assert sum(g["launches"][0] for g in got) > 0  # K6-mins at the owners
 
 
+def test_two_processes_over_nccl_equal_one_card(cuda, tmp_path):
+    """2 processes x 1 shard over NCCL, each on its own card: SA, LCP and
+    the suffix tree of a 2^20 repetitive DNA file staged per process equal
+    the one-card build's real rows, with K6's min-only entry and K5
+    launched in the workers (``ProcessGroup``'s NCCL branch: signature
+    checks, all-gathers, all-to-alls, batched sends and receives)."""
+    from psac_tpu_torch.models import suffix_array as sa_mod
+    from psac_tpu_torch.models import suffix_tree as st_mod
+    from psac_tpu_torch.ops import cuda_lib
+    from psac_tpu_torch.ops.alphabet import rep_dna
+    from test_torch_multiprocess import found, run_workers
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards: NCCL takes one a process")
+    cuda_lib.lib()  # one build before the workers start
+    path = tmp_path / "corpus.bin"
+    path.write_bytes(rep_dna(1 << 20, unit_len=512, seed=3, mutations=40))
+    run_workers(tmp_path, "build", 2, 1, backend="nccl")
+    dsa, xs = sa_mod.construct_from_file(str(path), cuda)
+    tree = st_mod.construct_suffix_tree_device(dsa, xs)
+    n, sig = dsa.n, tree.sigma + 1
+
+    def real(sa, lcp, nodes):
+        cut = sa.shape[0] - n
+        lcp = lcp[cut:].clone()
+        lcp[0] = 0
+        return sa[cut:], lcp, nodes.view(-1, sig)[cut:]
+
+    want = real(dsa.sa.cpu(), dsa.lcp.cpu(), tree.nodes.cpu())
+    got = found(tmp_path, "build")
+    for r, g in enumerate(got):
+        assert g["devices"] == [f"cuda:{r}"]
+        for a, w in zip(real(*g["arrays"][1:]), want):
+            assert torch.equal(a.to(w.dtype), w)
+        assert g["launches"][1] > 0  # K5: each shard's ANSV
+    assert sum(g["launches"][0] for g in got) > 0  # K6-mins at the owners
+
+
 # ---------------------------------------------------------------------------
 # K8, the walks
 # ---------------------------------------------------------------------------

@@ -328,6 +328,61 @@ def test_route_scatter_slots_and_combine():
         np.testing.assert_array_equal(g, want)
 
 
+@pytest.mark.parametrize("m", [8, 37, 96])
+def test_route_scatter_chunked_equals_one_pass(monkeypatch, m):
+    """Without a bound (``cap=None``) ``route_scatter`` routes in p chunks
+    of ceil(m / p), the exchange's rows O(m) and not O(p*m) (m records a
+    shard, ragged ones padded), and writes what one pass at cap = m
+    writes: a "set" of distinct (row, slot) places into a width-3 table,
+    and the min / max scatters with repeated places, at p = 4, with the
+    overflow count 0."""
+    p, rows, width = 4, 128, 3
+    rng = np.random.RandomState(m)
+    places = rng.choice(rows * width, size=m * p, replace=False)
+    dest, slots = (places // width).astype(np.int32), \
+        (places % width).astype(np.int32)
+    vals = rng.randint(0, 100, m * p).astype(np.int32)
+    valid = rng.rand(m * p) < 0.8
+    base = np.full(rows * width, 50, np.int32)
+    rep = rng.randint(0, rows, m * p).astype(np.int32)  # repeated rows
+    exchanged = []
+    exchange = t_route._exchange
+
+    def counted(xs, cap, ctx):
+        exchanged.append(xs[0].shape[0])
+        return exchange(xs, cap, ctx)
+
+    monkeypatch.setattr(t_route, "_exchange", counted)
+
+    def fn(ctx, tgt, di, v, vd, sl, rp):
+        outs, ovfs = [], []
+        for cap in (None, di.shape[0]):
+            for how, d in (("set", di), ("min", rp), ("max", rp)):
+                (out,), ovf = t_route.route_scatter(
+                    d, (v,), (tgt,), vd, width=width, slots=sl,
+                    combine=(how,), ctx=ctx, cap=cap, with_overflow=True)
+                outs.append(out)
+                ovfs.append(int(ovf))
+        return tuple(outs) + (Rep(ovfs),)
+
+    *got, ovfs = port(p, fn, base, dest, vals, valid, slots, rep)
+    assert ovfs == [0] * 6
+    for a, b in zip(got[:3], got[3:]):
+        np.testing.assert_array_equal(a, b)
+    want = base.copy()
+    want[dest[valid] * width + slots[valid]] = vals[valid]
+    np.testing.assert_array_equal(got[0], want)
+    for g, red in zip(got[1:3], (np.minimum, np.maximum)):
+        want = base.copy()
+        red.at(want, rep[valid] * width + slots[valid], vals[valid])
+        np.testing.assert_array_equal(g, want)
+    chunk = -(-m // p)
+    # each shard: 3 chunked scatters of p passes at p * chunk rows, and 3
+    # one-pass scatters at p * m rows
+    assert sorted(exchanged) == sorted([p * chunk] * p * 3 * p +
+                                       [p * m] * 3 * p)
+
+
 # ---------------------------------------------------------------------------
 # bulk range minima
 # ---------------------------------------------------------------------------

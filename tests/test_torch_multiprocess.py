@@ -73,12 +73,15 @@ torch.set_num_threads(1)
 from psac_tpu_torch.parallel import dist as pdist
 from psac_tpu_torch.parallel.mesh import Sharded, make_mesh
 
-pdist.init_distributed("gloo", rank=rank, world_size=world,
+backend = os.environ.get("PSAC_TEST_BACKEND", "gloo")
+pdist.init_distributed(backend, rank=rank, world_size=world,
                        init_method=f"tcp://127.0.0.1:{port}",
                        timeout=float(os.environ.get("PSAC_TEST_TIMEOUT", 60)))
 assert (pdist.process_index(), pdist.process_count()) == (rank, world)
 P = world * L
-mesh = make_mesh(P, [os.environ.get("PSAC_TEST_DEVICE", "cpu")] * L)
+# under NCCL every shard of a process lies on its own card
+mesh = make_mesh(P, None if backend == "nccl" else
+                 [os.environ.get("PSAC_TEST_DEVICE", "cpu")] * L)
 assert (mesh.p, mesh.local, mesh.first) == (P, L, rank * L)
 found = {}
 
@@ -98,6 +101,17 @@ if case == "collectives":
     found["outs"] = [pdist.process_allgather(o) if isinstance(o, Sharded)
                      else o for o in outs]
     found["local"] = len(outs[0].shards)
+
+if case == "comm":
+    from psac_tpu_torch.utils import timers
+
+    exec(open(os.path.join(work, "collectives.py")).read())
+    x = torch.arange(8 * P, dtype=torch.int64) * 7 % 19
+    os.environ["PSAC_TIMER"] = "1"
+    with timers.call("psac.test"):
+        mesh.run(collectives, mesh.shard(x))
+    found["spans"] = [(r.name, r.shard, dict(r.attrs), dict(r.counts))
+                      for r in timers.records() if r.name == "psac.comm"]
 
 if case == "sa":
     from psac_tpu_torch import io as io_mod
@@ -219,16 +233,17 @@ def _free_port() -> int:
 
 def run_workers(work, case: str, world: int = 2, local: int = 2,
                 timeout_s: float = 60, expect_ok: bool = True,
-                device: str = "cpu") -> list:
+                device: str = "cpu", backend: str = "gloo") -> list:
     """Start ``world`` workers on ``case``, each with ``local`` shards on
-    ``device``, and wait for all of them (at most ``WAIT_S``; all are
-    killed when that runs out).  Returns each one's (return code, output,
-    seconds)."""
+    ``device`` (under ``backend="nccl"`` on its own card), and wait for
+    all of them (at most ``WAIT_S``; all are killed when that runs out).
+    Returns each one's (return code, output, seconds)."""
     script = os.path.join(work, "worker.py")
     with open(script, "w") as f:
         f.write(_WORKER)
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
-               PSAC_TEST_TIMEOUT=str(timeout_s), PSAC_TEST_DEVICE=device)
+               PSAC_TEST_TIMEOUT=str(timeout_s), PSAC_TEST_DEVICE=device,
+               PSAC_TEST_BACKEND=backend)
     port = str(_free_port())
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
@@ -283,6 +298,71 @@ def test_collectives_equal_the_thread_mesh(tmp_path, world, local):
         assert len(got["outs"]) == len(want)
         for g, w in zip(got["outs"], want):
             assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("world,local", [(2, 2), (2, 1)])
+def test_each_collective_is_a_comm_span(tmp_path, world, local):
+    """On a mesh across processes each collective of ``Ctx`` is one
+    ``psac.comm`` span of its shard, named by its operation, with the
+    bytes the shard hands it, one readback (the signature check) and the
+    bytes its process sends to the other process; a thread mesh records
+    none."""
+    (tmp_path / "collectives.py").write_text(COLLECTIVES)
+    run_workers(tmp_path, "comm", world, local)
+    P = world * local
+    ops = (["all_gather"] + ["ppermute"] * 4 + ["all_to_all", "psum",
+                                                "pmax"])
+    # the payload of one shard: its 8 int64 rows, their bool mask and
+    # 0-d sum; slices and flips of the rows; the (P, 4) all-to-all buffer
+    payload = [64 + 8 + 4, 64 + 32, 64, 24, 64, P * 4 * (8 + 1), 8, 8]
+    for got in found(tmp_path, "comm", world):
+        spans = got["spans"]
+        assert len(spans) == len(ops) * local
+        for shard in {s[1] for s in spans}:
+            mine = [s for s in spans if s[1] == shard]
+            assert [s[2]["op"] for s in mine] == ops
+            for (_, _, attrs, _), nb in zip(mine, payload):
+                assert attrs["bytes"] == nb
+        leads = [s for s in spans if s[3]]
+        assert len(leads) == len(ops)  # the process's lead thread counts
+        for _, _, attrs, counts in leads:
+            assert counts["readbacks"] == 1
+            assert counts["comm_bytes"] >= 8 * (world - 1)
+    scope = {}
+    exec(COLLECTIVES, scope)
+    from psac_tpu_torch.utils import timers
+
+    mesh = make_mesh(4, ["cpu"] * 4)
+    try:
+        timers.clear()
+        with timers.Span("psac.test"):
+            mesh.run(scope["collectives"],
+                     mesh.shard(torch.arange(32, dtype=torch.int64)))
+        assert [r for r in timers.records() if r.name == "psac.comm"] == []
+    finally:
+        mesh.close()
+        timers.clear()
+
+
+def test_a_process_with_one_shard_times_its_driver_spans_on_it():
+    """The driver's spans (``psac.stage``, ``psac.construct`` and its
+    phases, ``psac.st``) take the card of a process's one local shard;
+    where it holds several they carry no device."""
+    one = Sharded([torch.zeros(4)], first=2, p=4)
+    assert t_sa.device_of(one) == torch.device("cpu")
+    assert t_sa.device_of(Sharded([torch.zeros(4)] * 2)) is None
+
+    class OneLocal:
+        p, local, devices = 4, 1, [torch.device("cuda", 1)]
+
+    class TwoLocal(OneLocal):
+        local = 2
+
+    args = (1 << 10, (10,), 2, True, torch.int32, None)
+    assert t_sa._Builder(*args, mesh=OneLocal()).span_device == \
+        torch.device("cuda", 1)
+    assert t_sa._Builder(*args, mesh=TwoLocal()).span_device is None
+    assert t_sa._Builder(*args[:-1], "cpu").span_device == "cpu"
 
 
 # ---------------------------------------------------------------------------
