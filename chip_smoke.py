@@ -181,7 +181,8 @@ def tansv_cases():
 
 
 # K8's two wrappers are one row of the kernel table
-TABLE_NAME = {"levels_prev_lt": "walks", "levels_next_leq": "walks"}
+TABLE_NAME = {"levels_prev_lt": "walks", "levels_next_leq": "walks",
+              "_bucket_by_dest": "route_bucket"}
 
 
 def counter(fns):
@@ -1354,6 +1355,85 @@ def check_k11(desa, pats: list, card: str, kern: dict) -> None:
         plain_ms=plain_ms, **b)
 
 
+#: K12's shapes in the 4-chip cell (p = 4, s = 134,217,728 rows a shard):
+#: the ANSV's routed calls (s / 4 rows, 99.9% skipped) and the tree's
+#: (s / 2 rows, 19% skipped), each at cap = m (a chunk of the
+#: never-overflowing route)
+K12_SHAPES = ((33_554_432, 0.999), (67_108_864, 0.19))
+
+
+def k12_bound(m: int, wide: bool) -> dict:
+    """K12's bound: the destinations (4 B) and skip flags (1 B) read twice
+    (a count pass and a place pass), the positions written once."""
+    return bound(m * (2 * 5 + (8 if wide else 4)), 0)
+
+
+def _chain_bucket(dest, p: int, cap: int, skip):
+    """The bucketing K12 replaced, as PyTorch ops (the yardstick): a stable
+    sort of the keys, the run starts' 1-D ``torch.cummax``, the slots and
+    flat positions in sorted order; (order, flat_pos)."""
+    import torch
+
+    m = dest.shape[0]
+    dkey = torch.where(skip, p, dest)
+    dsort, order = torch.sort(dkey, stable=True)
+    i = torch.arange(m, dtype=torch.int32, device=dest.device)
+    is_start = torch.ones(m, dtype=torch.bool, device=dest.device)
+    is_start[1:] = dsort[1:] != dsort[:-1]
+    start = torch.cummax(torch.where(is_start, i, 0), dim=0).values
+    slot = i - start
+    dropped = ((slot >= cap) & (dsort < p)) | (dsort >= p)
+    return order, torch.where(dropped, p * cap, dsort * cap + slot)
+
+
+def check_k12(dev, card: str, kern: dict, p: int = 4) -> None:
+    """K12 against its plain version, and against the chain it replaced
+    (the positions that chain wrote in sorted order, put in record order),
+    at the 4-chip cell's shapes (``K12_SHAPES``), timed each way: K12, the
+    plain version, the chain, and the chain's 1-D ``torch.cummax`` alone."""
+    import torch
+
+    from psac_tpu_torch.parallel import route
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    for m, share in K12_SHAPES:
+        dest = torch.randint(0, p, (m,), dtype=torch.int32, device=dev,
+                             generator=g)
+        skip = torch.rand(m, device=dev, generator=g) < share
+        cap = m
+        pos, ovf = route._bucket_by_dest(dest, p, cap, skip)
+        want, wovf = route._bucket_by_dest_plain(dest, p, cap, skip)
+        order, flat = _chain_bucket(dest, p, cap, skip)
+        chain = torch.empty_like(pos)
+        chain[order] = flat.to(pos.dtype)
+        err = max(max_abs_err((pos, ovf), (want, wovf)),
+                  max_abs_err((pos,), (chain,)))
+        del want, order, flat, chain
+        ms = cuda_ms(lambda: route._bucket_by_dest(dest, p, cap, skip), 20)
+        plain_ms = cuda_ms(
+            lambda: route._bucket_by_dest_plain(dest, p, cap, skip), 3)
+        chain_ms = cuda_ms(lambda: _chain_bucket(dest, p, cap, skip), 3)
+        runs = torch.where(torch.rand(m, device=dev, generator=g) < 1e-3,
+                           torch.arange(m, dtype=torch.int32, device=dev), 0)
+        cummax_ms = cuda_ms(lambda: torch.cummax(runs, dim=0), 3)
+        del runs
+        b = k12_bound(m, pos.dtype == torch.int64)
+        log(f"[k12] route_bucket p = {p}, {m} rows, {100 * share:.1f}% "
+            f"skipped, cap {cap}: == plain and == the sort + cummax chain "
+            f"(max abs err {err}); kernel {ms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}, "
+            f"{100 * b['bound_ms'] / ms:.2f}% reached), plain "
+            f"{plain_ms:.3f} ms, chain {chain_ms:.3f} ms (its 1-D "
+            f"torch.cummax {cummax_ms:.3f} ms) on {card}")
+        kern["route_bucket"] = dict(
+            route="cuda", source="psac_tpu_torch/csrc/route_bucket.cu",
+            replaces="psac_tpu/parallel/route.py:45", max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, **b, library_ms_chain=chain_ms,
+            cummax_ms=cummax_ms, rows=m, skipped=share)
+        del dest, skip, pos
+
+
 def k7_reads(args, got) -> dict:
     """What K7's walks read on this batch, each word of an input counted
     once over the whole batch: a lockstep replay of the kernel's walk,
@@ -1969,6 +2049,7 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
     from psac_tpu_torch.ops.bansv import block_psv, block_psv_plain
     from psac_tpu_torch.parallel import ansv as ansv_mod
     from psac_tpu_torch.parallel import par_rmq
+    from psac_tpu_torch.parallel import route as route_mod
     from psac_tpu_torch.parallel.mesh import Sharded, make_mesh
     from psac_tpu_torch.tools.k8_sweep import held_calls, recorded
     from psac_tpu_torch.verify.cases import resolve_lcp
@@ -1982,7 +2063,7 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
     reset, read = counter((rmq_mod.rmq_mins, block_psv, rmq_mod.rmq_resolve,
                            walk_mod.levels_prev_lt,
                            walk_mod.levels_next_leq, kmer_mod.kmer_pack,
-                           kmer_mod.kmer_heads))
+                           kmer_mod.kmer_heads, route_mod._bucket_by_dest))
     out = {}
 
     def sync():
@@ -2003,12 +2084,13 @@ def mesh_phase(dev, text: bytes, sa_ref, lcp_ref, tree_p1, rep_text: bytes,
             **read())
         add_launches({k: st[k] for k in ("rmq_mins", "block_psv",
                                          "rmq_resolve", "walks", "kmer_pack",
-                                         "kmer_heads")})
+                                         "kmer_heads", "route_bucket")})
         out[label] = st
         log(f"[mesh] {label}: {st['wall_s']:.3f} s, peak "
             f"{st['peak_gib']:.2f} GiB, launches K6-mins {st['rmq_mins']}, "
             f"K5 {st['block_psv']}, K6 {st['rmq_resolve']}, K8 "
-            f"{st['walks']}, K9 {st['kmer_pack']}, K10 {st['kmer_heads']}")
+            f"{st['walks']}, K9 {st['kmer_pack']}, K10 {st['kmer_heads']}, "
+            f"K12 {st['route_bucket']}")
         return res
 
     def build(t, cfg=None, m=mesh):
@@ -2348,7 +2430,7 @@ def shard_digests(x) -> list:
 
 
 PROCS_KERNELS = ("rmq_mins", "block_psv", "blind_search", "walks",
-                 "kmer_pack", "kmer_heads")
+                 "kmer_pack", "kmer_heads", "route_bucket")
 
 
 def procs_worker(rank: int, port: str, work: str, backend: str) -> int:
@@ -2369,6 +2451,7 @@ def procs_worker(rank: int, port: str, work: str, backend: str) -> int:
     from psac_tpu_torch.models.suffix_array import construct_from_file
     from psac_tpu_torch.ops import bansv, blind_search, kmer, rmq, walk
     from psac_tpu_torch.parallel import dist as pdist
+    from psac_tpu_torch.parallel import route
     from psac_tpu_torch.parallel.mesh import Sharded, make_mesh
     from psac_tpu_torch.verify.check_sa import d_check_sa
 
@@ -2383,7 +2466,7 @@ def procs_worker(rank: int, port: str, work: str, backend: str) -> int:
     reset, read = counter((rmq.rmq_mins, bansv.block_psv,
                            blind_search.blind_search, walk.levels_prev_lt,
                            walk.levels_next_leq, kmer.kmer_pack,
-                           kmer.kmer_heads))
+                           kmer.kmer_heads, route._bucket_by_dest))
     report = dict(rank=rank, backend=backend, device=str(dev), steps={})
 
     def step(label, fn):
@@ -2402,7 +2485,8 @@ def procs_worker(rank: int, port: str, work: str, backend: str) -> int:
         log(f"[procs] rank {rank} {backend}: {label} {st['wall_s']:.3f} s, "
             f"peak {st['peak_gib']:.2f} GiB, K6-mins {st['rmq_mins']}, K5 "
             f"{st['block_psv']}, K7 {st['blind_search']}, K8 "
-            f"{st['walks']}, K9 {st['kmer_pack']}, K10 {st['kmer_heads']}")
+            f"{st['walks']}, K9 {st['kmer_pack']}, K10 {st['kmer_heads']}, "
+            f"K12 {st['route_bucket']}")
         return res
 
     def same_files(prefix, want, exts):
@@ -2960,6 +3044,7 @@ def main() -> int:
     gsa_set = [whole[i:i + 4096] for i in range(0, len(whole), 4096)]
     del whole
     check_k9_k10(dev, text, gsa_set, card, kern)
+    check_k12(dev, card, kern)
     label = f"2^{args.log2n} LCP"
     engines = {label: engine_comparison(lcp_adj, label, card)}
     del lcp_adj, xr, small, other, advs

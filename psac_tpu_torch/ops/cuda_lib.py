@@ -59,6 +59,8 @@ _SIGNATURES = {
     "psac_kmer_heads_i64": [_P] * 8 + [_I64] + [_I32] * 5
                            + [_I64, _I64, _I64, _P],
     "psac_pattern_pack": [_P] * 6 + [_I64, _I32, _P],
+    "psac_route_bucket_i32": [_P, _P, _I64, _I32, _I64] + [_P] * 5,
+    "psac_route_bucket_i64": [_P, _P, _I64, _I32, _I64] + [_P] * 5,
 }
 
 _lib = None

@@ -16,11 +16,26 @@ With one shard (``ctx=None``) every record is already at its owner:
 ``route_scatter`` an indexed write (or, with ``combine``, a reducing
 scatter).  Records that are not routed land on one extra drop slot (JAX
 drops out-of-range scatter indices; torch raises, hence the explicit slot).
+
+The bucketing (``_bucket_by_dest``) gives each record its buffer position
+in record order, so a payload goes out with one scatter and its answers
+come back with one gather.  On a card it is the hand-written kernel K12
+(``psac_tpu_torch/csrc/route_bucket.cu``), a stable counting sort over the
+p + 1 keys (p destinations and the skipped records) in three launches:
+per-tile counts, one block's scan of them, the positions.  It replaces the
+JAX package's stable argsort and 1-D cummax of the run starts
+(``psac_tpu/parallel/route.py::_bucket_by_dest``), whose PyTorch twin ran
+the cummax on few threads; its bound is 14 B a record (the keys and skip
+flags read twice, the positions written once).  On the CPU
+``_bucket_by_dest_plain`` computes the same positions.
 """
 
 from __future__ import annotations
 
 import torch
+
+from psac_tpu_torch.ops import cuda_lib
+from psac_tpu_torch.utils import timers
 
 
 def _multi(ctx) -> bool:
@@ -36,37 +51,103 @@ def cap_for(m: int, p: int, capscale: int | None) -> int | None:
     return min(m, capscale * (-(-m // p)) + 64)
 
 
-def _bucket_by_dest(dest: torch.Tensor, p: int, cap: int, skip=None):
-    """Stable buckets of the records by destination shard.
+#: K12's keys a launch takes: 8 warps x (p + 1) int64 offsets in 48 KB of
+#: shared memory
+MAX_KEYS = 768
+_WARPS = 8  # K12's warps a block, each counting 1024 rows of its tile
+_TILE = _WARPS * 1024
 
-    Returns (order, dropped, ovf, flat_pos): record ``order[t]`` goes to
-    flat buffer position ``flat_pos[t] = dest_sorted[t] * cap + slot[t]``.
-    Records with ``skip`` sort last and take the drop slot p * cap without
-    using capacity; records whose slot reaches ``cap`` overflow (dropped and
-    counted)."""
-    m = dest.shape[0]
-    dkey = dest.to(torch.int32)
-    if skip is not None:
-        dkey = torch.where(skip, p, dkey)
-    dsort, order = torch.sort(dkey, stable=True)
-    i = torch.arange(m, dtype=torch.int32, device=dest.device)
-    is_start = torch.ones(m, dtype=torch.bool, device=dest.device)
-    is_start[1:] = dsort[1:] != dsort[:-1]
-    start = torch.cummax(torch.where(is_start, i, 0), dim=0).values
-    slot = i - start
-    skipped = dsort >= p
-    ovf = (slot >= cap) & ~skipped
-    dropped = ovf | skipped
+
+def _pos_dtype(p: int, cap: int) -> torch.dtype:
     # the flat index reaches p*cap: int64 beyond int32 (huge int64 builds)
-    fdt = torch.int32 if p * cap < (1 << 31) else torch.int64
-    flat_pos = torch.where(dropped, p * cap,
-                           dsort.to(fdt) * cap + slot.to(fdt)).to(fdt)
-    return order, dropped, ovf, flat_pos
+    return torch.int32 if p * cap < (1 << 31) else torch.int64
 
 
-def _to_buf(x: torch.Tensor, order, flat_pos, buf_len: int, fill=0):
+def _bucket_by_dest_plain(dest: torch.Tensor, p: int, cap: int, skip=None):
+    """Plain version of K12: (pos, ovf) as ``_bucket_by_dest`` gives them,
+    from a stable sort of the keys and each key's first place among them
+    (a bincount's exclusive prefix)."""
+    m = dest.shape[0]
+    key = dest.to(torch.int64)
+    out = (key < 0) | (key >= p)
+    if skip is not None:
+        out |= skip
+    key = torch.where(out, p, key)
+    dsort, order = torch.sort(key, stable=True)
+    counts = torch.bincount(key, minlength=p + 1)
+    first = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(m, device=dest.device) - first[dsort]
+    flat = torch.where((dsort < p) & (slot < cap), dsort * cap + slot, p * cap)
+    pos = torch.empty(m, dtype=_pos_dtype(p, cap), device=dest.device)
+    pos[order] = flat.to(pos.dtype)
+    ovf = (counts[:p] - cap).clamp(min=0).sum().to(torch.int32)
+    return pos, ovf
+
+
+def _bucket_by_dest(dest: torch.Tensor, p: int, cap: int, skip=None):
+    """Stable buckets of the records by destination shard, K12.
+
+    Returns (pos, ovf): record i goes to flat buffer position ``pos[i] =
+    dest[i] * cap + slot``, its slot the count of the records before it
+    with the same destination, so each destination keeps index order.
+    Records with ``skip`` (or a destination outside [0, p)) take the drop
+    slot p * cap without using capacity; records whose slot reaches ``cap``
+    overflow: they take the drop slot too, and ``ovf`` (a 0-d int32
+    tensor) counts them.  ``pos`` is int32, int64 where p * cap reaches
+    2^31.  Given CUDA tensors it launches K12 or raises; given CPU tensors
+    it runs ``_bucket_by_dest_plain``.  This is the JAX package's function
+    of the same name (``psac_tpu/parallel/route.py::_bucket_by_dest``)
+    with its (order, flat_pos) written as ``pos[order] = flat_pos``.
+
+    K12 is a stable counting sort in three launches: each warp counts its
+    1024 rows per key (``__match_any_sync``), one block scans the tiles'
+    counts per key and writes ``ovf``, and each warp walks its rows again,
+    a record's slot being its key's running count plus the lanes below it
+    in its match group.  Bound: 14 B a record (the keys and skip flags
+    read twice, the int32 positions written once)."""
+    if dest.device.type == "cpu":
+        return _bucket_by_dest_plain(dest, p, cap, skip)
+    name = "route_bucket"
+    if not 1 <= p < MAX_KEYS or cap < 0:
+        raise ValueError(f"{name}: expected 1 <= p < {MAX_KEYS} and cap >= "
+                         f"0, got p = {p}, cap = {cap}")
+    dev = dest.device
+    dest = dest.to(torch.int32).contiguous()
+    if dest.dim() != 1:
+        raise ValueError(f"{name}: expected 1-D destinations")
+    if skip is not None:
+        if skip.dtype != torch.bool or skip.shape != dest.shape \
+                or skip.device != dev:
+            raise ValueError(f"{name}: expected a bool skip mask of the "
+                             "destinations' shape on their device")
+        skip = skip.contiguous()
+    m = dest.shape[0]
+    tiles = -(-m // _TILE)
+    wcount = torch.empty(tiles * _WARPS * (p + 1), dtype=torch.int32,
+                         device=dev)
+    tcount = torch.empty((p + 1) * tiles, dtype=torch.int64, device=dev)
+    ovf = torch.empty((), dtype=torch.int32, device=dev)
+    pos = torch.empty(m, dtype=_pos_dtype(p, cap), device=dev)
+    wide = pos.dtype == torch.int64
+    cuda_lib.launch(f"psac_route_bucket_{'i64' if wide else 'i32'}",
+                    dest.data_ptr(),
+                    None if skip is None else skip.data_ptr(), m, p, cap,
+                    wcount.data_ptr(), tcount.data_ptr(), ovf.data_ptr(),
+                    pos.data_ptr(), device=dev)
+    cuda_lib.count_launch(_bucket_by_dest)
+    timers.count("bucket_rows_on_card", m)
+    return pos, ovf
+
+
+_bucket_by_dest.launches = 0
+
+
+def _to_buf(x: torch.Tensor, idx: torch.Tensor, buf_len: int, fill=0):
+    """x written at the records' int64 buffer positions ``idx`` of a
+    (buf_len, ...) buffer of ``fill`` (dropped records at buf_len, cut
+    off)."""
     buf = x.new_full((buf_len + 1,) + x.shape[1:], fill)
-    buf[flat_pos.long()] = x[order]
+    buf[idx] = x
     return buf[:buf_len]
 
 
@@ -102,27 +183,26 @@ def route_apply(payloads: tuple, answer_fn, skip=None, *, dest=None,
         return _route_apply_chunked(payloads, dest, answer_fn, ctx, skip,
                                     with_overflow)
     cap = min(m if cap is None else cap, m)
-    order, dropped, ovf, flat_pos = _bucket_by_dest(dest, p, cap, skip)
+    idx, ovf = _bucket_by_dest(dest, p, cap, skip)
     buf_len = p * cap
-    sent = tuple(_to_buf(x, order, flat_pos, buf_len) for x in payloads)
+    idx = idx.long()
+    sent = tuple(_to_buf(x, idx, buf_len) for x in payloads)
     sent_valid = _to_buf(torch.ones(m, dtype=torch.bool, device=dest.device),
-                         order, flat_pos, buf_len, False)
+                         idx, buf_len, False)
     *recv, recv_valid = _exchange(sent + (sent_valid,), cap, ctx)
     answers = answer_fn(tuple(recv), recv_valid)
     back = _exchange(tuple(answers), cap, ctx)
-    # un-bucket: the answer of record order[t] sits at flat_pos[t]
-    safe_pos = flat_pos.clamp(max=buf_len - 1).long()
+    # un-bucket: the answer of record i sits at pos[i]
+    dropped = idx == buf_len
+    idx = idx.clamp_(max=buf_len - 1)
     outs = []
     for a in back:
-        picked = a[safe_pos]
+        picked = a[idx]
         mask = dropped if picked.dim() == 1 else \
             dropped.view((-1,) + (1,) * (picked.dim() - 1))
-        picked = torch.where(mask, torch.zeros_like(picked), picked)
-        out = torch.zeros((m,) + a.shape[1:], dtype=a.dtype, device=a.device)
-        out[order] = picked
-        outs.append(out)
+        outs.append(picked.masked_fill_(mask, 0))
     if with_overflow:
-        return tuple(outs), ctx.psum(ovf.sum(dtype=torch.int32))
+        return tuple(outs), ctx.psum(ovf)
     return tuple(outs)
 
 
@@ -278,13 +358,14 @@ def route_scatter(dest_idx, values: tuple, targets: tuple, valid,
     cap = min(m if cap is None else cap, m)
     dest = (safe_idx // s).to(torch.int32)
     # invalid records are never routed (they use no capacity)
-    order, dropped, ovf, flat_pos = _bucket_by_dest(dest, p, cap, ~valid)
+    idx, ovf = _bucket_by_dest(dest, p, cap, ~valid)
     buf_len = p * cap
-    sent = (_to_buf(safe_idx, order, flat_pos, buf_len),) + tuple(
-        _to_buf(v, order, flat_pos, buf_len) for v in values)
+    idx = idx.long()
+    sent = (_to_buf(safe_idx, idx, buf_len),) + tuple(
+        _to_buf(v, idx, buf_len) for v in values)
     if width > 1:
-        sent += (_to_buf(slots, order, flat_pos, buf_len),)
-    sent_valid = _to_buf(valid, order, flat_pos, buf_len, False)
+        sent += (_to_buf(slots, idx, buf_len),)
+    sent_valid = _to_buf(valid, idx, buf_len, False)
     *recv, recv_valid = _exchange(sent + (sent_valid,), cap, ctx)
     loc = recv[0].to(torch.int64) - ctx.rank * s
     if width > 1:
@@ -294,5 +375,5 @@ def route_scatter(dest_idx, values: tuple, targets: tuple, valid,
     outs = tuple(_write(t, loc, v, how)
                  for t, v, how in zip(targets, vals, combine))
     if with_overflow:
-        return outs, ctx.psum(ovf.sum(dtype=torch.int32))
+        return outs, ctx.psum(ovf)
     return outs

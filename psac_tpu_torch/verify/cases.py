@@ -1,6 +1,7 @@
 """Seeded inputs for checking the previous-smaller pass (K5), the LCP
 resolve (K6), the walks (K8), the k-mer init (K9, K10), the DESA's pattern
-encoding (K11) and the generalized suffix array, shared by the CPU tests, the GPU tests and ``chip_smoke.py``
+encoding (K11), the routing's bucketing (K12) and the generalized suffix
+array, shared by the CPU tests, the GPU tests and ``chip_smoke.py``
 so that all three drive the same cases."""
 
 from __future__ import annotations
@@ -8,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 from psac_tpu_torch.ops.alphabet import rand_dna
+from psac_tpu_torch.parallel.route import _TILE as _K12_TILE
 
 
 def near_identical_family(count: int, length: int, subs: int,
@@ -437,3 +439,42 @@ def pattern_batch(name: str) -> list:
     if name == "lmax256":
         return subs(list(rng.randint(129, 257, 3000)))
     raise KeyError(name)
+
+
+#: K12's rows a block: the cases reach one tile exactly and one row past it
+BUCKET_TILE = _K12_TILE
+#: (m, skip share, cap) of the bucketing cases; cap None is m (no record
+#: overflows), an int a cap the busiest destinations overflow
+BUCKET_CASES = {
+    "empty": (0, 0.0, None),
+    "one": (1, 0.0, None),
+    "one_skipped": (1, 1.0, None),
+    "tile": (BUCKET_TILE, 0.1, None),
+    "tile_plus_one": (BUCKET_TILE + 1, 0.0, None),
+    "skip_none": (50_000, 0.0, None),
+    "skip_10": (50_000, 0.1, None),
+    "skip_90": (50_000, 0.9, None),
+    "overflow": (50_000, 0.1, "tight"),
+    "overflow_skip_90": (50_000, 0.9, "tight"),
+    "one_shard": (30_000, 0.1, "tight"),
+}
+
+
+def bucket_case(name: str, p: int, seed: int = 5):
+    """(dest int32, skip bool, cap) of a routing's bucketing at ``p``
+    shards: uniform destinations (every record to shard p - 1 in
+    ``one_shard``), a seeded share skipped, and at a "tight" cap 3/4 of an
+    even share of the records not skipped, so the busiest destinations
+    overflow."""
+    m, share, cap = BUCKET_CASES[name]
+    rng = np.random.RandomState(seed + 97 * p)
+    if name == "one_shard":
+        dest = np.full(m, p - 1, np.int32)
+    else:
+        dest = rng.randint(0, p, m).astype(np.int32)
+    skip = rng.rand(m) < share if 0 < share < 1 else np.full(m, share == 1)
+    if cap is None:
+        cap = m
+    else:
+        cap = max(1, 3 * int((~skip).sum()) // (4 * p))
+    return dest, skip, cap

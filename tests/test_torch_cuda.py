@@ -1669,3 +1669,92 @@ def test_pattern_pack_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                 dict(mapping=mapping)):
         with pytest.raises(ValueError):
             k11.pattern_pack(**{**a, **bad})
+
+
+# --------------------------------------------------- K12 route_bucket
+
+@pytest.mark.parametrize("name", sorted(cases.BUCKET_CASES))
+@pytest.mark.parametrize("p", [2, 3, 4, 8])
+def test_route_bucket_kernel_vs_plain(cuda, monkeypatch, p, name):
+    """K12 gives its plain version's positions (dtype included) and overflow
+    count bit for bit, with and without a skip mask; it launches once a
+    call, empty calls included, and calls neither ``torch.sort`` nor
+    ``torch.cummax``; the ``bucket_rows_on_card`` counter of the open span
+    rises by the call's rows."""
+    from psac_tpu_torch.parallel import route
+    from psac_tpu_torch.utils import timers
+
+    dest, skip, cap = cases.bucket_case(name, p)
+    d, s = torch.from_numpy(dest), torch.from_numpy(skip)
+    want = [route._bucket_by_dest_plain(d, p, cap, s),
+            route._bucket_by_dest_plain(d, p, cap)]
+
+    def refuse(*a, **k):
+        raise AssertionError("K12's wrapper sorted or scanned in torch")
+
+    monkeypatch.setattr(torch, "sort", refuse)
+    monkeypatch.setattr(torch, "cummax", refuse)
+    monkeypatch.setenv("PSAC_TIMER", "1")
+    timers.clear()
+    before = route._bucket_by_dest.launches
+    with timers.call("psac.test.bucket", cuda):
+        got = [route._bucket_by_dest(d.to(cuda), p, cap, s.to(cuda)),
+               route._bucket_by_dest(d.to(cuda), p, cap)]
+    tot = timers.totals(timers.records(), "psac.test.bucket")
+    timers.clear()
+    monkeypatch.undo()
+    for (gp, go), (wp, wo) in zip(got, want):
+        assert gp.device.type == "cuda" and gp.dtype == wp.dtype
+        assert torch.equal(gp.cpu(), wp)
+        assert go.dtype == torch.int32 and go.dim() == 0
+        assert int(go) == int(wo)
+    assert route._bucket_by_dest.launches - before == 2
+    assert tot.count("bucket_rows_on_card") == 2 * dest.shape[0]
+
+
+@pytest.mark.parametrize("p", [2, 5, 767])
+def test_route_bucket_kernel_many_keys_and_int64_positions(cuda, p):
+    """Up to the most keys a launch takes (p = 767: 48 KB of offsets), and
+    at a cap where p * cap reaches 2^31, so the positions are int64."""
+    from psac_tpu_torch.parallel import route
+
+    rng = np.random.RandomState(p)
+    m = 3 * 8192 + 77
+    d = torch.from_numpy(rng.randint(-1, p + 2, m).astype(np.int32))
+    s = torch.from_numpy(rng.rand(m) < 0.3)
+    for cap in (m // (2 * p) + 1, m, (1 << 31) // p + 1):
+        gp, go = route._bucket_by_dest(d.to(cuda), p, cap, s.to(cuda))
+        wp, wo = route._bucket_by_dest_plain(d, p, cap, s)
+        assert gp.dtype == wp.dtype == (
+            torch.int64 if p * cap >= 1 << 31 else torch.int32)
+        assert torch.equal(gp.cpu(), wp) and int(go) == int(wo)
+
+
+def test_route_bucket_kernel_on_another_stream_and_int64_dest(cuda):
+    """K12 runs on the current stream of its tensors' device (a side stream
+    here) and takes int64 destinations and a non-contiguous mask."""
+    from psac_tpu_torch.parallel import route
+
+    rng = np.random.RandomState(3)
+    m = 100_003
+    d = torch.from_numpy(rng.randint(0, 4, m).astype(np.int64))
+    s = torch.from_numpy(rng.rand(2 * m) < 0.5)[::2]
+    want = route._bucket_by_dest_plain(d, 4, m // 5, s)
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        dd, ss = d.to(cuda), s.to(cuda)
+        got = route._bucket_by_dest(dd, 4, m // 5, ss)
+    side.synchronize()
+    assert torch.equal(got[0].cpu(), want[0]) and int(got[1]) == int(want[1])
+
+
+def test_route_bucket_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from psac_tpu_torch.parallel import route
+
+    d = torch.zeros(10, dtype=torch.int32, device=cuda)
+    s = torch.zeros(10, dtype=torch.bool, device=cuda)
+    for args in ((d, route.MAX_KEYS, 10, s), (d, 0, 10, s), (d, 4, -1, s),
+                 (d, 4, 10, s.to(torch.uint8)), (d, 4, 10, s[:5]),
+                 (d, 4, 10, s.cpu()), (d.view(2, 5), 4, 10, None)):
+        with pytest.raises(ValueError):
+            route._bucket_by_dest(*args)

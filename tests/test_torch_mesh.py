@@ -35,6 +35,7 @@ from psac_tpu_torch.parallel.mesh import (Rep, Sharded, make_mesh,
 from psac_tpu_torch.parallel.par_rmq import bulk_rmq_local
 from psac_tpu_torch.parallel.sort import (dist_sort_local,
                                           scatter_by_index_local)
+from psac_tpu_torch.verify import cases
 
 torch.set_num_threads(1)
 
@@ -381,6 +382,42 @@ def test_route_scatter_chunked_equals_one_pass(monkeypatch, m):
     # one-pass scatters at p * m rows
     assert sorted(exchanged) == sorted([p * chunk] * p * 3 * p +
                                        [p * m] * 3 * p)
+
+
+@pytest.mark.parametrize("name", sorted(cases.BUCKET_CASES))
+@pytest.mark.parametrize("p", [2, 3, 4, 8])
+def test_bucket_plain_vs_jax(p, name):
+    """The plain bucketing (K12's plain version) gives each record the
+    buffer position the JAX package's ``_bucket_by_dest`` gives it
+    (its (order, flat_pos) written as positions in record order), in the
+    same dtype, and its overflow count; a case without a skipped record
+    passes no mask."""
+    dest, skip, cap = cases.bucket_case(name, p)
+    sk = skip if skip.any() else None
+    pos, ovf = t_route._bucket_by_dest(
+        torch.from_numpy(dest), p, cap,
+        None if sk is None else torch.from_numpy(sk))
+    order, _, j_ovf, flat = j_route._bucket_by_dest(
+        jnp.asarray(dest), p, cap, None if sk is None else jnp.asarray(sk))
+    want = np.empty(dest.shape[0], np.asarray(flat).dtype)
+    want[np.asarray(order)] = np.asarray(flat)
+    assert pos.dtype == torch.int32 and want.dtype == np.int32
+    np.testing.assert_array_equal(pos.numpy(), want)
+    assert ovf.dtype == torch.int32 and ovf.dim() == 0
+    assert int(ovf) == int(np.asarray(j_ovf).sum())
+    if name.startswith("overflow") or name == "one_shard":
+        assert int(ovf) > 0
+
+
+def test_bucket_plain_int64_positions():
+    """Where p * cap reaches 2^31 the positions are int64 (the drop slot
+    p * cap among them), as the JAX package's under x64."""
+    p, cap = 4, 1 << 30
+    dest = torch.tensor([3, 0, 3, 1, 2, 3], dtype=torch.int32)
+    skip = torch.tensor([False, False, True, False, False, False])
+    pos, ovf = t_route._bucket_by_dest(dest, p, cap, skip)
+    assert pos.dtype == torch.int64 and int(ovf) == 0
+    assert pos.tolist() == [3 * cap, 0, p * cap, cap, 2 * cap, 3 * cap + 1]
 
 
 # ---------------------------------------------------------------------------

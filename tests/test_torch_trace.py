@@ -545,3 +545,30 @@ def test_mesh_shards_carry_their_shard(monkeypatch, capsys):
     assert roots(recs, "psac.materialize")
     ref, _ = build(REP_TAIL)
     np.testing.assert_array_equal(res.sa, ref.materialize().sa)
+
+
+def test_bucket_rows_count_only_on_the_card(monkeypatch, capsys):
+    """The routing's ``bucket_rows_on_card`` counter counts the rows K12
+    places: none on a CPU mesh, where the tree's routes bucket with the
+    plain version (the count a card gives: ``test_torch_cuda.py``)."""
+    from psac_tpu_torch.parallel import route
+
+    monkeypatch.setenv("PSAC_TIMER", "1")
+    calls = []
+    plain = route._bucket_by_dest_plain
+
+    def noted(dest, *args):
+        calls.append(dest.shape[0])
+        return plain(dest, *args)
+
+    monkeypatch.setattr(route, "_bucket_by_dest_plain", noted)
+    mesh = make_mesh(4, devices=["cpu"] * 4)
+    try:
+        dsa, xs = build(REP_TAIL, mesh=mesh)
+        construct_suffix_tree_device(dsa, xs)
+    finally:
+        mesh.close()
+    capsys.readouterr()
+    tot = timers.totals(timers.records(), ("psac.construct", "psac.st"))
+    assert calls and sum(calls) > 0
+    assert tot.count("bucket_rows_on_card") == 0
