@@ -6,11 +6,13 @@ each against its plain PyTorch version on the card (at the main path's
 shapes and on adversaries; the k-mer init's K9 and K10 on the arguments
 of the init of the 2^26 SA+LCP, of the random string set's GSA and of a
 2^20 ``force_int64`` build), times the suffix tree's ANSV pass both ways
-(the tile-spine pass, K4 + K1, against the dual scan K2), then drives the
+(the spine engine's tile-spine pass, K4 + K1, against the tree's dual
+scan K2), then drives the
 main paths through the user entry points, most with no device (the card
 is the default): SA+LCP of 2^26 random DNA, SA+LCP of 2^24 repetitive DNA
 (the LCP resolve K6 in every dense and tail step), the suffix tree of the
-2^26 text and that of the 2^24 repetitive text (its ANSV pass runs on K2);
+2^26 text and that of the 2^24 repetitive text (each ANSV pass one K2
+launch);
 the public ANSV of 2^24 values for five match-type pairs; the DESA of the
 2^26 text with both top-level indexes, answering batches of 65,536
 patterns of lengths 8, 20 and 64 (the blind search K7, held against its
@@ -214,7 +216,7 @@ def add_launches(counts: dict) -> None:
 
 def pad_chunk(x, value: int = 2**31 - 1):
     """x padded at the end with ``value`` to a multiple of 2048, as the
-    ANSV pads an int32 array."""
+    ANSV's spine engine pads an int32 array."""
     import torch
 
     pad = -x.shape[0] % 2048
@@ -230,8 +232,8 @@ def check_k4_k1(dev, lcp_adj, log2n: int, kern: dict) -> None:
 
     from psac_tpu_torch.ops.nsv_scan import (nsv_scan_spine,
                                              nsv_scan_spine_plain)
-    from psac_tpu_torch.ops.tansv import (pack_spines, spine_streams,
-                                          tile_side, tile_side_plain)
+    from psac_tpu_torch.ops.tansv import (spine_streams, tile_side,
+                                          tile_side_plain)
 
     S = lcp_adj.shape[0]
     cases = tansv_cases()
@@ -257,9 +259,7 @@ def check_k4_k1(dev, lcp_adj, log2n: int, kern: dict) -> None:
 
     spine_f = tile_side(lcp_adj, True)[3]
     spine_n = tile_side(lcp_adj.flip(0), False)[3]
-    kf, vf, kn, vn, ovf = spine_streams(lcp_adj, spine_f, spine_n)
-    if ovf:
-        raise AssertionError("spine of the random-DNA LCP overflowed")
+    kf, vf, kn, vn = spine_streams(lcp_adj, spine_f, spine_n)
     errs = [max_abs_err(nsv_scan_spine(vf, kf, vn, kn),
                         nsv_scan_spine_plain(vf, kf, vn, kn))]
     advs = scan_adversaries(dev)
@@ -269,8 +269,9 @@ def check_k4_k1(dev, lcp_adj, log2n: int, kern: dict) -> None:
     ).astype(np.int32)).to(dev)
     for x in advs.values():
         x = pad_chunk(x)
-        f_k, f_v, n_k, n_v = pack_spines(x, tile_side_plain(x, True)[3],
-                                         tile_side_plain(x.flip(0), False)[3])
+        f_k, f_v, n_k, n_v = spine_streams(
+            x, tile_side_plain(x, True)[3],
+            tile_side_plain(x.flip(0), False)[3])
         errs.append(max_abs_err(nsv_scan_spine(f_v, f_k, n_v, n_k),
                                 nsv_scan_spine_plain(f_v, f_k, n_v, n_k)))
     m = kf.shape[0]
@@ -288,27 +289,24 @@ def check_k4_k1(dev, lcp_adj, log2n: int, kern: dict) -> None:
 
 def engine_comparison(x, label: str, card: str) -> dict:
     """The suffix tree's (FURTHEST_EQ, NEAREST_SM) pass on the LCP ``x``
-    two ways: the tile-spine pass (``tansv_feq_nsm``: K4 twice, the spine
-    streams, K1, the combine) and the dual scan K2 on x and its reverse;
-    both must agree.  A spine over the capacity would send the pass to K2,
-    so the capacity is lifted here (``CAPDIV`` = 1) to time the tile-spine
-    pass on any spine.  CUDA-event means over 5 calls after a warm-up."""
-    from unittest import mock
-
+    through ``ansv_local`` on two engines: ``spine`` (K4 twice, the spine
+    streams, K1, the combine) and the tree's, ``hybrid`` (the dual scan K2
+    on x and its reverse); both must agree.  CUDA-event means over 5 calls
+    after a warm-up."""
     from psac_tpu_torch.ops import tansv
     from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_SM
-    from psac_tpu_torch.ops.nsv_scan import nsv_scan_dual
+    from psac_tpu_torch.parallel.ansv import ansv_local
 
     S = x.shape[0]
     spines = (int(tansv.tile_side(x, True)[3].sum()),
               int(tansv.tile_side(x.flip(0), False)[3].sum()))
-    with mock.patch.object(tansv, "CAPDIV", 1):
-        got = tansv.tansv_feq_nsm(x)
-        max_abs_err(got[:4], nsv_scan_dual(x, x.flip(0), FURTHEST_EQ,
-                                           NEAREST_SM)[:4])
-        t_spine = cuda_ms(lambda: tansv.tansv_feq_nsm(x), 5)
-    t_dual = cuda_ms(lambda: nsv_scan_dual(x, x.flip(0), FURTHEST_EQ,
-                                           NEAREST_SM), 5)
+
+    def run(engine):
+        return ansv_local(x, FURTHEST_EQ, NEAREST_SM, engine=engine)
+
+    max_abs_err(run("spine"), run("hybrid"))
+    t_spine = cuda_ms(lambda: run("spine"), 5)
+    t_dual = cuda_ms(lambda: run("hybrid"), 5)
     out = dict(tile_spine_ms=t_spine, dual_ms=t_dual, spines=spines,
                spine_share=max(spines) / S)
     log(f"[engines] {label} ({S} rows): tile-spine pass {t_spine:.3f} ms, "
@@ -805,8 +803,8 @@ def gsa_phase(label: str, strings: list, want_k6: bool, card: str) -> dict:
         if gsa_counts[k] == 0:
             raise AssertionError(f"{k} was not launched by the GSA of "
                                  f"{label}")
-    if gst_counts["tile_side"] != 2 or \
-            gst_counts["nsv_scan_spine"] + gst_counts["nsv_scan_dual"] != 1:
+    if (gst_counts["nsv_scan_dual"], gst_counts["tile_side"],
+            gst_counts["nsv_scan_spine"]) != (1, 0, 0):
         raise AssertionError(f"GST of {label} launched {gst_counts}")
     flat, lens = _flatten(strings)
     t0 = time.perf_counter()
@@ -940,13 +938,11 @@ def tail_stages_check(card: str) -> None:
         f"{resolve_steps(calls)}; GST == plain path; on {card}")
 
 
-def rep_tree_phase(dev, rep_text: bytes, log2n: int, overflows: bool,
-                   card: str) -> dict:
-    """The suffix tree of repetitive DNA on the card.  When its LCP spines
-    overflow the tile-spine engine's capacity (``overflows``, as they do at
-    2^24), the ANSV pass runs on K2: K4 twice and K2 once, counted; the
-    tree is held against the plain path's; timed with the host clock
-    around a synchronized call, first and second."""
+def rep_tree_phase(dev, rep_text: bytes, log2n: int, card: str) -> dict:
+    """The suffix tree of repetitive DNA on the card: its ANSV pass is one
+    K2 launch and no K4 or K1 launch, counted; the tree is held against the
+    plain path's; timed with the host clock around a synchronized call,
+    first and second."""
     import torch
 
     from psac_tpu_torch.models.suffix_array import (construct_device,
@@ -960,8 +956,7 @@ def rep_tree_phase(dev, rep_text: bytes, log2n: int, overflows: bool,
     xs, alpha, n, N = encode_and_shard(rep_text, dev)
     dsa = construct_device(xs, alpha, n, N)
     reset, read = counter((tile_side, nsv_scan_spine, nsv_scan_dual))
-    want = {"tile_side": 2, "nsv_scan_spine": int(not overflows),
-            "nsv_scan_dual": int(overflows)}
+    want = {"tile_side": 0, "nsv_scan_spine": 0, "nsv_scan_dual": 1}
     out = {}
     for run in ("cold", "warm"):
         reset()
@@ -1015,7 +1010,7 @@ def public_ansv_phase(dev, log2n: int, card: str) -> dict:
               (NEQ, FEQ): {"block_psv": 1, "nsv_scan_left": 1},
               (FEQ, NEQ): {"block_psv": 1, "nsv_scan_left": 1},
               (FEQ, FEQ): {"nsv_scan_dual": 1},
-              (FEQ, NSM): {"tile_side": 2, "nsv_scan_spine": 1}}
+              (FEQ, NSM): {"nsv_scan_dual": 1}}
     names = {NSM: "NSM", NEQ: "NEQ", FEQ: "FEQ"}
     vals = ansv_values(log2n)
     total = dict.fromkeys(read(), 0)
@@ -2694,8 +2689,8 @@ def engines_phase(dev, log2n: int, card: str) -> None:
     card for every pair ``benchmark-ansv`` times and each of its inputs
     (and the public ANSV phase's values), at 2^log2n: every answer equals
     the plain path's (the kernels' plain versions), and each call launches
-    the kernels its engine names (K2 where the tile-spine pass's spine
-    overflows).  Comparisons only: these launches are not counted."""
+    the kernels its engine names.  Comparisons only: these launches are not
+    counted."""
     import torch
 
     from psac_tpu_torch.cli import ansv_inputs
@@ -2725,12 +2720,11 @@ def engines_phase(dev, log2n: int, card: str) -> None:
                 got = _ansv(x, lt, rt, KERNELS, x.dtype, eng)
                 counts = {k: v for k, v in read().items() if v}
                 max_abs_err(got, want)
-                spine = {"tile_side": 2, "nsv_scan_spine": 1}
-                expect = [{"nsv_scan_dual": 1}] if eng == "scan" else \
-                    [spine, {"tile_side": 2, "nsv_scan_dual": 1}] \
-                    if cname == "feq-sm" and eng != "block" else \
-                    [{"block_psv": 2}]
-                if counts not in expect:
+                expect = {"tile_side": 2, "nsv_scan_spine": 1} \
+                    if eng == "spine" else {"nsv_scan_dual": 1} \
+                    if eng == "scan" or (eng, cname) == ("hybrid", "feq-sm") \
+                    else {"block_psv": 2}
+                if counts != expect:
                     raise AssertionError(f"{eng} {iname} {cname} launched "
                                          f"{counts}")
                 ran[eng, iname, cname] = ",".join(
@@ -2956,11 +2950,11 @@ def main() -> int:
     from psac_tpu_torch.verify.cases import near_identical_family
     from psac_tpu_torch.ops.ansv import (FURTHEST_EQ, NEAREST_EQ, NEAREST_SM,
                                          ansv_seq)
-    from psac_tpu_torch.ops.nsv_scan import (CHUNK, nsv_scan_dual,
+    from psac_tpu_torch.ops.nsv_scan import (nsv_scan_dual,
                                              nsv_scan_dual_plain,
                                              nsv_scan_spine)
     from psac_tpu_torch.ops.rmq import rmq_resolve
-    from psac_tpu_torch.ops.tansv import CAPDIV, tile_side
+    from psac_tpu_torch.ops.tansv import tile_side
     from psac_tpu_torch.parallel.ansv import PLAIN, ansv_local
     from psac_tpu_torch.verify.suffix_tree_oracle import suffix_tree_oracle
 
@@ -2997,8 +2991,9 @@ def main() -> int:
     kern = {}
 
     def padded_lcp(lcp):
-        """A host LCP array as the ANSV takes it: int32 on the card, padded
-        at the end with INT32_MAX to a multiple of 2048."""
+        """A host LCP array as the ANSV's spine engine takes it: int32 on
+        the card, padded at the end with INT32_MAX to a multiple of
+        2048."""
         return pad_chunk(torch.from_numpy(lcp.astype(np.int32)).to(dev))
 
     lcp_adj = padded_lcp(lcp_ref)
@@ -3054,7 +3049,8 @@ def main() -> int:
                                          nsv_scan_dual, rmq_resolve,
                                          kmer_pack, kmer_heads))
 
-    # SA+LCP and suffix tree of the 2^26 text: K4 and K1 must run here
+    # SA+LCP and suffix tree of the 2^26 text: the tree's ANSV pass is one
+    # K2 launch, and K4 and K1 (the spine engine's) do not run
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -3073,23 +3069,26 @@ def main() -> int:
     main_counts = read_counts()
     add_launches(main_counts)
     log(f"[main] launches in SA+LCP+ST of 2^{args.log2n} DNA: {main_counts}")
-    for k in ("tile_side", "nsv_scan_spine", "kmer_pack", "kmer_heads"):
+    for k in ("kmer_pack", "kmer_heads"):
         if main_counts[k] == 0:
             raise AssertionError(f"{k} was not launched on the main path")
+    tree_pass = ("nsv_scan_dual", "tile_side", "nsv_scan_spine")
+    if tuple(main_counts[k] for k in tree_pass) != (1, 0, 0):
+        raise AssertionError(f"the tree's ANSV pass launched {main_counts}")
 
-    # K2 runs on the main path when a spine overflows: the suffix tree of a
-    # homopolymer (its LCP rises in every tile), counted on its own, and
-    # that of the repetitive text (phase 4b).  Both builds here take no
-    # device: the card is the default.
+    # the suffix tree of a homopolymer (its LCP rises in every tile: a
+    # spine of every row), counted on its own, and that of the repetitive
+    # text (phase 4b).  Both builds here take no device: the card is the
+    # default.
     homo = b"A" * 4096
     reset_counts()
     homo_tree = build_suffix_tree(homo)
     homo_counts = read_counts()
     add_launches(homo_counts)
     log(f"[main] launches in build_suffix_tree(A^{len(homo)}): {homo_counts}")
-    if homo_counts["nsv_scan_dual"] == 0:
-        raise AssertionError("nsv_scan_dual was not launched on an "
-                             "overflowing spine")
+    if tuple(homo_counts[k] for k in tree_pass) != (1, 0, 0):
+        raise AssertionError("the homopolymer's ANSV pass was not one K2 "
+                             "launch")
 
     # SA+LCP of the repetitive text: K6 in every dense and tail step
     reset_counts()
@@ -3123,17 +3122,9 @@ def main() -> int:
         raise AssertionError("SA+LCP of the repetitive DNA differ from SA-IS")
     log(f"[main] SA+LCP 2^{args.rep_log2n} rep_dna == native: {t_rep:.3f} s "
         f"(to host arrays), K6 launches {rep_counts['rmq_resolve']} on {card}")
-    # how long the spines of a repetitive LCP are against the capacity that
-    # sends a suffix tree to K2 (s // CAPDIV)
     rx = padded_lcp(rres.lcp)
-    rs = rx.shape[0]
     label = f"2^{args.rep_log2n} rep_dna LCP"
     engines[label] = engine_comparison(rx, label, card)
-    spines = engines[label]["spines"]
-    cap = max(CHUNK, rs // CAPDIV // CHUNK * CHUNK)
-    log(f"[main] rep_dna 2^{args.rep_log2n} LCP spines {spines} of {rs} rows "
-        f"({100 * max(spines) / rs:.3f}%), capacity {cap}: "
-        f"{'overflows -> K2' if max(spines) > cap else 'fits -> K1'}")
     del rres, rx
     plain_tree = _st_local(dsa, xs, PLAIN)
     if not torch.equal(tree.nodes, plain_tree.nodes):
@@ -3146,15 +3137,14 @@ def main() -> int:
                               np.arange(m), 1)
     if not np.array_equal(homo_tree, want):
         raise AssertionError("suffix tree of the homopolymer differs")
-    log(f"[main] ST of A^{m} (spine overflow -> dual scan) == oracle")
+    log(f"[main] ST of A^{m} (a spine of every row, on K2) == oracle")
     tree_p1 = tree.nodes.cpu()  # the mesh phase's reference
     del tree, dsa, xs
 
     # ---- 4b. suffix tree of the repetitive text (counted) ---------------
-    rep_st = rep_tree_phase(dev, rep_text, args.rep_log2n,
-                            max(spines) > cap, card)
+    rep_st = rep_tree_phase(dev, rep_text, args.rep_log2n, card)
 
-    # ---- 5. fallback through ansv_local ---------------------------------
+    # ---- 5. the tree's pass through ansv_local on a spine of every row ---
     dec = np.arange(1 << 20, 0, -1).astype(np.int32)
     before = nsv_scan_dual.launches
     li, lv, ri, rv = ansv_local(torch.from_numpy(dec).to(dev), FURTHEST_EQ,
@@ -3164,8 +3154,8 @@ def main() -> int:
     wl, wr = ansv_seq(dec, FURTHEST_EQ, NEAREST_SM, nonsv=2**31 - 1)
     if not (np.array_equal(li.cpu().numpy(), wl)
             and np.array_equal(ri.cpu().numpy(), wr)):
-        raise AssertionError("fallback ANSV differs from ansv_seq")
-    log("[fallback] decreasing 2^20 array: K2 ran, == ansv_seq")
+        raise AssertionError("ansv_local differs from ansv_seq")
+    log("[ansv_local] decreasing 2^20 array: K2 ran, == ansv_seq")
 
     # ---- 6. small oracles -----------------------------------------------
     for t in (b"mississippi", rand_dna(4177, seed=4177), b"abc" * 300):
@@ -3295,8 +3285,10 @@ def main() -> int:
     log(f"[result] launches over the main-path phases: {LAUNCHES}")
     for k, v in kern.items():
         v["launches"] = LAUNCHES.get(k, 0)
-        if v["launches"] == 0:
-            raise AssertionError(f"{k} was not launched on the main path")
+        # K4 and K1 serve the spine engine only, which no main path takes
+        if (v["launches"] == 0) != (k in ("tile_side", "nsv_scan_spine")):
+            raise AssertionError(f"{k} launched {v['launches']} times on "
+                                 "the main path")
     for k, v in kern.items():
         log(f"[kernel] {k}: kernel {v['ms']:.3f} ms, plain "
             f"{v['plain_ms']:.3f} ms, bound {v['bound_ms']:.4f} ms "

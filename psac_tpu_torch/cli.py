@@ -248,7 +248,7 @@ def cmd_benchmark_ansv(args) -> int:
     ``engine=``; on a mesh of p > 1 shards the routed pipeline, where the
     engine does not apply).  Prints ``n;p;<engine>;<input>;<pair>;<ms>``,
     the mean of ``--reps`` calls after one warm-up; the ``spine`` engine
-    serves only the suffix tree's pass, ``feq-sm``."""
+    differs from ``hybrid`` only on ``feq-sm``, the suffix tree's pair."""
     import os
 
     from psac_tpu_torch.config import resolve_device
@@ -273,7 +273,7 @@ def cmd_benchmark_ansv(args) -> int:
         for iname, a in inputs.items():
             for cname, (lt, rt) in combos:
                 if eng == "spine" and cname != "feq-sm":
-                    continue  # the spine engine serves only the ST pass
+                    continue  # the spine engine runs hybrid's path there
                 kw = dict(device=args.device, engine=eng or None, mesh=mesh)
                 ansv(a, lt, rt, **kw)  # warm-up
                 t0 = time.time()

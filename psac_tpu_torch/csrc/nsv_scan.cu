@@ -12,8 +12,7 @@
 // of runs (value, endpoint) where the endpoint is the run's FIRST index for
 // FURTHEST_EQ and its LAST index otherwise.  Answers are the stream's
 // indices (explicit for K1, positions for K2/K3); -1 means no match and the
-// value is then 0.  The flag output is always written 0 (nothing here can
-// overflow); it is kept for the JAX interface.
+// value is then 0.
 //
 // The TPU grid ran its chunks in order and carried the stack across them.
 // Here no kernel keeps a stack: every answer depends on x alone, not on the
@@ -334,11 +333,11 @@ struct Stream {
 };
 
 // Left matches of stream p and, when q is given, of stream q (same length).
-int block_scan(const Stream& p, const Stream* q, int32_t* flag,
-               int32_t* scratch, long long s, cudaStream_t stream) {
+int block_scan(const Stream& p, const Stream* q, int32_t* scratch,
+               long long s, cudaStream_t stream) {
   if (s >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaMemsetAsync(flag, 0, sizeof(int32_t), stream);
-  if (err != cudaSuccess || s == 0) return static_cast<int>(err);
+  if (s == 0) return static_cast<int>(cudaSuccess);
+  cudaError_t err = cudaSuccess;
   const int n = static_cast<int>(s);
   Side sides[2] = {};
   for (int k = 0; k < (q != nullptr ? 2 : 1); ++k) {
@@ -368,26 +367,25 @@ extern "C" {
 
 int psac_nsv_spine(const int32_t* xf, const int32_t* gf, const int32_t* xn,
                    const int32_t* gn, int32_t* fi, int32_t* fv, int32_t* fh,
-                   int32_t* ni, int32_t* nv, int32_t* flag, int32_t* scratch,
-                   long long s, void* stream) {
+                   int32_t* ni, int32_t* nv, int32_t* scratch, long long s,
+                   void* stream) {
   const Stream q{xn, gn, ni, nv, nullptr, NEAREST_SM};
-  return block_scan(Stream{xf, gf, fi, fv, fh, FURTHEST_EQ}, &q, flag,
-                    scratch, s, static_cast<cudaStream_t>(stream));
+  return block_scan(Stream{xf, gf, fi, fv, fh, FURTHEST_EQ}, &q, scratch, s,
+                    static_cast<cudaStream_t>(stream));
 }
 
 int psac_nsv_dual(const int32_t* x, const int32_t* xr, int32_t* il,
-                  int32_t* vl, int32_t* ir, int32_t* vr, int32_t* flag,
-                  int32_t* scratch, long long s, int typ_l, int typ_r,
-                  void* stream) {
+                  int32_t* vl, int32_t* ir, int32_t* vr, int32_t* scratch,
+                  long long s, int typ_l, int typ_r, void* stream) {
   const Stream q{xr, nullptr, ir, vr, nullptr, typ_r};
-  return block_scan(Stream{x, nullptr, il, vl, nullptr, typ_l}, &q, flag,
-                    scratch, s, static_cast<cudaStream_t>(stream));
+  return block_scan(Stream{x, nullptr, il, vl, nullptr, typ_l}, &q, scratch,
+                    s, static_cast<cudaStream_t>(stream));
 }
 
-int psac_nsv_left(const int32_t* x, int32_t* idx, int32_t* val, int32_t* flag,
+int psac_nsv_left(const int32_t* x, int32_t* idx, int32_t* val,
                   int32_t* scratch, long long s, int typ, void* stream) {
   return block_scan(Stream{x, nullptr, idx, val, nullptr, typ}, nullptr,
-                    flag, scratch, s, static_cast<cudaStream_t>(stream));
+                    scratch, s, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

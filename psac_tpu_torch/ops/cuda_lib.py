@@ -31,9 +31,9 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 # C signatures (restype int = cudaGetLastError() after the launch)
 _SIGNATURES = {
-    "psac_nsv_spine": [_P] * 11 + [_I64, _P],
-    "psac_nsv_dual": [_P] * 8 + [_I64, _I32, _I32, _P],
-    "psac_nsv_left": [_P] * 5 + [_I64, _I32, _P],
+    "psac_nsv_spine": [_P] * 10 + [_I64, _P],
+    "psac_nsv_dual": [_P] * 7 + [_I64, _I32, _I32, _P],
+    "psac_nsv_left": [_P] * 4 + [_I64, _I32, _P],
     "psac_tansv_tile": [_P] * 8 + [_I64, _I32, _P],
     "psac_block_psv_i32": [_P] * 3 + [_I64, _I32, _P],
     "psac_block_psv_i64": [_P] * 3 + [_I64, _I32, _P],

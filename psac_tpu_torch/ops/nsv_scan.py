@@ -12,9 +12,8 @@ min-table (the JAX package's ``_left_match_local_only`` formulation), which
 also checks the kernels independently.
 
 Answers follow ``psac_tpu_torch/ops/ansv.py::_left_scan``: index -1 means
-no match and the value is then 0.  Nothing can overflow here (no kernel
-keeps a stack), so the returned flag is always 0; it is kept for the JAX
-interface.
+no match and the value is then 0.  The JAX kernels also return an overflow
+flag of their run stack; no kernel here keeps a stack, so none returns one.
 """
 
 from __future__ import annotations
@@ -102,41 +101,37 @@ def _explicit(idx: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.where(idx >= 0, g[idx.clamp(min=0)], -1).to(torch.int32)
 
 
-def _zero_flag(x: torch.Tensor) -> torch.Tensor:
-    return torch.zeros((), dtype=torch.int32, device=x.device)
-
-
 def nsv_scan_spine_plain(xf, gf, xn, gn):
     """Plain version of K1: FURTHEST_EQ left matches of stream (xf, gf) with
     each element's run first after merge/push, and NEAREST_SM left matches
     of stream (xn, gn), in the streams' explicit indices.
 
-    Returns (f_idx, f_val, f_h, n_idx, n_val, overflow)."""
+    Returns (f_idx, f_val, f_h, n_idx, n_val)."""
     fidx, fval, feq = _furthest_eq_plain(xf)
     fi = _explicit(fidx, gf)
     fh = torch.where(feq, fi, gf)
     nidx, nval = left_matches_plain(xn, NEAREST_SM)
     return (fi, fval.to(torch.int32), fh, _explicit(nidx, gn),
-            nval.to(torch.int32), _zero_flag(xf))
+            nval.to(torch.int32))
 
 
 def nsv_scan_left_plain(x, typ: int):
     """Plain version of K3: left matches of ``x`` for match type ``typ``.
 
-    Returns (idx, val, overflow)."""
+    Returns (idx, val)."""
     idx, val = left_matches_plain(x, typ)
-    return idx.to(torch.int32), val.to(torch.int32), _zero_flag(x)
+    return idx.to(torch.int32), val.to(torch.int32)
 
 
 def nsv_scan_dual_plain(x, xr, typ_l: int, typ_r: int):
     """Plain version of K2: left matches of ``x`` (typ_l) and of ``xr``
     (typ_r), each in its own coordinates.
 
-    Returns (idx_l, val_l, idx_r, val_r, overflow)."""
+    Returns (idx_l, val_l, idx_r, val_r)."""
     il, vl = left_matches_plain(x, typ_l)
     ir, vr = left_matches_plain(xr, typ_r)
     i32 = torch.int32
-    return (il.to(i32), vl.to(i32), ir.to(i32), vr.to(i32), _zero_flag(x))
+    return il.to(i32), vl.to(i32), ir.to(i32), vr.to(i32)
 
 
 # ---------------------------------------------------------------------------
@@ -160,13 +155,11 @@ def nsv_scan_spine(xf, gf, xn, gn):
     cuda_lib.check_cuda_int32("nsv_scan_spine", xf, gf, xn, gn)
     s = xf.shape[0]
     fi, fv, fh, ni, nv = (torch.empty_like(xf) for _ in range(5))
-    flag = torch.empty(1, dtype=torch.int32, device=xf.device)
     scratch = _block_scan_scratch(xf, 2)
     cuda_lib.launch("psac_nsv_spine", *(t.data_ptr() for t in (
-        xf, gf, xn, gn, fi, fv, fh, ni, nv, flag, scratch)), s,
-        device=xf.device)
+        xf, gf, xn, gn, fi, fv, fh, ni, nv, scratch)), s, device=xf.device)
     cuda_lib.count_launch(nsv_scan_spine)
-    return fi, fv, fh, ni, nv, flag[0]
+    return fi, fv, fh, ni, nv
 
 
 nsv_scan_spine.launches = 0
@@ -181,13 +174,12 @@ def nsv_scan_dual(x, xr, typ_l: int, typ_r: int):
     if {typ_l, typ_r} - {NEAREST_SM, NEAREST_EQ, FURTHEST_EQ}:
         raise ValueError(f"unknown match types {typ_l}, {typ_r}")
     il, vl, ir, vr = (torch.empty_like(x) for _ in range(4))
-    flag = torch.empty(1, dtype=torch.int32, device=x.device)
     scratch = _block_scan_scratch(x, 2)
     cuda_lib.launch("psac_nsv_dual", *(t.data_ptr() for t in (
-        x, xr, il, vl, ir, vr, flag, scratch)), x.shape[0], typ_l, typ_r,
+        x, xr, il, vl, ir, vr, scratch)), x.shape[0], typ_l, typ_r,
         device=x.device)
     cuda_lib.count_launch(nsv_scan_dual)
-    return il, vl, ir, vr, flag[0]
+    return il, vl, ir, vr
 
 
 nsv_scan_dual.launches = 0
@@ -202,12 +194,11 @@ def nsv_scan_left(x, typ: int):
     if typ not in (NEAREST_SM, NEAREST_EQ, FURTHEST_EQ):
         raise ValueError(f"unknown match type {typ}")
     idx, val = torch.empty_like(x), torch.empty_like(x)
-    flag = torch.empty(1, dtype=torch.int32, device=x.device)
     scratch = _block_scan_scratch(x, 1)
     cuda_lib.launch("psac_nsv_left", *(t.data_ptr() for t in (
-        x, idx, val, flag, scratch)), x.shape[0], typ, device=x.device)
+        x, idx, val, scratch)), x.shape[0], typ, device=x.device)
     cuda_lib.count_launch(nsv_scan_left)
-    return idx, val, flag[0]
+    return idx, val
 
 
 nsv_scan_left.launches = 0

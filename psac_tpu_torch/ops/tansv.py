@@ -1,5 +1,5 @@
-"""Tile-spine single-device ANSV (port of ``psac_tpu/ops/tansv.py``): the
-suffix tree's (FURTHEST_EQ left, NEAREST_SM right) pass.
+"""Tile-spine single-device ANSV (port of ``psac_tpu/ops/tansv.py``) of the
+suffix tree's pair: FURTHEST_EQ left, NEAREST_SM right.
 
   1. **Tile phase (K4)**: per T-element tile, each element's in-tile
      previous smaller, the chain mask (no in-tile previous smaller), the
@@ -14,10 +14,11 @@ suffix tree's (FURTHEST_EQ left, NEAREST_SM right) pass.
   3. **Combine**: plain tensor indexing (see the JAX module's docstring for
      why the spine closure is exact).
 
-The spine may exceed its capacity (``s // CAPDIV``); ``tansv_feq_nsm`` then
-reports the overflow and the caller runs the dual scan (K2) instead.  The
-scanned streams are as long as the longer spine (rounded up to CHUNK), not
-the capacity: K1's work follows the stream length.
+The JAX engine compacts each spine into a stream of a fixed s / 16 rows
+(the TPU's SMEM stream) and reports an overflow past it.  Here the streams
+are as long as the longer spine (rounded up to CHUNK), so no spine
+overflows: K1's work follows the spine.  This is the ``spine`` engine of
+``parallel/ansv.py``; the suffix tree's pass runs on the dual scan (K2).
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ from psac_tpu_torch.ops import cuda_lib
 from psac_tpu_torch.ops.nsv_scan import CHUNK, nsv_scan_spine
 
 T = 512       # tile width
-CAPDIV = 16   # spine capacity = s // CAPDIV, padded to the scan CHUNK
 I32_INF = torch.iinfo(torch.int32).max
 _PLAIN_TILES = 128  # tiles per batch of the plain tile phase: bounds its
 # (tiles, T, T) temporaries at 128 MB of int32
@@ -110,11 +110,15 @@ def tile_side(a: torch.Tensor, with_eq: bool):
 tile_side.launches = 0
 
 
-def _pack_spines(x: torch.Tensor, pos):
-    """(kf, vf, kn, vn): the spine positions ``pos`` of ``x`` and of its
-    reverse as (index, value) streams in index order, both padded with
-    (I32_INF, I32_INF) (inert in the scan) to one length: the larger spine
-    rounded up to CHUNK."""
+def spine_streams(x: torch.Tensor, spine_f: torch.Tensor,
+                  spine_n: torch.Tensor):
+    """The two spines (of ``x`` and of its reverse) as (index, value)
+    streams in index order, both padded with (I32_INF, I32_INF) (inert in
+    the scan) to one length: the larger spine rounded up to CHUNK.
+
+    Returns (kf, vf, kn, vn).  The JAX engine scans a fixed s / 16 rows;
+    scanning only up to the spine length gives the same answers."""
+    pos = [torch.nonzero(sp).squeeze(1) for sp in (spine_f, spine_n)]
     longest = max(p.shape[0] for p in pos)
     m = max(CHUNK, -(-longest // CHUNK) * CHUNK)
     out = []
@@ -125,33 +129,6 @@ def _pack_spines(x: torch.Tensor, pos):
         vals[:p.shape[0]] = a[p]
         out += [keys, vals]
     return tuple(out)
-
-
-def pack_spines(x: torch.Tensor, spine_f: torch.Tensor,
-                spine_n: torch.Tensor):
-    """The streams K1 scans for spine masks of any length (no capacity):
-    (kf, vf, kn, vn) as ``spine_streams`` lays them out."""
-    return _pack_spines(x, [torch.nonzero(sp).squeeze(1)
-                            for sp in (spine_f, spine_n)])
-
-
-def spine_streams(x: torch.Tensor, spine_f: torch.Tensor,
-                  spine_n: torch.Tensor):
-    """The two spines (of ``x`` and of its reverse) as (index, value)
-    streams in index order, both padded with (I32_INF, I32_INF) (inert in
-    the scan) to one length: the larger spine rounded up to CHUNK.
-
-    Returns (kf, vf, kn, vn, ovf); ``ovf`` counts spine rows beyond the
-    capacity ``s // CAPDIV`` (the JAX engine's fixed stream length), and the
-    streams are None when it is not 0.  The JAX engine scans all ``cap``
-    rows; scanning only up to the spine length gives the same answers."""
-    s = x.shape[0]
-    cap = max(CHUNK, ((s // CAPDIV) // CHUNK) * CHUNK)
-    pos = [torch.nonzero(sp).squeeze(1) for sp in (spine_f, spine_n)]
-    if max(p.shape[0] for p in pos) > cap:
-        return None, None, None, None, sum(max(0, p.shape[0] - cap)
-                                           for p in pos)
-    return (*_pack_spines(x, pos), 0)
 
 
 def _scatter_back(keys: torch.Tensor, vals_list, s: int):
@@ -180,12 +157,10 @@ def tansv_feq_nsm(x: torch.Tensor, side=tile_side, scan=nsv_scan_spine):
     """Both-sides matches of (s,) int32 ``x`` (s a multiple of CHUNK):
     FURTHEST_EQ left and NEAREST_SM right in reversed coordinates.
 
-    Returns (lidx, lval, ridx_r, rval_r, ovf): idx = -1 when no match; the
-    right side indexes the reversed array.  ``ovf`` > 0 means the spine
-    exceeded its capacity; the four tensors are then None and the caller
-    falls back to the dual scan.  ``side`` and ``scan`` are the tile phase
-    (K4) and the spine scan (K1): the kernel wrappers, or their plain
-    versions when the kernels are being checked.
+    Returns (lidx, lval, ridx_r, rval_r): idx = -1 when no match; the
+    right side indexes the reversed array.  ``side`` and ``scan`` are the
+    tile phase (K4) and the spine scan (K1): the kernel wrappers, or their
+    plain versions when the kernels are being checked.
     """
     s = x.shape[0]
     if s % CHUNK or s == 0:
@@ -196,11 +171,8 @@ def tansv_feq_nsm(x: torch.Tensor, side=tile_side, scan=nsv_scan_spine):
     psv_g, psv_val, chain_f, spine_f, nxt_f, e_g, h_in = side(x, True)
     npsv_g, npsv_val, chain_n, spine_n, nxt_n, _, _ = side(xr, False)
 
-    kf, vf, kn, vn, ovf = spine_streams(x, spine_f, spine_n)
-    if ovf:
-        return None, None, None, None, ovf
-
-    fi, fv, fh, ni, nv, _ = scan(vf, kf, vn, kn)
+    kf, vf, kn, vn = spine_streams(x, spine_f, spine_n)
+    fi, fv, fh, ni, nv = scan(vf, kf, vn, kn)
     f_scan, fval_scan, h_scan = _scatter_back(kf, (fi, fv, fh), s)
     n_scan, nval_scan = _scatter_back(kn, (ni, nv), s)
 
@@ -224,4 +196,4 @@ def tansv_feq_nsm(x: torch.Tensor, side=tile_side, scan=nsv_scan_spine):
     ridx_r = torch.where(chain_n, n_chain, npsv_g)
     rval_r = torch.where(chain_n, nval_chain, npsv_val)
     rval_r = torch.where(ridx_r < 0, 0, rval_r)
-    return lidx, lval, ridx_r, rval_r, 0
+    return lidx, lval, ridx_r, rval_r

@@ -6,14 +6,17 @@ On one device the engine is the JAX package's ``PSAC_NSV`` selector, an
 explicit ``engine=`` argument here (None reads ``PSAC_NSV``, and
 ``hybrid`` where that is unset), never the device.  On int32 input:
 
-- ``hybrid`` (the default) and ``spine``: (FURTHEST_EQ, NEAREST_SM), the
-  suffix tree's pass, runs the tile-spine engine (``ops/tansv.py``:
-  kernels K4 and K1), falling back to the dual run-stack scan (K2) when
-  the spine overflows its capacity; (FURTHEST_EQ, FURTHEST_EQ) runs the
-  dual scan (K2, a block engine over both directions in one launch); any
-  other pair runs each side on its own: a furthest_eq side on the left
-  scan (K3), a nearest_sm or nearest_eq side on the block engine
-  (``ops/bansv.py::nsv_left`` on K5);
+- ``hybrid`` (the default): (FURTHEST_EQ, NEAREST_SM), the suffix tree's
+  pass, and (FURTHEST_EQ, FURTHEST_EQ) run the dual scan (K2, a block
+  engine over both directions in one launch); any other pair runs each
+  side on its own: a furthest_eq side on the left scan (K3), a nearest_sm
+  or nearest_eq side on the block engine (``ops/bansv.py::nsv_left`` on
+  K5);
+- ``spine``: (FURTHEST_EQ, NEAREST_SM) runs the tile-spine engine
+  (``ops/tansv.py``: kernels K4 and K1) on the input padded at the END
+  with INT32_MAX to a multiple of 2048, which changes no answer of a real
+  element (padding is never strictly smaller, and a right match that
+  lands in it means none); any other pair as ``hybrid``;
 - ``scan``: every pair on the dual scan (K2), both sides in one launch;
 - ``block``: every side on the block engine (K5), furthest_eq through its
   run-head table;
@@ -24,10 +27,6 @@ int64 values (the public ``ansv`` keeps values that do not fit int32 in
 int64) run every side on the block engine under every engine but
 ``walk``.  The JAX package sends those to its walk engine; ANSV answers
 are unique, so both give the same result.
-
-int32 input is padded at the END with INT32_MAX up to a multiple of 2048
-for the scans, which changes no answer of a real element (padding is never
-strictly smaller, and a right match that lands in it means none).
 
 On a mesh (JAX ``_left_nearest`` / ``_left_furthest_eq``, ``:52-233``)
 every shard finds its elements' in-shard matches with K5 ``block_psv``;
@@ -97,7 +96,7 @@ def nonsv_for(dt: torch.dtype) -> int:
 def _left_side(x: torch.Tensor, typ: int, kernels: AnsvKernels):
     """Left matches of one side: (idx, val), idx -1 when none."""
     if typ == FURTHEST_EQ and x.dtype == torch.int32:
-        return kernels.left_scan(x, typ)[:2]
+        return kernels.left_scan(x, typ)
     return nsv_left(x, typ, kernels.block_psv)
 
 
@@ -135,27 +134,34 @@ def resolve_engine(engine: str | None = None) -> str:
     return eng
 
 
+def _spine(x: torch.Tensor, kernels: AnsvKernels):
+    """(FURTHEST_EQ, NEAREST_SM) of int32 ``x`` on the tile-spine engine,
+    which takes a multiple of CHUNK: the answers of ``x`` padded at the
+    end with I32_INF to one."""
+    s = x.shape[0]
+    sp = max(CHUNK, -(-s // CHUNK) * CHUNK)
+    xp = torch.cat([x, x.new_full((sp - s,), I32_INF)])
+    return tansv_feq_nsm(xp, kernels.tile_side, kernels.spine_scan)
+
+
 def _matches(x: torch.Tensor, left_type: int, right_type: int,
              kernels: AnsvKernels, engine: str):
     """(lidx, lval, ridx_r, rval_r) of (s,) ``x`` on ``engine``, the right
-    side in reversed coordinates; idx -1 when none."""
+    side in reversed coordinates of the array scanned (``x``, or ``x``
+    padded for the spine engine); idx -1 when none."""
     pair = (left_type, right_type)
     if engine == "walk":
         return (*_walk_side(x, left_type, kernels),
                 *_walk_side(x.flip(0), right_type, kernels))
-    if x.dtype == torch.int32 and engine == "scan":
-        return kernels.dual_scan(x, x.flip(0), left_type, right_type)[:4]
     if x.dtype == torch.int32 and engine == "block":
         return (*nsv_left(x, left_type, kernels.block_psv),
                 *nsv_left(x.flip(0), right_type, kernels.block_psv))
-    if x.dtype == torch.int32:
-        if pair == (FURTHEST_EQ, NEAREST_SM):
-            *res, ovf = tansv_feq_nsm(x, kernels.tile_side,
-                                      kernels.spine_scan)
-            if not ovf:
-                return res
-        if pair in ((FURTHEST_EQ, NEAREST_SM), (FURTHEST_EQ, FURTHEST_EQ)):
-            return kernels.dual_scan(x, x.flip(0), left_type, right_type)[:4]
+    if x.dtype == torch.int32 and engine == "spine" and \
+            pair == (FURTHEST_EQ, NEAREST_SM):
+        return _spine(x, kernels)
+    if x.dtype == torch.int32 and (engine == "scan" or pair in (
+            (FURTHEST_EQ, NEAREST_SM), (FURTHEST_EQ, FURTHEST_EQ))):
+        return kernels.dual_scan(x, x.flip(0), left_type, right_type)
     return (*_left_side(x, left_type, kernels),
             *_left_side(x.flip(0), right_type, kernels))
 
@@ -168,14 +174,9 @@ def _ansv(x: torch.Tensor, left_type: int, right_type: int,
     s = x.shape[0]
     if s >= (1 << 31):
         raise NotImplementedError("ANSV indices are int32: length >= 2^31")
-    xp = x
-    if x.dtype == torch.int32:
-        sp = max(CHUNK, -(-s // CHUNK) * CHUNK)
-        xp = torch.cat([x, x.new_full((sp - s,), I32_INF)])
-    sp = xp.shape[0]
-    li, lv, ri_r, rv_r = _matches(xp, left_type, right_type, kernels,
-                                  engine)
+    li, lv, ri_r, rv_r = _matches(x, left_type, right_type, kernels, engine)
 
+    sp = ri_r.shape[0]  # the length scanned
     ri = ri_r.flip(0)
     rv = rv_r.flip(0)
     ri = torch.where(ri < 0, -1, sp - 1 - ri)

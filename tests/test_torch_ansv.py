@@ -126,8 +126,8 @@ def _counting_plain():
 
 
 @pytest.mark.parametrize("lt,rt,wide,want", [
-    # the suffix tree's pair: tile phase both ways, then the spine scan
-    (FURTHEST_EQ, NEAREST_SM, False, {"tile_side": 2, "spine_scan": 1}),
+    # the suffix tree's pair: one dual scan
+    (FURTHEST_EQ, NEAREST_SM, False, {"dual_scan": 1}),
     (FURTHEST_EQ, FURTHEST_EQ, False, {"dual_scan": 1}),
     (NEAREST_SM, NEAREST_SM, False, {"block_psv": 2}),
     (NEAREST_EQ, FURTHEST_EQ, False, {"block_psv": 1, "left_scan": 1}),
@@ -149,11 +149,14 @@ def test_dispatch_by_pair_and_dtype(lt, rt, wide, want):
 
 
 def test_spine_overflow_falls_back_to_dual_scan():
+    """The spine engine has no capacity: an array whose every row is on
+    the spine (past the JAX engine's s / 16) runs the tile phase and the
+    spine scan, and its answers equal ``ansv_seq``."""
     a = np.arange(5000, 0, -1).astype(np.int32)  # every row on the spine
     kernels, calls = _counting_plain()
     got = t_ansv.ansv(a, FURTHEST_EQ, NEAREST_SM, device="cpu",
-                      kernels=kernels)
-    assert calls == {"tile_side": 2, "dual_scan": 1}
+                      kernels=kernels, engine="spine")
+    assert calls == {"tile_side": 2, "spine_scan": 1}
     for g, o in zip(got, ansv_seq(a, FURTHEST_EQ, NEAREST_SM, nonsv=5000)):
         np.testing.assert_array_equal(g, o)
 

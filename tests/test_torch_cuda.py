@@ -133,7 +133,7 @@ def test_spine_kernel_on_spines_of_arrays(cuda, kind):
     """K1 on the spine streams of each array (the tile phase's plain
     version, no capacity), against its plain version."""
     x = _padded(_arrays(6)[kind], cuda)
-    kf, vf, kn, vn = tansv.pack_spines(
+    kf, vf, kn, vn = tansv.spine_streams(
         x, tansv.tile_side_plain(x, True)[3],
         tansv.tile_side_plain(x.flip(0), False)[3])
     before = nsv_scan.nsv_scan_spine.launches
@@ -159,9 +159,8 @@ def test_spine_kernel_around_group_powers(cuda, n):
 
 def test_spine_kernel_vs_plain(cuda):
     x = torch.from_numpy(_arrays(3)["st_padding"].astype(np.int32)).to(cuda)
-    kf, vf, kn, vn, ovf = tansv.spine_streams(
+    kf, vf, kn, vn = tansv.spine_streams(
         x, tansv.tile_side(x, True)[3], tansv.tile_side(x.flip(0), False)[3])
-    assert ovf == 0
     before = nsv_scan.nsv_scan_spine.launches
     _same(nsv_scan.nsv_scan_spine(vf, kf, vn, kn),
           nsv_scan.nsv_scan_spine_plain(vf, kf, vn, kn))
@@ -283,16 +282,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 def test_ansv_fallback_on_gpu(cuda):
+    """The tree's pass through ``ansv_local`` is one K2 launch and no K4 or
+    K1 launch; the spine engine scans a spine of every row (past the JAX
+    engine's capacity) with K4 twice and K1 once.  Both == ``ansv_seq``."""
     from psac_tpu_torch.parallel.ansv import ansv_local
 
     a = np.arange(1 << 14, 0, -1).astype(np.int32)
-    before = nsv_scan.nsv_scan_dual.launches
-    li, _, ri, _ = ansv_local(torch.from_numpy(a).to(cuda), FURTHEST_EQ,
-                              NEAREST_SM)
-    assert nsv_scan.nsv_scan_dual.launches == before + 1
     wl, wr = ansv_seq(a, FURTHEST_EQ, NEAREST_SM, nonsv=2**31 - 1)
-    np.testing.assert_array_equal(li.cpu().numpy(), wl)
-    np.testing.assert_array_equal(ri.cpu().numpy(), wr)
+    fns = (nsv_scan.nsv_scan_dual, tansv.tile_side, nsv_scan.nsv_scan_spine)
+    for engine, want in ((None, (1, 0, 0)), ("spine", (0, 2, 1))):
+        before = [f.launches for f in fns]
+        li, _, ri, _ = ansv_local(torch.from_numpy(a).to(cuda), FURTHEST_EQ,
+                                  NEAREST_SM, engine=engine)
+        assert tuple(f.launches - b for f, b in zip(fns, before)) == want
+        np.testing.assert_array_equal(li.cpu().numpy(), wl)
+        np.testing.assert_array_equal(ri.cpu().numpy(), wr)
 
 
 @pytest.mark.parametrize("text", [b"mississippi", b"zyxa", b"abc" * 300])
@@ -321,8 +325,8 @@ def test_suffix_array_on_gpu(cuda):
 
 def test_build_entry_points_default_to_the_card(cuda):
     """With no device, the builds run on the card: the SA of mississippi,
-    its encoded text and SA+LCP on the card, and a suffix tree that
-    launches K4 and K1."""
+    its encoded text and SA+LCP on the card, and a suffix tree whose ANSV
+    pass is one K2 launch."""
     from psac_tpu_torch import build_suffix_array, build_suffix_tree
     from psac_tpu_torch.models.suffix_array import (construct_device,
                                                     encode_and_shard)
@@ -333,11 +337,10 @@ def test_build_entry_points_default_to_the_card(cuda):
     xs, alpha, n, N = encode_and_shard(b"mississippi")
     dsa = construct_device(xs, alpha, n, N)
     assert xs.is_cuda and dsa.sa.is_cuda and dsa.lcp.is_cuda
-    before = (tansv.tile_side.launches, nsv_scan.nsv_scan_spine.launches)
+    fns = (nsv_scan.nsv_scan_dual, tansv.tile_side, nsv_scan.nsv_scan_spine)
+    before = [f.launches for f in fns]
     build_suffix_tree(b"mississippi")
-    assert (tansv.tile_side.launches,
-            nsv_scan.nsv_scan_spine.launches) == (before[0] + 2,
-                                                  before[1] + 1)
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 0, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -456,7 +459,7 @@ def test_rmq_resolve_rejects_what_the_kernel_does_not_take(cuda):
 @pytest.mark.parametrize("kind", ["family", "random", "duplicates"])
 def test_gsa_and_gst_default_to_the_card(cuda, kind, force_int64):
     """``build_gsa`` / ``build_gst`` with no device run on the card (K6 in
-    the family's dense steps, the ANSV kernels in the tree) and equal the
+    the family's dense steps, K2 in the tree) and equal the
     CPU path."""
     from psac_tpu_torch import SAConfig, build_gsa, build_gst
     from psac_tpu_torch.models.gsa import build_gsa_device
@@ -466,7 +469,7 @@ def test_gsa_and_gst_default_to_the_card(cuda, kind, force_int64):
              "random": [rand_dna(300 + 17 * i, seed=i) for i in range(40)],
              "duplicates": [b"banana"] * 5 + [b"ban", b"anana"]}[kind]
     cfg = SAConfig(force_int64=force_int64)
-    before = (rmq.rmq_resolve.launches, tansv.tile_side.launches)
+    before = (rmq.rmq_resolve.launches, nsv_scan.nsv_scan_dual.launches)
     got = build_gsa(parts, config=cfg)
     assert rmq.rmq_resolve.launches > before[0] or kind == "duplicates"
     want = build_gsa(parts, "cpu", cfg)
@@ -476,7 +479,7 @@ def test_gsa_and_gst_default_to_the_card(cuda, kind, force_int64):
     assert dg.sa.is_cuda and dg.eos.is_cuda and dg.xs.is_cuda
     assert dg.sa.dtype == (torch.int64 if force_int64 else torch.int32)
     tree = build_gst(parts, config=cfg)
-    assert tansv.tile_side.launches == before[1] + 2
+    assert nsv_scan.nsv_scan_dual.launches == before[1] + 1
     np.testing.assert_array_equal(tree, build_gst(parts, "cpu", cfg))
 
 
@@ -887,11 +890,10 @@ def test_pack_keys_on_gpu(cuda, cfg):
             np.testing.assert_array_equal(res.lcp, lcp_array(t, sa))
 
 
-#: the kernels each engine launches on int32 input, per pair (the FEQ,NSM
-#: spine fits its capacity on these values)
+#: the kernels each engine launches on int32 input, per pair
 ENGINE_LAUNCHES = {
     ("hybrid", "sm-sm"): {"block_psv": 2},
-    ("hybrid", "feq-sm"): {"tile_side": 2, "nsv_scan_spine": 1},
+    ("hybrid", "feq-sm"): {"nsv_scan_dual": 1},
     ("hybrid", "eq-eq"): {"block_psv": 2},
     ("spine", "feq-sm"): {"tile_side": 2, "nsv_scan_spine": 1},
     ("scan", "sm-sm"): {"nsv_scan_dual": 1},

@@ -1,7 +1,8 @@
 """Tile-spine ANSV: the tile phase (K4's plain version) against the JAX
 ``_tile_side``, the whole engine against interpret-mode
-``tansv_feq_nsm`` and ``ansv_seq``, and the spine-overflow path to the dual
-scan (K2).  Exact equality (integers only)."""
+``tansv_feq_nsm`` and ``ansv_seq`` (also on spines past the JAX engine's
+capacity), and ``ansv_local`` on the default and the spine engine.  Exact
+equality (integers only)."""
 
 import jax
 import jax.numpy as jnp
@@ -97,9 +98,7 @@ def _check_vs_oracle(a, li, lv, ri_r, rv_r):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_tansv_vs_oracle(name):
     a = CASES[name]
-    *res, ovf = t_tansv.tansv_feq_nsm(_t(a))
-    assert ovf == 0
-    _check_vs_oracle(a, *res)
+    _check_vs_oracle(a, *t_tansv.tansv_feq_nsm(_t(a)))
 
 
 @pytest.mark.parametrize("name", ["straddle", "random_small_alpha"])
@@ -110,8 +109,9 @@ def test_tansv_vs_jax_interpret(name):
     want = jax.jit(tansv_feq_nsm, static_argnums=(1, 2, 3))(
         jnp.asarray(a), len(a), (), True)
     got = t_tansv.tansv_feq_nsm(_t(a))
-    assert int(want[-1]) == 0 and got[-1] == 0
-    for g, w in zip(got[:4], want[:4]):
+    assert int(want[-1]) == 0  # the JAX engine's spine capacity holds
+    assert len(got) == 4
+    for g, w in zip(got, want[:4]):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
@@ -126,24 +126,27 @@ def test_tansv_randomized_lcp(seed):
     for a in (rng.randint(0, 3, 4096).astype(np.int32),
               np.repeat(rng.randint(0, 5, 64), 64).astype(np.int32),
               lcp[:4096]):
-        *res, ovf = t_tansv.tansv_feq_nsm(_t(a))
-        assert ovf == 0
-        _check_vs_oracle(a, *res)
+        _check_vs_oracle(a, *t_tansv.tansv_feq_nsm(_t(a)))
 
 
 def test_tansv_overflow_reported():
-    """A strictly decreasing array: every element is on the spine, which
-    exceeds s // CAPDIV; the engine reports it and returns no answers."""
+    """A strictly decreasing array: every element is on the spine, past
+    the JAX engine's capacity of s / 16 rows; the engine has none and
+    answers as ``ansv_seq`` does."""
     a = np.arange(4096, 0, -1).astype(np.int32)
-    *res, ovf = t_tansv.tansv_feq_nsm(_t(a))
-    assert ovf > 0 and all(r is None for r in res)
+    _check_vs_oracle(a, *t_tansv.tansv_feq_nsm(_t(a)))
 
 
-@pytest.mark.parametrize("kind", ["decreasing", "increasing", "st_padding",
-                                  "odd_length"])
-def test_ansv_local_spine_and_fallback(kind):
-    """ansv_local pads to a multiple of 2048 at the end; overflowing
-    spines fall back to the dual scan; the answers equal ansv_seq."""
+_LOCAL_KINDS = ["decreasing", "increasing", "st_padding", "odd_length"]
+
+
+@pytest.mark.parametrize("kind,engine", [
+    *(pytest.param(k, "hybrid", id=k) for k in _LOCAL_KINDS),
+    *(pytest.param(k, "spine", id=f"{k}-spine") for k in _LOCAL_KINDS)])
+def test_ansv_local_spine_and_fallback(kind, engine):
+    """ansv_local on the default engine (the dual scan, unpadded) and on
+    the spine engine (padded at the end to a multiple of 2048, every spine
+    scanned whole): the answers equal ansv_seq."""
     rng = np.random.RandomState(5)
     a = {"decreasing": np.arange(5000, 0, -1),
          "increasing": np.arange(3000),
@@ -151,7 +154,8 @@ def test_ansv_local_spine_and_fallback(kind):
                                        rng.randint(0, 9, 3395)]),
          "odd_length": rng.randint(0, 4, 2049)}[kind].astype(np.int32)
     want_l, want_r = ansv_seq(a, FURTHEST_EQ, NEAREST_SM, nonsv=I32_NONSV)
-    li, lv, ri, rv = ansv_local(_t(a), FURTHEST_EQ, NEAREST_SM)
+    li, lv, ri, rv = ansv_local(_t(a), FURTHEST_EQ, NEAREST_SM,
+                                engine=engine)
     np.testing.assert_array_equal(li.numpy(), want_l)
     np.testing.assert_array_equal(ri.numpy(), want_r)
     has = want_r != I32_NONSV
