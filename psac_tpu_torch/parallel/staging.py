@@ -10,14 +10,21 @@ is one read and one upload.  On a mesh (``stage_file_block(path, mesh)``)
 each shard gets its block of N, and each process reads only its own
 shards' byte ranges, so no process holds the whole input; the histogram is
 each shard's ``bincount`` summed over the whole mesh (a ``psum``), the
-same on every process.  The spans ``psac.stage.copy`` (the host copy of
-read-only bytes) and ``psac.stage.upload`` (the upload into the zeroed
-buffer) time the two halves of staging on one device.
+same on every process.
+
+No host copy of the text is made: the caller's bytes (read-only
+``bytes`` included) are viewed as a uint8 tensor in place and uploaded
+straight into their place in the padded device buffer, whose padding alone
+is zeroed.  On one device the span ``psac.stage.copy`` times the view
+(near zero) and ``psac.stage.upload`` the buffer and the upload; the
+counter ``stage_bytes_direct`` under it counts the bytes uploaded from the
+caller's buffer (n a stage; each block's m on a mesh).
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -28,16 +35,37 @@ from psac_tpu_torch.parallel.mesh import Mesh, Rep, Sharded, padded_size, \
 from psac_tpu_torch.utils import timers
 
 
+def _host_view(buf: np.ndarray) -> torch.Tensor:
+    """``buf`` (contiguous uint8) as a CPU tensor over the same memory."""
+    with warnings.catch_warnings():
+        # a read-only buffer (bytes) gives a non-writable tensor; staging
+        # only ever reads it, as the source of one copy
+        warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                "writable", UserWarning)
+        return torch.from_numpy(buf)
+
+
+def _upload(view: torch.Tensor, size: int, device) -> torch.Tensor:
+    """The (size,) uint8 buffer on ``device``: ``view``'s m bytes at its
+    start, read from the caller's memory, then zeros."""
+    m = len(view)
+    out = torch.empty(size, dtype=torch.uint8, device=device)
+    out[m:].zero_()
+    # pageable, straight from the caller's memory: copies through pinned
+    # chunks won on a 1-card H100 host but ran 3-10x slower than this on
+    # a 4-card one (PERF.md)
+    out[:m].copy_(view)
+    timers.count("stage_bytes_direct", m)
+    return out
+
+
 def _stage(buf: np.ndarray, device):
     n = len(buf)
     N = padded_size(max(n, 1), 1, multiple=8)
     with timers.span("psac.stage.copy"):
-        # torch.from_numpy wants a writable array (bytes give a read-only one)
-        host = buf if buf.flags.writeable or not n else buf.copy()
+        view = _host_view(buf)
     with timers.span("psac.stage.upload", device):
-        xb = torch.zeros(N, dtype=torch.uint8, device=device)
-        if n:
-            xb[:n] = torch.from_numpy(host).to(device)
+        xb = _upload(view, N, device)
     return xb, n, N
 
 
@@ -51,11 +79,8 @@ def _stage_blocks(read_range, n: int, mesh: Mesh):
     with timers.span("psac.stage.upload"):
         for r, dev in enumerate(mesh.devices):
             lo = (mesh.first + r) * s
-            out = np.zeros(s, np.uint8)
             m = max(0, min(lo + s, n) - lo)
-            if m:
-                out[:m] = read_range(lo, m)
-            blocks.append(torch.from_numpy(out).to(dev))
+            blocks.append(_upload(_host_view(read_range(lo, m)), s, dev))
     return Sharded(blocks, mesh.first, mesh.p), n, N
 
 
@@ -80,11 +105,13 @@ def stage_file_block(path: str, where):
 
 
 def stage_bytes_block(text, where):
-    """Stage an in-memory byte string (bytes or a uint8 array) on a device
-    or over a mesh (each shard's block, with no padded host copy of the
-    whole); returns (xb, n, N) as ``stage_file_block``."""
-    buf = np.frombuffer(bytes(text), np.uint8) \
-        if isinstance(text, (bytes, bytearray)) else np.asarray(text, np.uint8)
+    """Stage an in-memory byte string (bytes, bytearray, memoryview or a
+    uint8 array) on a device or over a mesh (each shard's block), read in
+    place: no host copy of a contiguous input; returns (xb, n, N) as
+    ``stage_file_block``."""
+    buf = np.frombuffer(text, np.uint8) \
+        if isinstance(text, (bytes, bytearray)) else \
+        np.ascontiguousarray(text, np.uint8)
     if isinstance(where, Mesh):
         return _stage_blocks(lambda lo, m: buf[lo:lo + m], len(buf), where)
     return _stage(buf, where)

@@ -1760,3 +1760,42 @@ def test_route_bucket_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                  (d, 4, 10, s.cpu()), (d.view(2, 5), 4, 10, None)):
         with pytest.raises(ValueError):
             route._bucket_by_dest(*args)
+
+
+def test_staging_uploads_read_only_bytes_in_place(cuda):
+    """A 2^24-byte read-only text stages on the card as on the CPU, leaves
+    its source as it was, and allocates only the padded buffer on the card
+    (no n-byte device temporary)."""
+    import hashlib
+
+    from psac_tpu_torch.parallel.staging import stage_bytes_block
+
+    text = np.random.RandomState(25).randint(0, 256, 1 << 24).astype(
+        np.uint8).tobytes()
+    digest = hashlib.sha256(text).hexdigest()
+    want, n, N = stage_bytes_block(text, "cpu")
+    torch.cuda.synchronize(cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    got, got_n, got_N = stage_bytes_block(text, cuda)
+    torch.cuda.synchronize(cuda)
+    rise = torch.cuda.max_memory_allocated(cuda) - before
+    block = 2 << 20  # the caching allocator's rounding of large blocks
+    assert rise <= -(-N // block) * block
+    assert (got_n, got_N) == (n, N)
+    assert torch.equal(got.cpu(), want)
+    assert hashlib.sha256(text).hexdigest() == digest
+
+
+def test_staging_blocks_on_one_card(cuda):
+    """A mesh of four shards on one card stages each block as the CPU mesh
+    does, from read-only bytes."""
+    from psac_tpu_torch.parallel.mesh import make_mesh
+    from psac_tpu_torch.parallel.staging import stage_bytes_block
+
+    text = np.random.RandomState(26).randint(0, 256, 5 * (1 << 22) + 7)\
+        .astype(np.uint8).tobytes()
+    want = stage_bytes_block(text, make_mesh(4, devices=["cpu"] * 4))[0]
+    got = stage_bytes_block(text, make_mesh(4, devices=[cuda] * 4))[0]
+    for g, w in zip(got.shards, want.shards):
+        assert g.device == cuda and torch.equal(g.cpu(), w)
