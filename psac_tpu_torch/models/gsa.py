@@ -31,8 +31,19 @@ LCP resolve and the tail's run K6 (``ops.rmq.rmq_resolve``) on one device
 and the routed range minima (K6's min-only entry) on a mesh.  Two drivers
 run the steps, as in the JAX package: the fused path (``fused=True``), and
 the host-driven loop (``fused=False``, and where the fused path does not
-converge: it redoes the build).  The in-memory and the file input
-(``build_gsa_from_file``) share one build from the staged codes.
+converge: it redoes the build).
+
+A newline-separated buffer (``build_gsa_device(bytes)``) and a file
+(``build_gsa_from_file``) share one path from their raw bytes staged on
+the device: the separators are dropped there and only their positions come
+back (``_build_gsa_raw``); a list of strings is joined on the host.  Every
+input then shares one build from the staged codes (``_build_gsa_staged``).
+A build's spans: ``psac.gsa`` (the call; ``n``, ``N``, ``strings``) >
+staging's phases, ``psac.gsa.split`` (the separator drop and the positions'
+readback), ``psac.gsa.eos``, the construction's phases
+(``psac.construct.*``), ``psac.gsa.tiefix``; its counters
+``gsa_strings``, ``gsa_tie_rows`` and ``gsa_redo`` (1 where the fused
+path did not converge).
 """
 
 from __future__ import annotations
@@ -44,9 +55,10 @@ import numpy as np
 import torch
 
 from psac_tpu_torch import config as cfg_mod
-from psac_tpu_torch.models.suffix_array import (_Builder, _decode_staged,
-                                                _read, encode_and_shard,
-                                                host_tensor, index_dtype_for,
+from psac_tpu_torch.models.suffix_array import (_Builder, _count_and_decode,
+                                                _decode_staged, _read,
+                                                device_of, host_tensor,
+                                                index_dtype_for,
                                                 kmer_words_for)
 from psac_tpu_torch.ops.alphabet import Alphabet
 from psac_tpu_torch.ops.bitops import pow2ceil
@@ -62,8 +74,10 @@ from psac_tpu_torch.parallel.mesh import (Rep, Sharded, num_shards,
                                           padded_size, run_on)
 from psac_tpu_torch.parallel.route import (cap_for, gather_global,
                                            route_scatter)
-from psac_tpu_torch.parallel.staging import (stage_file_block,
+from psac_tpu_torch.parallel.staging import (stage_bytes_block,
+                                             stage_file_block,
                                              staged_histogram)
+from psac_tpu_torch.utils import timers
 
 
 @dataclasses.dataclass
@@ -205,11 +219,9 @@ class _GsaBuilder(_Builder):
     def gfused_full(self, codes, eos, *, m_cap: int, m_cap2: int,
                     resolve_div: int):
         """masked k-mer init -> dense eos-masked doubling (the shared
-        ``_fused_drive``) -> eos-aware two-stage sparse tail ->
-        sentinel-LCP tie-fix at capscale 6.  Returns (isa, sa, lcp, stats)
-        with the tie-fix's routing overflow count appended to the drive's
-        stats (JAX ``_gfused_full_local``): where it is > 0 the caller
-        reruns the fix at full capacity."""
+        ``_fused_drive``) -> eos-aware two-stage sparse tail (JAX
+        ``_gfused_full_local`` without its tie-fix, which the caller runs
+        once the build has converged).  Returns (isa, sa, lcp, stats)."""
 
         def init():
             isa, sa, lcp, brow, active, eos_row, counts = self._ginit_local(
@@ -224,10 +236,7 @@ class _GsaBuilder(_Builder):
         isa, sa, lcp, _, _, _, stats = self._fused_drive(
             init, dense_step, m_cap=m_cap, m_cap2=m_cap2, L=2,
             m_pad=max(8, self.s // resolve_div))
-        tovf = 0
-        if self.with_lcp:
-            lcp, tovf = self._run(_lcp_tiefix, lcp, sa, eos, 6)
-        return isa, sa, lcp, stats + (tovf,)
+        return isa, sa, lcp, stats
 
     # ---------------- host-driven GSA construction ----------------
 
@@ -237,8 +246,8 @@ class _GsaBuilder(_Builder):
         LCP resolve only when the step has queries: K6 on one device, the
         routed ``resolve_with_retry`` on a mesh) until 0 < ue <=
         ``tail_limit``, then the eos-aware tail at one capacity, the power
-        of two above ue, and the sentinel-LCP tie-fix.  Returns (isa, sa,
-        lcp)."""
+        of two above ue (the caller runs the sentinel-LCP tie-fix).
+        Returns (isa, sa, lcp)."""
         N = self.N
         isa, sa, lcp, brow, active, eos_row, counts = self._ginit_local(
             codes, eos)
@@ -269,15 +278,14 @@ class _GsaBuilder(_Builder):
                 if nq > 0:
                     lcp = self._host_resolve(lcp, q, d, nq)
             d *= 2
-        if self.with_lcp:
-            lcp = _gsa_tiefix(self.mesh, lcp, sa, eos)
         return isa, sa, lcp
 
 
 def _flatten(strings) -> tuple[bytes, np.ndarray]:
     """The separator-removed flat text and the per-string lengths of a list
-    of byte strings, or of one newline-separated byte string; empty strings
-    are dropped."""
+    of byte strings, or the host split of one newline-separated byte string
+    (what the device split of ``_build_gsa_raw`` gives); empty strings are
+    dropped."""
     if isinstance(strings, (bytes, bytearray)):
         parts = [x for x in bytes(strings).split(b"\n") if x]
     else:
@@ -318,25 +326,29 @@ def _lcp_tiefix(ctx, lcp, sa, eos, capscale: int | None):
     take the suffix's full length, eos[SA[g]] - SA[g], the eos read from
     the shard that holds it (routed at ``cap_for(s, p, capscale)``).  A
     dropped (overflowed) row answers 0 where a real answer is >= 1, so it
-    keeps the sentinel N and a full-capacity pass finds it.  Returns (lcp,
-    the replicated overflow count)."""
+    keeps the sentinel N and a full-capacity pass finds it.  The rows
+    filled are counted (``gsa_tie_rows``) where a span is open.  Returns
+    (lcp, the replicated overflow count)."""
     s = lcp.shape[0]
     p = 1 if ctx is None else ctx.p
     need = lcp == s * p
     eos_at_sa, ovf = gather_global(eos, sa, need, ctx=ctx,
                                    cap=cap_for(s, p, capscale),
                                    with_overflow=True)
-    return torch.where(need & (eos_at_sa > 0), eos_at_sa - sa, lcp), \
-        Rep(int(ovf))
+    fill = need & (eos_at_sa > 0)
+    if timers.current() is not None:
+        timers.count("gsa_tie_rows", fill.sum())
+    return torch.where(fill, eos_at_sa - sa, lcp), Rep(int(ovf))
 
 
 def _gsa_tiefix(mesh, lcp, sa, eos, capscales=(6, None)):
     """The tie-fix with the reference's capacity escalation: capscale 6,
     then, only if rows were dropped, no bound (JAX ``_gsa_tiefix``)."""
-    for capscale in capscales:
-        lcp, ovf = run_on(mesh, _lcp_tiefix, lcp, sa, eos, capscale)
-        if ovf == 0:
-            break
+    with timers.span("psac.gsa.tiefix", device_of(lcp)):
+        for capscale in capscales:
+            lcp, ovf = run_on(mesh, _lcp_tiefix, lcp, sa, eos, capscale)
+            if ovf == 0:
+                break
     return lcp
 
 
@@ -349,93 +361,176 @@ def _decode(xb, alpha: Alphabet):
 
 def _build_gsa_staged(xs, alpha: Alphabet, lens: np.ndarray, n: int, N: int,
                       config: cfg_mod.SAConfig, mesh=None) -> DeviceGSA:
-    """The device-side GSA build shared by the in-memory and the file
-    inputs: from the (N,) int32 codes of the separator-free flat text (on
-    a device, or ``Sharded`` over ``mesh``) and the host string lengths,
-    expand eos on the device(s), then run the construction: the fused path,
-    redone on the host-driven loop when it does not converge, or the
-    host-driven loop alone (``fused=False``).  Never packs sort keys, as in
-    the JAX package."""
+    """The device-side GSA build shared by every input: from the (N,)
+    int32 codes of the separator-free flat text (on a device, or
+    ``Sharded`` over ``mesh``) and the host string lengths, expand eos on
+    the device(s), then run the construction: the fused path, redone on
+    the host-driven loop when it does not converge (counted as
+    ``gsa_redo``), or the host-driven loop alone (``fused=False``); then
+    the tie-fix.  Never packs sort keys, as in the JAX package."""
     if isinstance(xs, Sharded):
         device = None
     else:
         mesh, device = None, xs.device
     idt = index_dtype_for(N, config)
-    eos = _eos_device(lens, n, N, idt, device, mesh)
+    timers.count("gsa_strings", len(lens))
+    with timers.span("psac.gsa.eos", device_of(xs)):
+        eos = _eos_device(lens, n, N, idt, device, mesh)
     ks = kmer_words_for(alpha.bits_per_char, config)
     b = _GsaBuilder(N, ks, alpha.bits_per_char, config.construct_lcp, idt,
                     device, mesh=mesh)
-
-    def result(sa, lcp):
-        return DeviceGSA(sa=sa, lcp=lcp, eos=eos, xs=xs, alphabet=alpha,
-                         lens=lens, n=n, N=N, mesh=mesh)
-
+    converged = False
     if config.fused:
         m_cap2 = b._cap(max(8 * b.p, min(N, pow2ceil(max(256, N // 1024)))))
         m_cap = b._cap(max(m_cap2, min(N, pow2ceil(N // 32))))
-        _, sa, lcp, (_, ue, _, _, tie_ovf) = b.gfused_full(
+        _, sa, lcp, (_, ue, _, _) = b.gfused_full(
             xs, eos, m_cap=m_cap, m_cap2=m_cap2,
             resolve_div=config.resolve_div)
-        if ue == 0:
-            if tie_ovf > 0:
-                # the fused tie-fix dropped rows: they kept the sentinel,
-                # so the full-capacity pass finds them
-                lcp = _gsa_tiefix(mesh, lcp, sa, eos, (None,))
-            return result(sa, lcp)
-        print(f"[psac_tpu_torch] fused GSA did not converge (ue={ue}); "
-              "redoing the build on the host-driven loop", file=sys.stderr)
-    _, sa, lcp = b.ghost_full(
-        xs, eos, tail_limit=int(N * config.tail_threshold_frac))
-    return result(sa, lcp)
+        converged = ue == 0
+        if not converged:
+            timers.count("gsa_redo")
+            print(f"[psac_tpu_torch] fused GSA did not converge (ue={ue}); "
+                  "redoing the build on the host-driven loop",
+                  file=sys.stderr)
+    if not converged:
+        _, sa, lcp = b.ghost_full(
+            xs, eos, tail_limit=int(N * config.tail_threshold_frac))
+    if lcp is not None:
+        lcp = _gsa_tiefix(mesh, lcp, sa, eos)
+    return DeviceGSA(sa=sa, lcp=lcp, eos=eos, xs=xs, alphabet=alpha,
+                     lens=lens, n=n, N=N, mesh=mesh)
 
 
-def _build_gsa_flat(flat: bytes, lens: np.ndarray, device,
-                    config: cfg_mod.SAConfig, mesh=None) -> DeviceGSA:
-    """Stage the flat text raw (the histogram counted on the device, or on
-    each shard's) and build."""
+def _placement(device, mesh):
+    """(device, mesh, the device spans are timed on) of a build: a mesh of
+    one shard is its device, and one device is resolved (None: the CUDA
+    card, ``config.resolve_device``) once, here."""
+    if mesh is not None and mesh.p == 1:
+        device, mesh = mesh.devices[0], None
+    if mesh is None:
+        device = cfg_mod.resolve_device(device)
+        return device, None, device
+    return None, mesh, mesh.devices[0] if mesh.local == 1 else None
+
+
+def _traced(span_device, build, *args):
+    """``build(*args)`` (a ``DeviceGSA``, or None for a set with no string
+    content) under the ``psac.gsa`` call span."""
+    with timers.call("psac.gsa", span_device) as sp:
+        dg = build(*args)
+        if dg is not None:
+            sp.set(n=dg.n, N=dg.N, strings=len(dg.lens))
+    return dg
+
+
+def _build_gsa_list(strings, device, config: cfg_mod.SAConfig, mesh):
+    """A list of byte strings: joined on the host without separators,
+    staged, its histogram counted on the device(s), then built."""
+    flat, lens = _flatten(strings)
     if len(flat) == 0:
-        raise ValueError("build_gsa_device: no string content")
-    xs, alpha, n, N = encode_and_shard(flat, device, mesh)
+        return None
+    xb, n, N = stage_bytes_block(flat, device if mesh is None else mesh)
+    xs, alpha = _count_and_decode(xb, n, N, mesh)
     return _build_gsa_staged(xs, alpha, lens, n, N, config, mesh)
 
 
-def build_gsa_device(strings, device=None,
-                     config: cfg_mod.SAConfig = cfg_mod.DEFAULT,
-                     mesh=None) -> DeviceGSA:
-    """GSA (+GLCP) of a string set (a list of byte strings, or one
-    newline-separated flat byte string as the reference's ``gsac -f``) on
-    ``device`` (None: the CUDA card; ``"cpu"`` runs the plain versions), or
-    on the p shards of ``mesh`` (``parallel.mesh.make_mesh``), which then
-    replaces ``device``; the result stays there."""
-    return _build_gsa_flat(*_flatten(strings), device, config, mesh)
-
-
-def _drop_separators(ctx, fb, n_file: int, s_flat: int, nsep: int, sep: int,
+def _drop_separators(ctx, fb, n_raw: int, s_flat: int, nsep: int, sep: int,
                      idt: torch.dtype):
-    """The file staging's separator drop on this shard's block of the
-    staged file (JAX ``_gsac_stage_fn``): each byte's flat position is its
-    file position less the separators before it (an in-shard exclusive
-    count plus the shards' exclusive scan), one routed scatter writes the
-    real bytes into the (s_flat,) blocks of the flat text, and the
-    separators' file positions, each at its ordinal, come back replicated
-    (the psum of the shards' zero-filled parts).  Returns (flat block,
-    (nsep,) positions)."""
+    """The separator drop on this shard's block of the staged raw bytes
+    (JAX ``_gsac_stage_fn``): each byte's flat position is its raw
+    position less the separators before it (an in-shard exclusive count
+    plus the shards' exclusive scan), one routed scatter writes the real
+    bytes into the (s_flat,) blocks of the flat text, and the separators'
+    raw positions, each at its ordinal, come back replicated (the psum of
+    the shards' zero-filled parts).  Returns (flat block, (nsep,)
+    positions)."""
     dev = fb.device
     base = global_index_base(fb.shape[0], ctx)
     g = torch.arange(base, base + fb.shape[0], dtype=idt, device=dev)
-    is_file = g < n_file
-    msk = (fb == sep) & is_file
+    is_raw = g < n_raw
+    msk = (fb == sep) & is_raw
     mi = msk.to(idt)
     c = exscan_scalar(mi.sum().to(idt), ctx) + torch.cumsum(mi, 0,
                                                             dtype=idt) - mi
     (flat,) = route_scatter(g - c, (fb,),
                             (torch.zeros(s_flat, dtype=torch.uint8,
                                          device=dev),),
-                            is_file & ~msk, ctx=ctx)
+                            is_raw & ~msk, ctx=ctx)
     at = torch.nonzero(msk).squeeze(1)
     seps = torch.zeros(nsep, dtype=idt, device=dev)
     seps[c[at].to(torch.int64)] = g[at]
     return flat, Rep(psum(seps, ctx))
+
+
+def _build_gsa_raw(stage, config: cfg_mod.SAConfig, mesh, sep: int):
+    """The GSA of a ``sep``-delimited string set staged raw (the
+    reference's ``gsac -f``), from a file or an in-memory buffer alike:
+    ``stage()`` puts the raw bytes on the device or over ``mesh``
+    (``parallel.staging``: no host copy) and returns (xb, n_raw, N_raw).
+    The bytes are counted there (summed over a mesh), the separators
+    dropped there (``_drop_separators``, span ``psac.gsa.split``), and only
+    their positions (O(m) metadata) come back, to make the string lengths
+    on the host.  Empty strings are dropped, a trailing separator is
+    optional, NUL raises.  None where the set has no string content."""
+    p = num_shards(mesh)
+    xbf, n_raw, N_raw = stage()
+    dev = device_of(xbf)
+    with timers.span("psac.stage.count", dev):
+        hist = staged_histogram(xbf, mesh)
+    nsep = int(hist[sep])
+    n_flat = n_raw - nsep
+    if n_flat <= 0:
+        return None
+    N_flat = padded_size(n_flat, p, multiple=8)
+    hist[sep] = 0
+    # the histogram ran over the padded staging, so its zero count is the
+    # padding (genuine NULs still raise)
+    alpha = Alphabet.from_hist(hist, pad_zeros=N_raw - n_raw)
+    idt = index_dtype_for(max(N_raw, N_flat), config)
+    with timers.span("psac.gsa.split", dev):
+        xb, sep_pos = run_on(mesh, _drop_separators, xbf, n_raw, N_flat // p,
+                             nsep, sep, idt)
+        del xbf  # the raw staging is not needed by the build
+        sep_pos = sep_pos.cpu().numpy().astype(np.int64)
+        timers.readback()
+    ends_flat = sep_pos - np.arange(nsep, dtype=np.int64)
+    if nsep == 0 or sep_pos[-1] != n_raw - 1:
+        ends_flat = np.concatenate([ends_flat, [n_flat]])
+    lens = np.diff(np.concatenate([[0], ends_flat]))
+    lens = lens[lens > 0]
+    with timers.span("psac.stage.decode", dev):
+        xs = _decode(xb, alpha)
+    del xb
+    return _build_gsa_staged(xs, alpha, lens, n_flat, N_flat, config, mesh)
+
+
+def _gsa_device(strings, device, config: cfg_mod.SAConfig, mesh):
+    """``build_gsa_device`` without its error for a set with no string
+    content (None)."""
+    device, mesh, span_device = _placement(device, mesh)
+    if isinstance(strings, (bytes, bytearray)):
+        return _traced(span_device, _build_gsa_raw,
+                       lambda: stage_bytes_block(strings, mesh or device),
+                       config, mesh, 0x0A)
+    return _traced(span_device, _build_gsa_list, strings, device, config,
+                   mesh)
+
+
+def build_gsa_device(strings, device=None,
+                     config: cfg_mod.SAConfig = cfg_mod.DEFAULT,
+                     mesh=None) -> DeviceGSA:
+    """GSA (+GLCP) of a string set on ``device`` (None: the CUDA card;
+    ``"cpu"`` runs the plain versions), or on the p shards of ``mesh``
+    (``parallel.mesh.make_mesh``), which then replaces ``device``; the
+    result stays there.  ``strings`` is one newline-separated ``bytes`` or
+    ``bytearray`` buffer, as the reference's ``gsac -f`` reads it (staged
+    raw with no host copy and split on the device, as
+    ``build_gsa_from_file`` does), or a list of byte strings (joined on
+    the host)."""
+    dg = _gsa_device(strings, device, config, mesh)
+    if dg is None:
+        raise ValueError("build_gsa_device: no string content")
+    return dg
 
 
 def build_gsa_from_file(path: str, device=None,
@@ -444,54 +539,28 @@ def build_gsa_from_file(path: str, device=None,
     """GSA (+GLCP) of a ``sep``-delimited file (the reference's ``gsac
     -f``) on ``device`` (None: the CUDA card) or on the p shards of
     ``mesh``.  The file is staged raw, one read on a device and on a mesh
-    each process reading only its own shards' byte ranges, and its bytes
-    counted on the device(s), summed over the mesh; the separators are
-    dropped there (``_drop_separators``), and only their positions (O(m)
-    metadata) come back, to make the string lengths on the host.  Empty
-    strings are dropped; a trailing separator is optional."""
-    p = num_shards(mesh)
-    if p == 1:
-        device = mesh.devices[0] if mesh is not None else device
-        mesh = None
-        xbf, n_file, N_file = stage_file_block(
-            path, cfg_mod.resolve_device(device))
-        hist = staged_histogram(xbf)
-    else:
-        xbf, n_file, N_file = stage_file_block(path, mesh)
-        hist = staged_histogram(xbf, mesh)
-    nsep = int(hist[sep])
-    n_flat = n_file - nsep
-    if n_flat <= 0:
+    each process reading only its own shards' byte ranges; from there the
+    build is the in-memory buffer's (``_build_gsa_raw``)."""
+    device, mesh, span_device = _placement(device, mesh)
+    dg = _traced(span_device, _build_gsa_raw,
+                 lambda: stage_file_block(path, mesh or device), config, mesh,
+                 sep)
+    if dg is None:
         raise ValueError(f"{path}: no string content")
-    N_flat = padded_size(n_flat, p, multiple=8)
-    hist2 = hist.copy()
-    hist2[sep] = 0
-    # the histogram ran over the file's padded staging, so its zero count
-    # is the file padding (genuine NULs still raise)
-    alpha = Alphabet.from_hist(hist2, pad_zeros=N_file - n_file)
-    idt = index_dtype_for(max(N_file, N_flat), config)
-    xb, sep_pos = run_on(mesh, _drop_separators, xbf, n_file, N_flat // p,
-                         nsep, sep, idt)
-    del xbf  # the file's staging is not needed by the build
-    sep_pos = sep_pos.cpu().numpy().astype(np.int64)
-    ends_flat = sep_pos - np.arange(nsep, dtype=np.int64)
-    if nsep == 0 or sep_pos[-1] != n_file - 1:
-        ends_flat = np.concatenate([ends_flat, [n_flat]])
-    lens = np.diff(np.concatenate([[0], ends_flat]))
-    lens = lens[lens > 0]
-    return _build_gsa_staged(_decode(xb, alpha), alpha, lens, n_flat, N_flat,
-                             config, mesh)
+    return dg
 
 
 def build_gsa(strings, device=None,
               config: cfg_mod.SAConfig = cfg_mod.DEFAULT, mesh=None
               ) -> GeneralizedSuffixArray:
     """Host-facing GSA construction (the reference's ``gsac`` output) on
-    ``device`` (None: the CUDA card) or on the p shards of ``mesh``."""
-    flat, lens = _flatten(strings)
-    if len(flat) == 0:
+    ``device`` (None: the CUDA card) or on the p shards of ``mesh``, of a
+    newline-separated buffer or a list of byte strings."""
+    dg = _gsa_device(strings, device, config, mesh)
+    if dg is None:
         return GeneralizedSuffixArray(
             sa=np.zeros(0, np.int64),
             lcp=np.zeros(0, np.int64) if config.construct_lcp else None,
-            alphabet=Alphabet.from_bytes(flat), lens=lens, n=0)
-    return _build_gsa_flat(flat, lens, device, config, mesh).materialize()
+            alphabet=Alphabet.from_bytes(b""), lens=np.zeros(0, np.int64),
+            n=0)
+    return dg.materialize()

@@ -24,7 +24,11 @@ edges at root depth are not recorded.  It is one shard function
 (``_gst``) for every p, as the tree's (``_st``), with the same capscale
 retry.  A build's spans: ``psac.st`` (the call) > ``psac.st.ansv`` (the
 ANSV pass and its input), ``psac.st.nodes`` (the edges, the character
-gather, the table's scatter and the overflow readback).
+gather, the table's scatter and the overflow readback); the generalized
+tree's: ``psac.gst`` (the call) > ``psac.st.ansv``, ``psac.gst.nodes``
+(the edges, the character gather, the table's scatter) and
+``psac.gst.dollar`` (the ``$``-edges' run ends and slot 0), with the
+counter ``gst_dollar_edges``.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_SM
 from psac_tpu_torch.parallel.ansv import (KERNELS, AnsvKernels, ansv_local,
                                           ansv_mesh_local, nonsv_for)
 from psac_tpu_torch.parallel.collectives import (global_index_base,
-                                                 next_of, pmax, prev_of)
+                                                 next_of, prev_of)
 from psac_tpu_torch.parallel.mesh import Rep, num_shards, run_on
 from psac_tpu_torch.parallel.route import (cap_for, gather_global,
                                            route_scatter)
@@ -203,55 +207,58 @@ def _gst(ctx, lcp, sa, xs, eos, n: int, sigma: int, capscale, kernels):
     p = 1 if ctx is None else ctx.p
     s, idt = lcp.shape[0], lcp.dtype
     width = sigma + 2
-    inf = torch.iinfo(idt).max
     nsv = _parent_nsv(ctx, lcp, n, capscale, kernels)
-    parents, childs, elcp, savals, valid = _parent_edges(ctx, nsv, sa, n)
-    ovf = nsv[-1]
-    del nsv  # the ANSV's arrays, freed before the gathers and scatters
-    # ``$``-edge test without an eos[SA[i]] gather: every recorded edge has
-    # depth elcp >= 1 and elcp <= eos[SA[i]] - SA[i], so SA[i] + elcp lies
-    # in (SA[i], eos[SA[i]]]: inside SA[i]'s own string unless it IS the
-    # string's end, and a string end below n is the next string's start.
-    # So ``$`` <=> SA[i] + elcp is a string start, or is n.  The start bit
-    # rides on the gathered text: one gather answers char and ``$`` test.
-    xz = xs + (sigma + 1) * _start_bits(eos, n, ctx).to(xs.dtype)
-    char_idx = savals + elcp
-    dollar_end = char_idx >= n
-    valid_q = valid & (elcp != 0)  # root-depth edges are not recorded
-    cap = cap_for(2 * s, p, capscale)
-    chz, ovf_g = gather_global(xz, char_idx, valid_q & ~dollar_end, ctx=ctx,
-                               cap=cap, with_overflow=True)
-    dollar = dollar_end | (chz > sigma)
-
-    # slot 0 accumulates a min: it starts at INF and goes back to 0 where
-    # no ``$``-edge landed
-    nodes = torch.zeros(s, width, dtype=idt, device=lcp.device)
-    nodes[:, 0] = inf
-    (nodes,), ovf_s = route_scatter(
-        parents, (childs,), (nodes.view(-1),), valid_q & ~dollar,
-        width=width, slots=chz + 1, ctx=ctx, cap=cap, with_overflow=True)
-    # many ``$``-edges may meet at one node, so they go through the reducing
-    # scatter, compacted by mask first (they are few beside the 2s rows),
-    # to the largest shard's count: the exchange's buffers are alike on
-    # every shard
-    at = torch.nonzero(valid_q & dollar).squeeze(1)
-    k = at.shape[0]
-    m = int(pmax(torch.tensor(k), ctx))
-    ovf_d = 0
-    if m:
-        pad = m - k
-        rows = torch.cat([parents[at], parents.new_zeros(pad)])
-        kids = torch.cat([childs[at], childs.new_zeros(pad)])
-        ok = torch.arange(m, device=at.device) < k
-        for slot, how in ((0, "min"), (1, "max")):
-            (nodes,), o = route_scatter(
-                rows, (kids,), (nodes,), ok, width=width,
-                slots=torch.full_like(rows, slot), combine=(how,), ctx=ctx,
-                cap=cap_for(m, p, capscale), with_overflow=True)
-            ovf_d = ovf_d + o
-    table = nodes.view(s, width)
-    table[:, 0] = torch.where(table[:, 0] == inf, 0, table[:, 0])
-    return nodes, Rep(int(ovf + ovf_g + ovf_s + ovf_d))
+    with timers.span("psac.gst.nodes", lcp.device):
+        parents, childs, elcp, savals, valid = _parent_edges(ctx, nsv, sa, n)
+        off, ovf = nsv[2], nsv[-1]
+        del nsv  # the ANSV's arrays, freed before the gathers and scatters
+        # ``$``-edge test without an eos[SA[i]] gather: every recorded edge
+        # has depth elcp >= 1 and elcp <= eos[SA[i]] - SA[i], so SA[i] +
+        # elcp lies in (SA[i], eos[SA[i]]]: inside SA[i]'s own string
+        # unless it IS the string's end, and a string end below n is the
+        # next string's start.  So ``$`` <=> SA[i] + elcp is a string
+        # start, or is n.  The start bit rides on the gathered text: one
+        # gather answers char and ``$`` test.
+        xz = xs + (sigma + 1) * _start_bits(eos, n, ctx).to(xs.dtype)
+        char_idx = savals + elcp
+        dollar_end = char_idx >= n
+        valid_q = valid & (elcp != 0)  # root-depth edges are not recorded
+        cap = cap_for(2 * s, p, capscale)
+        chz, ovf_g = gather_global(xz, char_idx, valid_q & ~dollar_end,
+                                   ctx=ctx, cap=cap, with_overflow=True)
+        del xz, char_idx
+    with timers.span("psac.gst.dollar", lcp.device):
+        # A node's ``$``-children are the leaves whose suffixes end at its
+        # depth d: identical whole suffixes, which sort first in its
+        # interval [lb, rb], so they are the leaves of rows lb, lb + 1, ...
+        # in a run, and the node's id is lb + 1 (the LCP there is d).  So
+        # their (min, max) child ids are (n + id - 1, the run's last leaf):
+        # the last leaf of each run writes slot 1 in the table's one
+        # scatter (one place a node), and slot 0 follows from slot 1.  No
+        # reducing scatter and no compaction: they are not few, at 32x read
+        # coverage 81% of the leaves (120,950,968 of 150 M counted as
+        # ``gst_dollar_edges``).
+        dollar = valid_q & (dollar_end | (chz > sigma))
+        if timers.current() is not None:
+            timers.count("gst_dollar_edges", dollar.sum())
+        ld, lp = dollar[:s], parents[:s]  # only leaf edges end in ``$``
+        run_end = ld & ~(next_of(ld, False, ctx) & (next_of(lp, -1, ctx)
+                                                   == lp))
+        write = (valid_q & ~dollar) | torch.cat(
+            [run_end, torch.zeros_like(run_end)])
+        slots = torch.where(dollar, 1, chz + 1)
+        del dollar, ld, lp, run_end, chz
+    with timers.span("psac.gst.nodes", lcp.device):
+        nodes = torch.zeros(s * width, dtype=idt, device=lcp.device)
+        (nodes,), ovf_s = route_scatter(
+            parents, (childs,), (nodes,), write, width=width, slots=slots,
+            ctx=ctx, cap=cap, with_overflow=True)
+    with timers.span("psac.gst.dollar", lcp.device):
+        table = nodes.view(s, width)
+        base = global_index_base(s, ctx)
+        g = torch.arange(base, base + s, dtype=idt, device=lcp.device)
+        table[:, 0] = torch.where(table[:, 1] != 0, n + (g - off) - 1, 0)
+    return nodes, Rep(int(ovf + ovf_g + ovf_s))
 
 
 def _gst_local(dgsa, kernels: AnsvKernels) -> DeviceSuffixTree:
@@ -267,11 +274,12 @@ def _gst_local(dgsa, kernels: AnsvKernels) -> DeviceSuffixTree:
         mesh = None
     sigma = dgsa.alphabet.sigma
     _check_local_table(dgsa.N // num_shards(mesh), sigma + 2, dgsa.sa.dtype)
-    for capscale in (6, None):
-        nodes, ovf = run_on(mesh, _gst, dgsa.lcp, dgsa.sa, dgsa.xs, dgsa.eos,
-                            dgsa.n, sigma, capscale, kernels)
-        if capscale is None or ovf == 0:
-            break
+    with timers.call("psac.gst", device_of(dgsa.lcp), n=dgsa.n):
+        for capscale in (6, None):
+            nodes, ovf = run_on(mesh, _gst, dgsa.lcp, dgsa.sa, dgsa.xs,
+                                dgsa.eos, dgsa.n, sigma, capscale, kernels)
+            if capscale is None or ovf == 0:
+                break
     return DeviceSuffixTree(nodes=nodes, sigma=sigma + 1, n=dgsa.n, N=dgsa.N)
 
 

@@ -4,8 +4,11 @@ runs (grown from ``psac_tpu/utils/timers.py``'s ``SectionTimer``).
 ``call(name, device)`` opens the root span of one public call
 (``encode_and_shard``, ``construct_device``,
 ``construct_suffix_tree_device``, ``DeviceSuffixArray.materialize``,
-``DESA.bulk_locate``), ``span(name, device, **attrs)`` one of its phases,
-and ``count(name, value)`` adds to a counter of the innermost open span;
+``DESA.bulk_locate``, ``build_gsa_device``, ``build_gsa_from_file``,
+``construct_gst_device``), ``span(name, device, **attrs)`` one of its phases,
+and ``count(name, value)`` adds to a counter of the innermost open span
+(``current()`` is None where none is open, so a count that costs a
+reduction is made only then);
 ``readback()`` counts one device-to-host read that waits for the card.
 Names are ``psac.<layer>.<phase>``.  A record holds its name, an id, its
 parent's and its root's ids, the thread and the mesh shard (None off a
@@ -194,9 +197,11 @@ def call(name: str, device=None, **attrs):
     return Span(name, device, attrs)
 
 
-def count(name: str, value: int = 1) -> None:
+def count(name: str, value=1) -> None:
     """Add ``value`` to counter ``name`` of this thread's innermost open
-    span."""
+    span.  A 0-d tensor (a count made on the card) is added on its device
+    and read only when the records are taken, so counting adds no
+    readback."""
     stack = _tls.stack
     if not stack:
         return
@@ -231,10 +236,15 @@ def _settle(wait: bool) -> None:
 
 
 def records() -> list:
-    """The kept records, oldest first, their device ms read."""
+    """The kept records, oldest first, their device ms and counts read."""
     _settle(True)
     with _lock:
-        return list(_store)
+        recs = list(_store)
+        for r in recs:
+            for k, v in r.counts.items():
+                if isinstance(v, torch.Tensor):
+                    r.counts[k] = int(v)
+    return recs
 
 
 def clear() -> None:

@@ -483,6 +483,27 @@ def test_gsa_and_gst_default_to_the_card(cuda, kind, force_int64):
     np.testing.assert_array_equal(tree, build_gst(parts, "cpu", cfg))
 
 
+def test_gsa_buffer_on_the_card_equals_cpu(cuda):
+    """A newline-separated buffer staged raw on the card and split there:
+    its whole device state and its GST equal the CPU path's, the tree on
+    one K2 launch."""
+    from psac_tpu_torch.models.gsa import build_gsa_device
+    from psac_tpu_torch.models.suffix_tree import construct_gst_device
+
+    parts = cases.near_identical_family(16, 4096, 4, seed=2)
+    buf = b"\n" + b"\n\n".join(parts + parts[:3] + [b"ACGT", b"T"]) + b"\n"
+    dg = build_gsa_device(buf)
+    want = build_gsa_device(buf, "cpu")
+    assert dg.sa.is_cuda and (dg.n, dg.N) == (want.n, want.N)
+    np.testing.assert_array_equal(dg.lens, want.lens)
+    for field in ("sa", "lcp", "eos", "xs"):
+        assert torch.equal(getattr(dg, field).cpu(), getattr(want, field))
+    before = nsv_scan.nsv_scan_dual.launches
+    tree = construct_gst_device(dg)
+    assert nsv_scan.nsv_scan_dual.launches == before + 1
+    assert torch.equal(tree.nodes.cpu(), construct_gst_device(want).nodes)
+
+
 def test_suffix_array_int64_on_gpu(cuda):
     """The int64 build runs K6's int64 launcher in its dense steps."""
     from psac_tpu_torch import SAConfig, build_suffix_array, native

@@ -370,3 +370,101 @@ def test_k6_not_launched_on_cpu():
     before = t_rmq.rmq_resolve.launches
     build_gsa(SETS["near_identical"], "cpu")
     assert t_rmq.rmq_resolve.launches == before
+
+
+#: newline-separated buffers: the device split of ``build_gsa_device`` and
+#: ``build_gsa`` against the host split of the same buffer (the list form)
+BUFFERS = {
+    "empty_lines": b"banana\n\n\nana\n\nnab\n",
+    "leading_and_trailing": b"\nbanana\nananas\n",
+    "no_trailing_newline": b"banana\nana\nnab\nbanana",
+    "one_string": b"mississippi\n",
+    "one_string_no_newline": b"mississippi",
+    "length_one": b"a\nb\na\nc\nb\na\n",
+    "newline_only_at_end": b"abracadabra\n",
+    "random_reads": b"\n".join(_dna_set(21, 40, 1, 160, 3)) + b"\n",
+}
+
+
+def _read_set(reads, genome, seed):
+    """A seeded read set of ``reads`` reads of 150 bp from a ``genome``-bp
+    genome, as the benchmark's ``gen/reads.py`` makes it."""
+    from portbench.harness import spec
+
+    params = {"n": 150 * reads, "read_length": 150, "genome": genome,
+              "alphabet": "ACGT", "revcomp": 0.5, "sub_rate": 0.002}
+    return spec.Finder().module("gen", "reads").make(params, seed, "cpu")
+
+
+@pytest.mark.parametrize("name", sorted(BUFFERS))
+def test_buffer_splits_on_the_device_as_the_list_form(name, monkeypatch):
+    """A buffer is staged raw and split on the device (never on the host):
+    its whole padded device state equals the list form's bit for bit, and
+    its GSA, GLCP and GST the oracles'."""
+    buf = BUFFERS[name]
+    flat, parts = _parts(buf)
+    lst = t_gsa.build_gsa_device(parts, "cpu")
+    monkeypatch.setattr(t_gsa, "_flatten", None)  # no host split of bytes
+    dg = t_gsa.build_gsa_device(buf, "cpu")
+    assert (dg.n, dg.N) == (lst.n, lst.N) == (len(flat), dg.N)
+    np.testing.assert_array_equal(dg.lens, [len(x) for x in parts])
+    for field in ("sa", "lcp", "eos", "xs"):
+        a, b = getattr(dg, field), getattr(lst, field)
+        assert a.dtype == b.dtype and torch.equal(a, b), field
+    want_sa, want_lcp = gsa_oracle(parts)
+    res = build_gsa(bytearray(buf), "cpu")
+    np.testing.assert_array_equal(res.sa, want_sa)
+    np.testing.assert_array_equal(res.lcp, want_lcp)
+    np.testing.assert_array_equal(t_st.construct_gst_device(dg).materialize(),
+                                  gst_expected(parts))
+
+
+def test_buffer_equals_the_file(tmp_path):
+    """``build_gsa_device(bytes)`` and ``build_gsa_from_file`` of the same
+    content take one path from the staged raw bytes: equal device state."""
+    buf = BUFFERS["empty_lines"] + BUFFERS["random_reads"]
+    f = tmp_path / "reads.txt"
+    f.write_bytes(buf)
+    a = t_gsa.build_gsa_device(buf, "cpu")
+    b = t_gsa.build_gsa_from_file(str(f), "cpu")
+    assert (a.n, a.N) == (b.n, b.N)
+    np.testing.assert_array_equal(a.lens, b.lens)
+    for field in ("sa", "lcp", "eos", "xs"):
+        assert torch.equal(getattr(a, field), getattr(b, field)), field
+
+
+def test_buffer_errors_and_empty_sets():
+    for buf in (b"", b"\n", b"\n\n\n"):
+        with pytest.raises(ValueError, match="no string content"):
+            t_gsa.build_gsa_device(buf, "cpu")
+        res = build_gsa(buf, "cpu")
+        assert res.n == 0 and len(res.sa) == 0 and res.nstrings == 0
+    with pytest.raises(ValueError, match="NUL"):
+        t_gsa.build_gsa_device(b"ab\nc\x00d\n", "cpu")
+
+
+def test_read_set_against_the_benchmark_reference():
+    """2,000 reads of 150 bp from a 20-kbp genome (15x, half reverse-
+    complemented, 0.2% substitutions), built from their newline buffer:
+    the GSA, GLCP and GST equal the benchmark's plain reference, with
+    identical whole suffixes and ``$``-edges in most leaf rows."""
+    from portbench.reference import gsa_outputs as R
+
+    reads = _read_set(2000, 20000, 2**31 + 26)
+    assert len(reads) == 2000 * 151
+    dg = t_gsa.build_gsa_device(reads, "cpu")
+    tree = t_st.construct_gst_device(dg)
+    codes, sigma, eos, sa, lcp = R._reference(reads, "cpu")
+    table = R.gst_table(codes, eos, sa, lcp, sigma)
+    cut = dg.N - dg.n
+    assert torch.equal(dg.sa[cut:].long(), sa)
+    got_lcp = dg.lcp[cut:].clone()
+    got_lcp[0] = 0
+    assert torch.equal(got_lcp, lcp)
+    assert torch.equal(tree.nodes.view(dg.N, sigma + 2)[cut:], table)
+    rem = eos[sa] - sa
+    ties = (lcp[1:] == rem[1:]) & (lcp[1:].long() == rem[:-1])
+    # a leaf's edge is ``$`` where its suffix ends at its parent's depth
+    depth = torch.maximum(lcp, torch.cat([lcp[1:], lcp.new_zeros(1)]))
+    dollar = (rem == depth) & (depth > 0)
+    assert ties.sum() > 10000 and dollar.sum() > dg.n // 2

@@ -245,3 +245,19 @@ def test_entry_points_on_a_mesh():
                                       build_gst(strings, "cpu"))
     one = t_gsa.build_gsa_device(strings, mesh=make_mesh(1, ["cpu"]))
     assert one.mesh is None and one.sa.device.type == "cpu"
+
+
+@pytest.mark.parametrize("p,name", [(3, "empty_lines"),
+                                    (4, "trailing_separator"),
+                                    (5, "no_trailing_separator")])
+def test_buffer_split_on_the_shards_as_the_list_form(p, name):
+    """A newline-separated buffer is staged raw over the shards and split
+    there: its padded state equals the list form's at the same p."""
+    content = GSA_FILES[name]
+    parts = [x for x in content.split(b"\n") if x]
+    buf = t_gsa.build_gsa_device(content, mesh=cpu_mesh(p))
+    lst = t_gsa.build_gsa_device(parts, mesh=cpu_mesh(p))
+    np.testing.assert_array_equal(buf.lens, lst.lens)
+    assert (buf.n, buf.N) == (lst.n, lst.N)
+    for fld in FIELDS:
+        np.testing.assert_array_equal(_padded(buf, fld), _padded(lst, fld))

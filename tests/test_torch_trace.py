@@ -572,3 +572,105 @@ def test_bucket_rows_count_only_on_the_card(monkeypatch, capsys):
     tot = timers.totals(timers.records(), ("psac.construct", "psac.st"))
     assert calls and sum(calls) > 0
     assert tot.count("bucket_rows_on_card") == 0
+
+
+# ---------------------------------------------------------- GSA and GST
+
+def _gsa_set():
+    """Near-identical strings, their repeats and short strings: dense
+    steps, identical whole suffixes and ``$``-edges."""
+    from psac_tpu_torch.verify.cases import near_identical_family
+
+    parts = near_identical_family(6, 400, 3, seed=8)
+    return parts + parts[:2] + [b"ACGT", b"CGT", b"GT", b"T", b"T"]
+
+
+def _true_counts(parts):
+    """(identical whole suffixes after the first of each group, ``$``-edges
+    among the leaves) of the set, from the host oracle."""
+    from psac_tpu_torch.verify.gsa_oracle import gsa_oracle
+
+    sa, lcp = gsa_oracle(parts)
+    lens = np.array([len(x) for x in parts])
+    rem = np.repeat(np.cumsum(lens), lens)[sa] - sa
+    ties = int(((lcp[1:] == rem[1:]) & (lcp[1:] == rem[:-1])).sum())
+    depth = np.maximum(lcp, np.append(lcp[1:], 0))
+    return ties, int(((rem == depth) & (depth > 0)).sum())
+
+
+def _gsa_and_gst(buf, **cfg):
+    from psac_tpu_torch.models.gsa import build_gsa_device
+    from psac_tpu_torch.models.suffix_tree import construct_gst_device
+
+    dg = build_gsa_device(buf, "cpu", SAConfig(**cfg))
+    return dg, construct_gst_device(dg)
+
+
+def test_gsa_and_gst_span_trees(monkeypatch, capsys):
+    """``psac.gsa`` holds staging's phases, the split, eos, the
+    construction's phases and the tie-fix (no construction span hangs
+    loose); ``psac.gst`` holds ``psac.st.ansv``, ``.nodes`` and
+    ``.dollar``; the counters read their true values."""
+    monkeypatch.setenv("PSAC_TIMER", "1")
+    parts = _gsa_set()
+    dg, _ = _gsa_and_gst(b"\n".join(parts) + b"\n")
+    capsys.readouterr()
+    recs = timers.records()
+    (g,) = roots(recs, "psac.gsa")
+    assert g.attrs == {"n": dg.n, "N": dg.N, "strings": len(parts)}
+    kids = [r.name for r in sorted(under(recs, g), key=lambda r: r.t0)]
+    assert kids[:3] == ["psac.stage.copy", "psac.stage.upload",
+                        "psac.stage.count"]
+    assert kids[3:6] == ["psac.gsa.split", "psac.stage.decode",
+                         "psac.gsa.eos"]
+    assert kids[6] == "psac.construct.init" and kids[-1] == "psac.gsa.tiefix"
+    assert "psac.construct.dense" in kids
+    assert not [r for r in recs if r.root == r.id and r is not g
+                and r.name.startswith(("psac.construct", "psac.stage"))]
+    (t,) = roots(recs, "psac.gst")
+    assert t.attrs == {"n": dg.n}
+    assert [r.name for r in sorted(under(recs, t), key=lambda r: r.t0)] == [
+        "psac.st.ansv", "psac.gst.nodes", "psac.gst.dollar",
+        "psac.gst.nodes", "psac.gst.dollar"]
+    ties, dollar = _true_counts(parts)
+    tot = timers.totals(recs, "psac.gsa")
+    assert (tot.count("gsa_strings"), tot.count("gsa_tie_rows"),
+            tot.count("gsa_redo")) == (len(parts), ties, 0)
+    assert ties > 0 and dollar > 0
+    assert timers.totals(recs, "psac.gst").count("gst_dollar_edges") == \
+        dollar
+
+
+def test_gsa_redo_is_counted(monkeypatch, capsys):
+    """Where the fused path stops with work left (its loops bounded at 0
+    iterations) the build is redone on the host-driven loop: ``gsa_redo``
+    reads 1, and the tie-fix still fills its rows once."""
+    monkeypatch.setenv("PSAC_TIMER", "1")
+    monkeypatch.setattr(t_sa, "fused_max_iters", lambda N: 0)
+    parts = _gsa_set()
+    _gsa_and_gst(b"\n".join(parts))
+    err = capsys.readouterr().err
+    assert "did not converge" in err
+    tot = timers.totals(timers.records(), "psac.gsa")
+    assert tot.count("gsa_redo") == 1
+    assert tot.count("gsa_tie_rows") == _true_counts(parts)[0]
+
+
+def test_gsa_and_gst_tracer_adds_no_readback(monkeypatch):
+    """The counters made on the device are read when the records are
+    taken: a traced GSA and GST read back what an untraced one does."""
+    buf = b"\n".join(_gsa_set())
+    counts = []
+    for on in (False, True):
+        if on:
+            monkeypatch.setenv("PSAC_TIMER", "1")
+        else:
+            monkeypatch.delenv("PSAC_TIMER", raising=False)
+        with monkeypatch.context() as m:
+            calls = _readback_spies(m)
+            _gsa_and_gst(buf)
+        counts.append(calls)
+    assert counts[0] == counts[1]
+    assert "synchronize" not in counts[1]
+    assert timers.totals(timers.records(), "psac.gst").count(
+        "gst_dollar_edges") > 0
