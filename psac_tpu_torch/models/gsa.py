@@ -57,7 +57,7 @@ import torch
 from psac_tpu_torch import config as cfg_mod
 from psac_tpu_torch.models.suffix_array import (_Builder, _count_and_decode,
                                                 _decode_staged, _read,
-                                                device_of, host_tensor,
+                                                device_of, host_int64,
                                                 index_dtype_for,
                                                 kmer_words_for)
 from psac_tpu_torch.ops.alphabet import Alphabet
@@ -134,13 +134,12 @@ class DeviceGSA:
                    N=N, mesh=mesh)
 
     def materialize(self) -> GeneralizedSuffixArray:
-        off = self.N - self.n
-        sa = host_tensor(self.sa)[off:].numpy().astype(np.int64)
-        lcp = None
-        if self.lcp is not None:
-            lcp = host_tensor(self.lcp)[off:].numpy().astype(np.int64)
-            if self.n > 0:
-                lcp[0] = 0
+        """The real rows' GSA and GLCP as host int64 arrays
+        (``host_int64``: from a card, in pinned host memory that torch's
+        host cache keeps for reuse once they are dropped)."""
+        sa, lcp = host_int64(self.sa, self.lcp, cut=self.N - self.n)
+        if lcp is not None and self.n > 0:
+            lcp[0] = 0
         return GeneralizedSuffixArray(sa=sa, lcp=lcp, alphabet=self.alphabet,
                                       lens=self.lens, n=self.n)
 

@@ -108,12 +108,80 @@ class SuffixArray:
     n: int
 
 
-def host_tensor(x) -> torch.Tensor:
-    """A device tensor, or a ``Sharded`` array gathered, as a CPU tensor
-    (raises for an array whose shards span processes, as the JAX
-    ``device_get`` does: ``parallel.dist.process_allgather`` gathers
-    it)."""
-    return x.gather() if isinstance(x, Sharded) else x.cpu()
+def host_int64(*arrays, cut: int, width: int = 1) -> list:
+    """Each array's rows from ``cut`` on (the array taken as rows of
+    ``width``, a 2-D table for width > 1) as a new C-contiguous, writable
+    host int64 array that shares no memory with its source (None stays
+    None); the path follows the arrays' kind:
+
+    - a CUDA tensor is cut and widened on its card, one array at a time
+      (one int64 temporary alive; none for an int64 source), and copied by
+      one DMA into a block of pinned host memory from torch's caching host
+      allocator, which the returned array's base holds.  Once the caller
+      drops the arrays their blocks go back to that cache, which keeps
+      them pinned for the next call: no ``cudaHostAlloc``, no page faults,
+      no bounce buffer.  The DMA of each array but the last is queued in
+      the ``psac.materialize.widen`` span, before the next widen, and the
+      ``psac.materialize.copy`` span queues the last and waits for all;
+      its counters ``materialize_bytes_direct`` (the bytes DMA'd into the
+      returned arrays) and ``materialize_host_allocs`` (the pinned blocks
+      the call had to allocate: 0 when the cache served it);
+    - a CPU tensor is cut and widened on the host into a new array;
+    - a ``Sharded`` array is gathered (raising for an array whose shards
+      span processes, as the JAX ``device_get`` does:
+      ``parallel.dist.process_allgather`` gathers it), then widened on the
+      host."""
+    live = [a for a in arrays if a is not None]
+    if any(isinstance(a, Sharded) for a in live):
+        with timers.span("psac.materialize.copy"):
+            host = [a.gather() for a in live]
+            timers.readback(len(live))
+        with timers.span("psac.materialize.widen"):
+            outs = [_rows(h, cut, width).numpy().astype(np.int64)
+                    for h in host]
+    else:
+        outs = _widen_and_copy(live, cut, width)
+    it = iter(outs)
+    return [None if a is None else next(it) for a in arrays]
+
+
+def _widen_and_copy(live: list, cut: int, width: int) -> list:
+    dev = live[0].device
+    pinned = dev.type == "cuda"
+    stats = pinned and timers.current() is not None
+    allocs = _host_allocs() if stats else 0
+    outs, w = [], None
+
+    def copy(t):
+        dst = torch.empty(t.shape, dtype=torch.int64, pin_memory=pinned)
+        outs.append(dst.copy_(t, non_blocking=pinned).numpy())
+
+    with timers.span("psac.materialize.widen", dev):
+        for a in live:
+            if w is not None:
+                copy(w)
+                w = None  # frees the temporary before the next widen
+            w = _rows(a, cut, width).to(torch.int64)
+    with timers.span("psac.materialize.copy", dev):
+        copy(w)
+        if pinned:
+            torch.cuda.current_stream(dev).synchronize()
+            if stats:
+                timers.count("materialize_bytes_direct",
+                             sum(o.nbytes for o in outs))
+                timers.count("materialize_host_allocs",
+                             _host_allocs() - allocs)
+        timers.readback(len(live))
+    return outs
+
+
+def _rows(x: torch.Tensor, cut: int, width: int) -> torch.Tensor:
+    return (x if width == 1 else x.view(-1, width))[cut:]
+
+
+def _host_allocs() -> int:
+    """The pinned blocks torch's caching host allocator has allocated."""
+    return torch.cuda.host_memory_stats()["num_host_alloc"]
 
 
 def device_of(x):
@@ -163,19 +231,13 @@ class DeviceSuffixArray:
                    n=n, N=N, mesh=mesh)
 
     def materialize(self) -> SuffixArray:
-        dev = device_of(self.sa)
-        with timers.call("psac.materialize", dev, n=self.n):
-            with timers.span("psac.materialize.copy", dev):
-                sa = host_tensor(self.sa)
-                lcp = None if self.lcp is None else host_tensor(self.lcp)
-                timers.readback(1 if lcp is None else 2)
-            with timers.span("psac.materialize.widen"):
-                cut = self.N - self.n
-                sa = sa[cut:].numpy().astype(np.int64)
-                if lcp is not None:
-                    lcp = lcp[cut:].numpy().astype(np.int64)
-                    if self.n > 0:
-                        lcp[0] = 0
+        """The real rows' SA and LCP as host int64 arrays (``host_int64``:
+        from a card, in pinned host memory that torch's host cache keeps
+        for reuse once they are dropped)."""
+        with timers.call("psac.materialize", device_of(self.sa), n=self.n):
+            sa, lcp = host_int64(self.sa, self.lcp, cut=self.N - self.n)
+        if lcp is not None and self.n > 0:
+            lcp[0] = 0
         return SuffixArray(sa=sa, lcp=lcp, alphabet=self.alphabet, n=self.n)
 
 

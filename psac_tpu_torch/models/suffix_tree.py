@@ -41,7 +41,7 @@ import torch
 from psac_tpu_torch.config import SAConfig
 from psac_tpu_torch.models.suffix_array import (DeviceSuffixArray,
                                                 construct_device, device_of,
-                                                encode_and_shard, host_tensor)
+                                                encode_and_shard, host_int64)
 from psac_tpu_torch.ops.ansv import FURTHEST_EQ, NEAREST_SM
 from psac_tpu_torch.parallel.ansv import (KERNELS, AnsvKernels, ansv_local,
                                           ansv_mesh_local, nonsv_for)
@@ -64,8 +64,12 @@ class DeviceSuffixTree:
     N: int
 
     def materialize(self) -> np.ndarray:
-        full = host_tensor(self.nodes).view(self.N, self.sigma + 1)
-        return full[self.N - self.n:].numpy().astype(np.int64)
+        """The real rows of the table, (n, sigma + 1), as a host int64
+        array (``host_int64``: from a card, in pinned host memory that
+        torch's host cache keeps for reuse once it is dropped)."""
+        (nodes,) = host_int64(self.nodes, cut=self.N - self.n,
+                              width=self.sigma + 1)
+        return nodes
 
 
 def _check_local_table(N: int, width: int, idt: torch.dtype) -> None:

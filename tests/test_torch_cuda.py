@@ -1820,3 +1820,122 @@ def test_staging_blocks_on_one_card(cuda):
     got = stage_bytes_block(text, make_mesh(4, devices=[cuda] * 4))[0]
     for g, w in zip(got.shards, want.shards):
         assert g.device == cuda and torch.equal(g.cpu(), w)
+
+
+def _materialize_traced(monkeypatch, obj):
+    """``obj.materialize()`` under ``PSAC_TIMER`` in a span of its own (the
+    GSA's and the tree's have no call span), with the rise of the card's
+    allocated memory it made and its ``psac.materialize.copy`` counters."""
+    from psac_tpu_torch.utils import timers
+
+    monkeypatch.setenv("PSAC_TIMER", "1")
+    timers.clear()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with timers.call("test.materialize"):
+        res = obj.materialize()
+    rise = torch.cuda.max_memory_allocated() - before
+    (copy,) = [r for r in timers.records()
+               if r.name == "psac.materialize.copy"]
+    timers.clear()
+    return res, rise, copy.counts
+
+
+def test_host_arrays_from_the_card(cuda, monkeypatch):
+    """A 2^24-char build's SA and LCP come back equal to the CPU path's, by
+    one DMA each into pinned blocks (16n bytes), with one int64 temporary
+    of n rows on the card at a time; once the arrays are dropped, the next
+    ``materialize`` gets its blocks from torch's host cache (no new
+    pinned allocation)."""
+    from psac_tpu_torch.models import suffix_array as t_sa
+    from psac_tpu_torch.ops.alphabet import rand_dna
+
+    xs, alpha, n, N = t_sa.encode_and_shard(rand_dna(1 << 24, seed=27),
+                                            cuda)
+    dsa = t_sa.construct_device(xs, alpha, n, N)
+    del xs
+    want = t_sa.DeviceSuffixArray(sa=dsa.sa.cpu(), lcp=dsa.lcp.cpu(),
+                                  isa=dsa.isa.cpu(), alphabet=alpha, n=n,
+                                  N=N).materialize()
+    block = 2 << 20  # the caching allocator's rounding of large blocks
+    for call in range(2):
+        got, rise, counts = _materialize_traced(monkeypatch, dsa)
+        assert rise <= -(-8 * n // block) * block, call
+        for name in ("sa", "lcp"):
+            a = getattr(got, name)
+            np.testing.assert_array_equal(a, getattr(want, name))
+            assert a.dtype == np.int64 and a.flags.writeable
+            assert isinstance(a.base, torch.Tensor) and a.base.is_pinned()
+        assert counts["materialize_bytes_direct"] == 16 * n
+        assert counts["readbacks"] == 2
+        if call:
+            assert counts["materialize_host_allocs"] == 0
+        del got, a  # the blocks go back to the host cache
+
+
+@pytest.mark.parametrize("what", ["int64", "gsa", "suffix_tree"])
+def test_materialize_on_the_card_as_on_the_cpu(cuda, monkeypatch, what):
+    """An int64 build (no temporary on the card), a GSA and a suffix tree's
+    (n, sigma + 1) table materialize from the card as from the same state
+    on the CPU, and leave the state on the card as it was."""
+    from psac_tpu_torch import SAConfig
+    from psac_tpu_torch.models import gsa as t_gsa
+    from psac_tpu_torch.models import suffix_array as t_sa
+    from psac_tpu_torch.models import suffix_tree as t_st
+    from psac_tpu_torch.ops.alphabet import rand_dna
+
+    text = rand_dna(1 << 20, seed=28)
+    if what == "gsa":
+        parts = [text[i:i + 150] for i in range(0, len(text), 150)]
+        dev = t_gsa.build_gsa_device(parts, cuda)
+        host = t_gsa.DeviceGSA(sa=dev.sa.cpu(), lcp=dev.lcp.cpu(),
+                               eos=dev.eos.cpu(), xs=dev.xs.cpu(),
+                               alphabet=dev.alphabet, lens=dev.lens, n=dev.n,
+                               N=dev.N)
+        keys = ("sa", "lcp")
+    else:
+        cfg = SAConfig(force_int64=what == "int64")
+        xs, alpha, n, N = t_sa.encode_and_shard(text, cuda)
+        dsa = t_sa.construct_device(xs, alpha, n, N, cfg)
+        if what == "int64":
+            assert dsa.sa.dtype == torch.int64
+            dev = dsa
+            host = t_sa.DeviceSuffixArray(sa=dsa.sa.cpu(), lcp=dsa.lcp.cpu(),
+                                          isa=dsa.isa.cpu(), alphabet=alpha,
+                                          n=n, N=N)
+            keys = ("sa", "lcp")
+        else:
+            dev = t_st.construct_suffix_tree_device(dsa, xs)
+            host = t_st.DeviceSuffixTree(nodes=dev.nodes.cpu(),
+                                         sigma=dev.sigma, n=dev.n, N=dev.N)
+            keys = ("nodes",)
+    state = {k: getattr(dev, k).clone() for k in keys}
+    got, rise, counts = _materialize_traced(monkeypatch, dev)
+    want = host.materialize()
+    if what == "suffix_tree":
+        got, want = {"nodes": got}, {"nodes": want}
+        assert got["nodes"].shape == (dev.n, dev.sigma + 1)
+    else:
+        got, want = vars(got), vars(want)
+    for k in keys:
+        assert got[k].base.is_pinned(), k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        assert torch.equal(getattr(dev, k), state[k]), k
+    assert counts["materialize_bytes_direct"] == sum(got[k].nbytes
+                                                     for k in keys)
+    if what == "int64":
+        assert rise == 0
+
+
+@pytest.mark.parametrize("n", [0, 1, 4099])
+@pytest.mark.parametrize("width", [1, 5])
+def test_host_int64_small_on_the_card(cuda, n, width):
+    """The card's path at the edges: no rows, one row, rows of a table."""
+    from psac_tpu_torch.models.suffix_array import host_int64
+
+    x = torch.arange((n + 7) * width, dtype=torch.int32)
+    (got,) = host_int64(x.to(cuda), cut=7, width=width)
+    (want,) = host_int64(x, cut=7, width=width)
+    assert got.shape == want.shape == ((n,) if width == 1 else (n, width))
+    np.testing.assert_array_equal(got, want)

@@ -300,8 +300,8 @@ def test_tree_host_arrays_and_staging(monkeypatch, capsys):
             ("psac.stage", ["psac.stage.copy", "psac.stage.upload",
                             "psac.stage.count", "psac.stage.decode"]),
             ("psac.st", ["psac.st.ansv", "psac.st.nodes"]),
-            ("psac.materialize", ["psac.materialize.copy",
-                                  "psac.materialize.widen"])):
+            ("psac.materialize", ["psac.materialize.widen",
+                                  "psac.materialize.copy"])):
         (root,) = roots(recs, root_name)
         got = sorted(under(recs, root), key=lambda r: r.t0)
         assert [r.name for r in got] == kids
